@@ -1,0 +1,69 @@
+"""Exact k-nearest-neighbour search, written plainly in PyTorch.
+
+This is the CPU path of the correspondence search and the plain
+version of the hand-written kernel in `ops.knn_fused`: both compute the
+same function, bit for bit.
+
+* Squared distances are ``(dx·dx + dy·dy) + dz·dz`` in f32, each product
+  and sum rounded on its own (the kernel uses the same rounded
+  operations, so it emits the same bits).
+* The k smallest per query, ascending; equal distances go to the lower
+  reference index.
+* Masked-out references never match.  Queries at or past
+  ``query_count``, missing neighbours (fewer than k valid references)
+  and, when ``max_radius`` is given, neighbours farther than it read
+  ``BIG`` with index 0.
+"""
+from __future__ import annotations
+
+import torch
+
+BIG = 1e30
+
+
+def sq_dist(q: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
+    """(Q, 3) x (M, 3) -> (Q, M) exact f32 squared distances."""
+    dx = q[:, None, 0] - r[None, :, 0]
+    dy = q[:, None, 1] - r[None, :, 1]
+    dz = q[:, None, 2] - r[None, :, 2]
+    d = dx * dx
+    d = d + dy * dy
+    return d + dz * dz
+
+
+def finish(d: torch.Tensor, idx: torch.Tensor, max_radius: float | None):
+    """Apply the radius gate and the BIG/index-0 convention to selected
+    (Q, k) distances and indices."""
+    far = d >= 0.5 * BIG
+    if max_radius is not None:
+        far = far | (d > float(max_radius) ** 2)
+    d = torch.where(far, torch.full_like(d, BIG), d)
+    idx = torch.where(far, torch.zeros_like(idx), idx)
+    return d, idx.to(torch.int32)
+
+
+def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
+        ref_mask: torch.Tensor, k: int = 5,
+        query_count: torch.Tensor | int | None = None,
+        max_radius: float | None = None):
+    """(Q, k) ascending squared distances and int32 indices (module doc).
+
+    Reads the valid prefixes on the host, so on CUDA it synchronises:
+    it is the reference the kernel is held against, not a device path.
+    """
+    nq_rows = query_xyz.shape[0]
+    dev = query_xyz.device
+    out_d = torch.full((nq_rows, k), BIG, dtype=torch.float32, device=dev)
+    out_i = torch.zeros((nq_rows, k), dtype=torch.int64, device=dev)
+    valid = torch.nonzero(ref_mask).flatten()
+    n_ref = int(valid[-1]) + 1 if valid.numel() else 0
+    n_q = nq_rows if query_count is None else min(int(query_count), nq_rows)
+    if n_ref and n_q:
+        d = sq_dist(query_xyz[:n_q].float(), ref_xyz[:n_ref].float())
+        d = torch.where(ref_mask[None, :n_ref], d,
+                        torch.full_like(d, float("inf")))
+        kk = min(k, n_ref)
+        d_s, i_s = torch.sort(d, dim=1, stable=True)
+        out_d[:n_q, :kk] = d_s[:, :kk]
+        out_i[:n_q, :kk] = i_s[:, :kk]
+    return finish(out_d, out_i, max_radius)

@@ -1,0 +1,231 @@
+"""Per-frame odometry and mapping (reference `Laser_mapping`:
+``source/laser_mapping.hpp:1316-1660`` `process_new_scan` and
+``:460-566`` `update_buff_for_matching`), history matching mode.
+
+    state, reg = odometry_step(state, frame, cfg)
+
+* ICP inputs are voxel-filtered: corners at the line resolution,
+  surfaces at the plane resolution (reference :1368-1373);
+* ICP runs after ``init_accumulate_frames`` (reference config :28-30);
+* a rejected frame changes neither the pose nor the map (:1416-1420);
+* registered features go to the world frame with per-point deblur and
+  are voxel-filtered again before they enter the history ring
+  (:1422-1437), gated on motion and the window size (:1444-1487);
+* the matching buffer is the voxel-filtered history window (:517-537),
+  rebuilt in full on every 4th frame and appended to in between.
+
+The state carries only what this path reads.  The JAX package's
+``OdometryState`` also holds the feature and full-cloud cell maps and
+the touched-cell mask (1-slot dummies unless cell matching or loop
+closure is on), the bucket grids (read only by the grid engine) and an
+rng key (used only for residual subsampling, which is off); the port
+drops them.  The frame counter, ring pointer and ring length are host
+integers: the host decides from them whether to register, rebuild or
+append.
+
+After registration the host reads one flag, whether the frame enters
+the history (`SYNCS`); rebuild and append follow from it on the host.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple, Tuple
+
+import torch
+
+from ..core import se3
+from ..core.config import SlamConfig, require_supported
+from ..core.types import FeatureFrame, PointBatch
+from ..ops.voxel import voxel_downsample
+from ..registration import residuals as res
+from ..registration.icp import RegistrationResult, refine_blur, register_frame
+
+#: host reads of the history-admission flag since the last reset
+SYNCS = {"admit": 0}
+
+
+class OdometryState(NamedTuple):
+    q_w: torch.Tensor               # (4,) world pose
+    t_w: torch.Tensor               # (3,)
+    frame_count: int                # frames processed
+    hist_corner_xyz: torch.Tensor   # (W, Ch, 3) world-frame history ring
+    hist_corner_mask: torch.Tensor  # (W, Ch)
+    hist_surf_xyz: torch.Tensor     # (W, Cs, 3)
+    hist_surf_mask: torch.Tensor    # (W, Cs)
+    hist_ptr: int                   # next ring slot
+    hist_len: int                   # valid ring entries
+    last_his_q: torch.Tensor        # pose of the last admitted frame
+    last_his_t: torch.Tensor
+    last_q_incre: torch.Tensor      # last accepted increment
+    last_t_incre: torch.Tensor
+    map_corners: PointBatch         # matching buffer
+    map_surface: PointBatch
+
+
+def init_state(cfg: SlamConfig, device) -> OdometryState:
+    require_supported(cfg)
+    caps = cfg.capacity
+    w = caps.history_window
+    f32 = dict(dtype=torch.float32, device=device)
+    return OdometryState(
+        q_w=se3.quat_identity(device=device),
+        t_w=torch.zeros(3, **f32),
+        frame_count=0,
+        hist_corner_xyz=torch.zeros((w, caps.hist_corner_capacity, 3), **f32),
+        hist_corner_mask=torch.zeros((w, caps.hist_corner_capacity),
+                                     dtype=torch.bool, device=device),
+        hist_surf_xyz=torch.zeros((w, caps.hist_surf_capacity, 3), **f32),
+        hist_surf_mask=torch.zeros((w, caps.hist_surf_capacity),
+                                   dtype=torch.bool, device=device),
+        hist_ptr=0,
+        hist_len=0,
+        last_his_q=se3.quat_identity(device=device),
+        last_his_t=torch.zeros(3, **f32),
+        last_q_incre=se3.quat_identity(device=device),
+        last_t_incre=torch.zeros(3, **f32),
+        map_corners=PointBatch.empty(caps.map_corner_capacity, device),
+        map_surface=PointBatch.empty(caps.map_surf_capacity, device),
+    )
+
+
+def rebuild_matching_buffer(state: OdometryState, cfg: SlamConfig
+                            ) -> Tuple[PointBatch, PointBatch]:
+    """The voxel-filtered history window at the registration leaves
+    (reference :517-537)."""
+    fe, caps = cfg.feature_extraction, cfg.capacity
+
+    def flat(xyz, mask):
+        n = xyz.shape[0] * xyz.shape[1]
+        return PointBatch(xyz=xyz.reshape(n, 3),
+                          time=torch.zeros(n, device=xyz.device),
+                          mask=mask.reshape(n))
+
+    corners = voxel_downsample(flat(state.hist_corner_xyz, state.hist_corner_mask),
+                               fe.mapping_line_resolution,
+                               capacity=caps.map_corner_capacity, with_time=False)
+    surface = voxel_downsample(flat(state.hist_surf_xyz, state.hist_surf_mask),
+                               fe.mapping_plane_resolution,
+                               capacity=caps.map_surf_capacity, with_time=False)
+    return corners, surface
+
+
+def append_to_buffer(buf: PointBatch, pts: PointBatch) -> PointBatch:
+    """Write ``pts`` (all its slots) at the end of the buffer's valid
+    prefix, the start clipped to ``capacity − pts.capacity``."""
+    c, p = buf.capacity, pts.capacity
+    start = torch.clamp(buf.mask.sum(), 0, c - p)
+    rows = start + torch.arange(p, device=buf.xyz.device)
+    xyz = buf.xyz.clone()
+    mask = buf.mask.clone()
+    xyz[rows] = pts.xyz
+    mask[rows] = pts.mask
+    return PointBatch(xyz=xyz, time=buf.time, mask=mask)
+
+
+def rebuild_interval(cfg: SlamConfig) -> int:
+    """Frames between full rebuilds: the configured cadence, or with 0
+    the staleness the profile tolerates (delay time over the 0.1 s scan
+    period), at least 4 when appends keep the newest frame in the buffer."""
+    caps = cfg.capacity
+    interval = int(caps.matching_rebuild_interval)
+    if interval == 0:
+        interval = max(1, round(cfg.mapping.maximum_pointcloud_delay_time / 0.1))
+        if caps.matching_append_mode:
+            interval = max(interval, 4)
+    return max(interval, 1)
+
+
+def input_downsample(frame: FeatureFrame, cfg: SlamConfig):
+    """ICP input voxel filter (reference :1368-1373)."""
+    fe, caps = cfg.feature_extraction, cfg.capacity
+    if cfg.mapping.input_downsample_mode:
+        return (voxel_downsample(frame.corners, fe.mapping_line_resolution,
+                                 capacity=caps.max_corner_ds),
+                voxel_downsample(frame.surface, fe.mapping_plane_resolution,
+                                 capacity=caps.max_surface_ds))
+    return frame.corners, frame.surface
+
+
+def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
+                  ) -> Tuple[OdometryState, RegistrationResult]:
+    """Register one feature frame, then update the history and the
+    matching buffer."""
+    corner_in, surf_in = input_downsample(frame, cfg)
+    reg = register_frame(
+        corner_in, surf_in, state.map_corners, state.map_surface,
+        state.q_w, state.t_w, frame.time_min, frame.time_max,
+        state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
+        q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre)
+    return commit_frame(state, frame, corner_in, surf_in, reg, cfg)
+
+
+def commit_frame(state: OdometryState, frame: FeatureFrame,
+                 corner_in: PointBatch, surf_in: PointBatch,
+                 reg: RegistrationResult, cfg: SlamConfig
+                 ) -> Tuple[OdometryState, RegistrationResult]:
+    """Pose policy, history ring and matching buffer after registration
+    (reference :1413-1564).  Returns a new state; the input state's
+    tensors are not modified."""
+    fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
+    deblur = bool(cfg.common.if_motion_deblur)
+
+    if mp.reject_recovery_mode == 1:
+        rejected = reg.enabled & ~reg.accepted
+        coast_q = se3.quat_normalize(se3.quat_multiply(state.q_w, state.last_q_incre))
+        coast_t = se3.quat_rotate(state.q_w, state.last_t_incre) + state.t_w
+        reg = reg._replace(q_w=torch.where(rejected, coast_q, reg.q_w),
+                           t_w=torch.where(rejected, coast_t, reg.t_w))
+    took = reg.accepted & reg.enabled
+    last_q_incre = torch.where(took, reg.q_incre, state.last_q_incre)
+    last_t_incre = torch.where(took, reg.t_incre, state.last_t_incre)
+
+    # world transform with deblur (reference :1422-1437)
+    def to_world(pts: PointBatch, leaf: float, cap: int) -> PointBatch:
+        s = refine_blur(pts.time, frame.time_min, frame.time_max, deblur)
+        xyz = res.transform_points_incre(reg.q_incre, reg.t_incre, pts.xyz, s,
+                                         state.q_w, state.t_w, deblur)
+        return voxel_downsample(pts._replace(xyz=xyz), leaf, capacity=cap)
+
+    corner_w = to_world(corner_in, fe.mapping_line_resolution, caps.hist_corner_capacity)
+    surf_w = to_world(surf_in, fe.mapping_plane_resolution, caps.hist_surf_capacity)
+
+    # history admission (reference :1444-1463): the frame's one host sync
+    r_diff = se3.quat_angular_distance(reg.q_w, state.last_his_q) * 57.3
+    t_diff = torch.linalg.vector_norm(reg.t_w - state.last_his_t)
+    moved = ((t_diff > mp.history_add_t_step)
+             | (r_diff > mp.history_add_angle_step * 57.3))
+    window_open = state.hist_len < mp.maximum_histroy_buffer
+    SYNCS["admit"] += 1
+    admit = bool(reg.accepted & (moved | window_open))
+
+    new = state._replace(q_w=reg.q_w, t_w=reg.t_w,
+                         frame_count=state.frame_count + 1,
+                         last_q_incre=last_q_incre, last_t_incre=last_t_incre)
+    if not admit:
+        return new, reg
+
+    w = caps.history_window
+    slot = state.hist_ptr
+
+    def write(ring, value):
+        ring = ring.clone()
+        ring[slot] = value
+        return ring
+
+    new = new._replace(
+        hist_corner_xyz=write(state.hist_corner_xyz, corner_w.xyz),
+        hist_corner_mask=write(state.hist_corner_mask, corner_w.mask),
+        hist_surf_xyz=write(state.hist_surf_xyz, surf_w.xyz),
+        hist_surf_mask=write(state.hist_surf_mask, surf_w.mask),
+        hist_ptr=(slot + 1) % w,
+        hist_len=min(state.hist_len + 1, w),
+        last_his_q=reg.q_w, last_his_t=reg.t_w)
+
+    interval = rebuild_interval(cfg)
+    if interval == 1 or state.frame_count % interval == 0:
+        map_c, map_s = rebuild_matching_buffer(new, cfg)
+    elif caps.matching_append_mode:
+        map_c = append_to_buffer(state.map_corners, corner_w)
+        map_s = append_to_buffer(state.map_surface, surf_w)
+    else:
+        return new, reg
+    return new._replace(map_corners=map_c, map_surface=map_s), reg
