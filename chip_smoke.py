@@ -1,18 +1,23 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port (``loam_livox_tpu_torch``) on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--baseline DIR]
 
 Phases, each printing one JSON line; any failure exits nonzero:
 
 1. card      the GPU's name and power limit (nvidia-smi);
 2. build     every CUDA kernel of the main path, from ``csrc/`` (one nvcc
-             per source, all started together);
+             per source, all started together), with ptxas's registers
+             and spills;
 3. kernel    each kernel against its plain PyTorch version at the main
              path's shapes (corners 512 x 16,384 within sqrt(2) m;
-             surfaces 2,048 x 65,536 within sqrt(50) m; full buffers and
-             5 % prefixes), with its time beside the plain version's and
-             a ``torch.cdist`` + ``topk`` yardstick;
+             surfaces 2,048 x 65,536 within sqrt(50) m; full buffers,
+             5 % prefixes, and 200 queries at the main path's 1.6 %
+             fill), bit for bit, with the wrapper's time, the kernel's
+             alone (profiler), the plain version's, a ``torch.cdist`` +
+             ``topk`` yardstick and the bound of `ops.knn_fused.search_work`.
+             ``--baseline DIR`` (an earlier checkout) times its kernel in
+             turns with this one's on the same inputs;
 4. reference the port on the card against the port on the CPU (the path
              the CPU tests hold against the JAX package) on a small
              stream: aligned ATE within 0.05 m, accepted counts within 2;
@@ -80,89 +85,86 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
-def knn_work(q, n_q, op, radius):
-    """Distance evaluations the kernel's skipping leaves for these inputs
-    (valid query prefix x 256-reference groups not skipped), and the
-    bytes it must move (queries, valid reference rows and boxes read
-    once, the k-lists written once)."""
+def device_ms(fn, reps: int) -> float:
+    """Mean device time per call of the ``knn_fused`` kernels that ``fn``
+    launches (torch.profiler's kernel records), after two warm-up calls:
+    the kernel alone, whatever the wrapper around it does."""
     import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    from loam_livox_tpu_torch.ops import knn_fused as kf
-
-    tile = 128
-    n_q = int(n_q)
-    n_ref = int(op.n_ref)
-    qv = q[:n_q]
-    n_tiles = -(-n_q // tile)
-    pad = n_tiles * tile - n_q
-    inf = torch.full((pad, 3), float("inf"), device=q.device)
-    lo = torch.cat([qv, inf]).reshape(n_tiles, tile, 3).amin(1)
-    hi = torch.cat([qv, -inf]).reshape(n_tiles, tile, 3).amax(1)
-    counts = torch.clamp(n_q - torch.arange(n_tiles, device=q.device) * tile, max=tile)
-    n_groups = -(-n_ref // kf.GROUP)
-    glo, ghi = op.boxes[:n_groups, 0:3], op.boxes[:n_groups, 4:7]
-    gap = torch.clamp(torch.maximum(glo[None] - hi[:, None], lo[:, None] - ghi[None]), min=0)
-    near = (glo[None, :, 0] <= ghi[None, :, 0])
-    if radius is not None:
-        near = near & ((gap * gap).sum(-1) <= radius ** 2)
-    pairs = int((near.sum(1) * counts).sum()) * kf.GROUP
-    bytes_ = n_q * 12 + n_ref * 16 + n_groups * 32 + n_q * 5 * 8
-    return pairs, bytes_
-
-
-def compare_kernel(q, ref, mask, n_q, radius, reps=20):
-    """Kernel vs plain on one input: errors, times, bound."""
-    import torch
-
-    from loam_livox_tpu_torch.ops import knn_fused as kf
-    from loam_livox_tpu_torch.ops.knn import BIG, knn
-
-    op = kf.build_ref_operand(ref, mask)
-    d, i = kf.knn_fused(q, ref, mask, k=5, ref_op=op, query_count=n_q, max_radius=radius)
-    dp, ip = knn(q, ref, mask, k=5, query_count=n_q, max_radius=radius)
+    fn()
+    fn()
     torch.cuda.synchronize()
-    live = dp < 0.5 * BIG
-    if not torch.equal(d < 0.5 * BIG, live):
-        raise AssertionError("kernel and plain disagree on which neighbours exist")
-    err = float((d[live] - dp[live]).abs().max()) if live.any() else 0.0
-    rel = float(((d[live] - dp[live]).abs() / dp[live].clamp(min=1e-12)).max()) if live.any() else 0.0
-    # Indices must agree wherever the k-th neighbour is inside the gate,
-    # except at near-ties (equal distances within 1e-5 relative).
-    in_gate = live[:, -1]
-    differ = (i != ip) & in_gate[:, None]
-    tie = (d - dp).abs() <= 1e-5 * dp.abs().clamp(min=1e-12)
-    if rel > 1e-5 or bool((differ & ~tie).any()):
-        raise AssertionError(f"kernel disagrees with plain: rel {rel}, "
-                             f"index mismatches {int(differ.sum())}")
-    ms = time_ms(lambda: kf.knn_fused(q, ref, mask, k=5, ref_op=op,
-                                      query_count=n_q, max_radius=radius), reps)
-    # the kernel alone, without the wrapper's merge over chunks
-    n_chunks = op.ref4.shape[0] // kf.CHUNK
-    part_d = torch.empty((n_chunks, 5, q.shape[0]), device=q.device)
-    part_i = torch.empty((n_chunks, 5, q.shape[0]), dtype=torch.int32, device=q.device)
-    counts = torch.stack([op.n_ref, n_q.to(torch.int32)]).contiguous()
-    launch = kf._library()
-    stream = torch.cuda.current_stream().cuda_stream
-    kernel_ms = time_ms(lambda: launch(
-        q.data_ptr(), q.shape[0], op.ref4.data_ptr(), op.boxes.data_ptr(),
-        op.ref4.shape[0], counts.data_ptr(), float(radius) ** 2, 5,
-        part_d.data_ptr(), part_i.data_ptr(), stream), reps)
-    plain_ms = time_ms(lambda: knn(q, ref, mask, k=5, query_count=n_q,
-                                   max_radius=radius), max(3, reps // 5))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA and "knn_fused" in e.key)
+    if us <= 0:
+        raise AssertionError("the profiler saw no knn_fused kernel")
+    return us / reps / 1e3
+
+
+def in_turns(timer, new, old, reps):
+    """(new, old) means of ``timer`` taken in the order old, new, new, old."""
+    o1, n1, n2, o2 = (timer(f, reps) for f in (old, new, new, old))
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
+    """Kernel vs plain on one input: bit-equality, times, bound.  With
+    ``base`` (an earlier version's wrapper module), its wrapper and
+    kernel are timed in turns with this one's on the same inputs."""
+    import torch
+
+    from loam_livox_tpu_torch.ops import build
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+    from loam_livox_tpu_torch.ops.knn import knn
+
+    def runner(mod):
+        op = mod.build_ref_operand(ref, mask)
+        return lambda: mod.knn_fused(q, ref, mask, k=5, ref_op=op, query_count=n_q,
+                                     max_radius=radius)
+
+    dp, ip = knn(q, ref, mask, k=5, query_count=n_q, max_radius=radius)
+
+    def check(mod):
+        d, i = runner(mod)()
+        torch.cuda.synchronize()
+        err, mismatches = float((d - dp).abs().max()), int((i != ip).sum())
+        if err != 0.0 or mismatches or not torch.equal(d, dp):
+            raise AssertionError(f"{mod.__name__} disagrees with plain: max_abs_err {err}, "
+                                 f"index mismatches {mismatches}")
+        return dict(max_abs_err=err, index_mismatches=mismatches)
+
+    out = check(kf)
+    new = runner(kf)
+    if base:
+        check(base)
+        old = runner(base)
+        out["ms"], out["baseline_ms"] = in_turns(time_ms, new, old, reps)
+        out["kernel_ms"], out["baseline_kernel_ms"] = in_turns(device_ms, new, old, reps)
+    else:
+        out["ms"] = time_ms(new, reps)
+        out["kernel_ms"] = device_ms(new, reps)
+    out["plain_ms"] = time_ms(lambda: knn(q, ref, mask, k=5, query_count=n_q,
+                                         max_radius=radius), max(3, reps // 5))
 
     def library():
         dist = torch.cdist(q, ref).masked_fill(~mask[None], float("inf"))
         return torch.topk(dist, 5, dim=1, largest=False)
 
-    library_ms = time_ms(library, max(3, reps // 5))
-    pairs, bytes_ = knn_work(q, n_q, op, radius)
-    bound_ms = 1e3 * max(pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES)
-    return dict(max_abs_err=err, max_rel_err=rel, index_mismatches=int(differ.sum()),
-                ms=ms, kernel_ms=kernel_ms, plain_ms=plain_ms, library_ms=library_ms,
-                bound_ms=bound_ms,
-                bound_by=("operations" if pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS
-                          >= bytes_ / PEAK_BYTES else "bytes"),
-                pairs=pairs, queries=int(n_q), refs=int(op.n_ref))
+    out["library_ms"] = time_ms(library, max(3, reps // 5))
+    op = kf.build_ref_operand(ref, mask)
+    pairs, bytes_ = kf.search_work(q, n_q, op, radius)
+    t_ops, t_bytes = pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES
+    out.update(bound_ms=1e3 * max(t_ops, t_bytes),
+               bound_by="operations" if t_ops >= t_bytes else "bytes",
+               pairs=pairs, queries=int(n_q), refs=int(mask.sum()),
+               ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
+               launch_k5=kf.launch_shape(5, op.ref4.shape[0]))
+    return out
 
 
 def synthetic_map(rng, m, leaf, fill, device):
@@ -180,6 +182,76 @@ def synthetic_map(rng, m, leaf, fill, device):
     mask = b.mask.clone()
     mask[int(fill * m):] = False
     return b.xyz, mask
+
+
+# the kernel phase's inputs: (search, query rows, query_count, buffer
+# capacity, voxel leaf, valid share of the buffer, radius)
+KERNEL_INPUTS = (
+    ("corners", 512, 512, 16384, 0.1, 1.0, 2.0 ** 0.5),
+    ("corners", 512, 512, 16384, 0.1, 0.05, 2.0 ** 0.5),
+    ("surfaces", 2048, 2048, 65536, 0.4, 1.0, 50.0 ** 0.5),
+    ("surfaces", 2048, 2048, 65536, 0.4, 0.05, 50.0 ** 0.5),
+    ("surfaces, main-path fill", 2048, 200, 65536, 0.4, 0.016, 50.0 ** 0.5),
+)
+
+
+def kernel_phase(dev, base=None) -> float:
+    """Every input of KERNEL_INPUTS through `compare_kernel`, one JSON
+    line each; returns the worst absolute error."""
+    import torch
+
+    rng = np.random.default_rng(0)
+    worst = 0.0
+    for label, nq, count, m, leaf, fill, radius in KERNEL_INPUTS:
+        ref, mask = synthetic_map(rng, m, leaf, fill, dev)
+        valid = torch.nonzero(mask).flatten()
+        pick = valid[torch.from_numpy(rng.integers(0, len(valid), nq)).to(dev)]
+        noise = torch.from_numpy(rng.normal(0, 0.3, (nq, 3)).astype(np.float32)).to(dev)
+        q = (ref[pick] + noise).contiguous()
+        r = compare_kernel(q, ref, mask, torch.tensor(count, device=dev), radius, base)
+        worst = max(worst, r["max_abs_err"])
+        emit("kernel", kernel="knn_fused", search=label, fill=fill, **r)
+    return worst
+
+
+def load_baseline(root: str):
+    """The wrapper module ``ops.knn_fused`` of the port package in an
+    earlier checkout at ``root``, imported as ``baseline_port`` beside
+    this one (the package's modules import each other relatively, and
+    it builds its kernel into its own ``_build/``)."""
+    import importlib
+    import importlib.util
+
+    pkg = os.path.join(os.path.abspath(root), "loam_livox_tpu_torch")
+    spec = importlib.util.spec_from_file_location(
+        "baseline_port", os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules["baseline_port"] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module("baseline_port.ops.knn_fused")
+
+
+def ptxas_report(log: str, k: int = 5) -> dict:
+    """Registers, spills and static shared memory of the K=k kernel, from
+    nvcc's ``-Xptxas -v`` log."""
+    import re
+
+    lines = log.splitlines()
+    for n, ln in enumerate(lines):
+        if "Compiling entry function" in ln and f"ILi{k}E" in ln:
+            block = []
+            for x in lines[n + 1:]:
+                if "Compiling entry function" in x:
+                    break
+                block.append(x)
+            text = " ".join(block)
+            nums = {key: re.search(pat, text) for key, pat in (
+                ("registers", r"Used (\d+) registers"),
+                ("spill_stores", r"(\d+) bytes spill stores"),
+                ("spill_loads", r"(\d+) bytes spill loads"),
+                ("static_smem", r"(\d+) bytes smem"))}
+            return {key: int(m.group(1)) for key, m in nums.items() if m}
+    return {}
 
 
 def simulate(n_frames, points, init, seed=0):
@@ -206,7 +278,14 @@ def run_stream(cfg, sim, frames, device):
 
 
 def main() -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="an earlier checkout of the repo: time its knn_fused beside this one's")
+    args = ap.parse_args()
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -231,24 +310,13 @@ def main() -> int:
     # 2. build
     t0 = time.perf_counter()
     build.compile_all(["knn_fused"])
-    ptxas = [ln.strip() for ln in build.build_logs.get("knn_fused", "").splitlines()
-             if "registers" in ln or "spill" in ln]
     emit("build", seconds=time.perf_counter() - t0, sources=["knn_fused.cu"],
-         ptxas_k5=ptxas[6:8] if len(ptxas) >= 8 else ptxas)
+         ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
+         launch_k5_surfaces=kf.launch_shape(5, 65536))
+    base = load_baseline(args.baseline) if args.baseline else None
 
     # 3. each kernel against its plain version at the main path's shapes
-    rng = np.random.default_rng(0)
-    worst_err = 0.0
-    for label, nq, m, leaf, radius in (("corners", 512, 16384, 0.1, 2.0 ** 0.5),
-                                       ("surfaces", 2048, 65536, 0.4, 50.0 ** 0.5)):
-        for fill in (1.0, 0.05):
-            ref, mask = synthetic_map(rng, m, leaf, fill, dev)
-            valid = torch.nonzero(mask).flatten()
-            pick = valid[torch.from_numpy(rng.integers(0, len(valid), nq)).to(dev)]
-            q = (ref[pick] + torch.randn((nq, 3), device=dev) * 0.3).contiguous()
-            r = compare_kernel(q, ref, mask, torch.tensor(nq, device=dev), radius)
-            worst_err = max(worst_err, r["max_abs_err"])
-            emit("kernel", kernel="knn_fused", search=label, fill=fill, **r)
+    worst_err = kernel_phase(dev, base)
 
     # 4. the port on the card against the port on the CPU
     small = SlamConfig().replace(
@@ -316,7 +384,7 @@ def main() -> int:
                                     torch.zeros(3, device=dev), surf_in.xyz, s,
                                     st.q_w, st.t_w, True).contiguous()
     r = compare_kernel(qs, st.map_surface.xyz, st.map_surface.mask,
-                       surf_in.mask.sum(dtype=torch.int32), 50.0 ** 0.5, reps=50)
+                       surf_in.mask.sum(dtype=torch.int32), 50.0 ** 0.5, base, reps=50)
     worst_err = max(worst_err, r["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer", **r)
 

@@ -22,7 +22,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
-#: the compiler's report (ptxas registers / spills) of each build
+#: the compiler's report (ptxas registers / spills) of each build, kept
+#: beside the library
 build_logs: dict[str, str] = {}
 
 
@@ -48,6 +49,8 @@ def compile_all(names) -> None:
     for name in names:
         out = library_path(name)
         if out.exists():
+            log = out.with_suffix(".log")
+            build_logs[name] = log.read_text() if log.exists() else ""
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
@@ -60,6 +63,7 @@ def compile_all(names) -> None:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
         else:
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))

@@ -7,8 +7,8 @@ It stands in for the TPU kernel of
 (ascending exact f32 squared distances, BIG where fewer than k valid
 references are in range, ``query_count`` and ``max_radius``), with an
 exact selection in place of the TPU's binned one.  The kernel emits the
-exact distances, so the TPU wrapper's rescoring pass has nothing to
-correct here and is not repeated.
+exact distances, merged over its reference slices and gated, so the
+TPU wrapper's rescoring pass and any merge here have nothing left to do.
 
 The reference operand (`build_ref_operand`) depends only on the
 matching buffer: build it once per frame, as ICP does.
@@ -21,10 +21,9 @@ from typing import NamedTuple
 import torch
 
 from . import build
-from .knn import BIG, finish, knn
+from .knn import BIG, knn
 
-CHUNK = 2048   # references per kernel block (kChunk in the source)
-GROUP = 256    # references per bounding box (kGroup in the source)
+GROUP = 256    # references per bounding box and operand padding (kGroup in the source)
 MAX_K = 8
 
 #: kernel launches since the last reset (read and reset by callers that
@@ -39,11 +38,11 @@ class RefOperand(NamedTuple):
 
 
 def build_ref_operand(ref_xyz: torch.Tensor, ref_mask: torch.Tensor) -> RefOperand:
-    """Pad the references to a multiple of CHUNK and precompute the
+    """Pad the references to a multiple of GROUP and precompute the
     kernel's rows, the per-group boxes (an all-invalid group gets an
     empty box, lo > hi) and the valid prefix, without a host sync."""
     m = ref_xyz.shape[0]
-    mp = -(-max(m, 1) // CHUNK) * CHUNK
+    mp = -(-max(m, 1) // GROUP) * GROUP
     dev = ref_xyz.device
     ref = torch.zeros((mp, 3), dtype=torch.float32, device=dev)
     ref[:m] = ref_xyz
@@ -64,20 +63,67 @@ def build_ref_operand(ref_xyz: torch.Tensor, ref_mask: torch.Tensor) -> RefOpera
     return RefOperand(ref4=ref4, boxes=boxes, n_ref=n_ref)
 
 
-def _library():
+def search_work(query_xyz: torch.Tensor, query_count, ref_op: RefOperand,
+                max_radius: float | None, k: int = 5) -> tuple[int, int]:
+    """(pairs, bytes) that any exact search skipping whole GROUP-point
+    groups must spend on these inputs, whatever its tiling.
+
+    Pairs: each valid query (row < ``query_count``) against each valid
+    reference of every group whose box lies within ``max_radius`` of
+    that query's own point (every group when it is None), box distances
+    in float64.  Bytes: the valid queries, the reference rows up to the
+    last valid one and their boxes read once, the (n_q, k) lists written
+    once.  Reads the counts on the host: a yardstick, not a device path.
+    """
+    n_q = query_xyz.shape[0] if query_count is None else min(
+        int(query_count), query_xyz.shape[0])
+    n_ref = int(ref_op.n_ref)
+    valid = (ref_op.ref4[:, 3] < 0.5 * BIG).reshape(-1, GROUP).sum(1)
+    live = valid > 0
+    pairs = 0
+    if max_radius is None:
+        pairs = n_q * int(valid.sum())
+    elif n_q:
+        lo = ref_op.boxes[live, 0:3].double()
+        hi = ref_op.boxes[live, 4:7].double()
+        r2 = float(max_radius) ** 2
+        for q in query_xyz[:n_q].double().split(256):
+            gap = torch.clamp(torch.maximum(lo[None] - q[:, None], q[:, None] - hi[None]), min=0)
+            near = (gap * gap).sum(-1) <= r2
+            pairs += int((near.to(valid.dtype) * valid[live][None]).sum())
+    n_groups = -(-n_ref // GROUP)
+    return pairs, n_q * 12 + n_ref * 16 + n_groups * 32 + n_q * k * 8
+
+
+def _library() -> ctypes.CDLL:
     lib = build.load("knn_fused")
     fn = lib.knn_fused_launch
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
-        lib.knn_fused_chunk.restype = ctypes.c_int
+        lib.knn_fused_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        lib.knn_fused_info.restype = ctypes.c_int
+        lib.knn_fused_max_rows.argtypes = [ctypes.c_int]
+        lib.knn_fused_max_rows.restype = ctypes.c_int
         lib.knn_fused_group.restype = ctypes.c_int
-        if (lib.knn_fused_chunk(), lib.knn_fused_group()) != (CHUNK, GROUP):
-            raise RuntimeError("knn_fused.cu tile sizes differ from the wrapper's")
-    return fn
+        if lib.knn_fused_group() != GROUP:
+            raise RuntimeError("knn_fused.cu group size differs from the wrapper's")
+    return lib
+
+
+def launch_shape(k: int, mp: int) -> dict:
+    """The kernel's launch shape on the current card for a k-search of an
+    ``mp``-row operand: threads per block, cluster size, dynamic shared
+    bytes, blocks resident per SM and clusters resident at once."""
+    out = (ctypes.c_int * 5)()
+    err = _library().knn_fused_info(k, mp, out)
+    if err != 0:
+        raise RuntimeError(f"knn_fused_info failed: CUDA error {err}")
+    return dict(zip(("threads", "cluster", "smem_bytes", "blocks_per_sm",
+                     "max_active_clusters"), out))
 
 
 def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
@@ -108,39 +154,37 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
     mp = ref4.shape[0]
     if (ref4.device != dev or boxes.device != dev
             or ref4.dtype != torch.float32 or boxes.dtype != torch.float32
-            or ref4.shape[1] != 4 or mp % CHUNK
+            or ref4.shape[1] != 4 or mp % GROUP
             or boxes.shape != (mp // GROUP, 8)
-            or not ref4.is_contiguous() or not boxes.is_contiguous()):
+            or not ref4.is_contiguous() or not boxes.is_contiguous()
+            or ref4.data_ptr() % 16 or boxes.data_ptr() % 16):
         raise ValueError("knn_fused: malformed reference operand")
+    lib = _library()
+    max_rows = lib.knn_fused_max_rows(k)
+    if mp > max_rows:
+        raise ValueError(f"knn_fused: {mp} reference rows exceed the kernel's largest "
+                         f"operand, {max_rows} rows at k = {k}")
 
     n_rows = query_xyz.shape[0]
+    out_d = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
     if n_rows == 0:
-        return (torch.empty((0, k), device=dev),
-                torch.empty((0, k), dtype=torch.int32, device=dev))
-    if query_count is None:
-        n_q = torch.full((), n_rows, dtype=torch.int32, device=dev)
+        return out_d, out_i
+    # the counts stay on the device; a host count is filled in there
+    n_ref = ref_op.n_ref.to(device=dev, dtype=torch.int32)
+    if isinstance(query_count, torch.Tensor):
+        n_q = query_count.to(device=dev, dtype=torch.int32)  # one element
     else:
-        n_q = torch.as_tensor(query_count, device=dev).to(torch.int32)
-    counts = torch.stack([ref_op.n_ref.to(torch.int32), n_q]).contiguous()
+        n = n_rows if query_count is None else min(max(int(query_count), 0), n_rows)
+        n_q = torch.full((), n, dtype=torch.int32, device=dev)
     r2 = float("inf") if max_radius is None else float(max_radius) ** 2
-    n_chunks = mp // CHUNK
-    part_d = torch.empty((n_chunks, k, n_rows), dtype=torch.float32, device=dev)
-    part_i = torch.empty((n_chunks, k, n_rows), dtype=torch.int32, device=dev)
 
     global launches
-    err = _library()(
+    err = lib.knn_fused_launch(
         query_xyz.data_ptr(), n_rows, ref4.data_ptr(), boxes.data_ptr(), mp,
-        counts.data_ptr(), r2, k, part_d.data_ptr(), part_i.data_ptr(),
+        n_ref.data_ptr(), n_q.data_ptr(), r2, k, out_d.data_ptr(), out_i.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"knn_fused kernel launch failed: CUDA error {err}")
     launches += 1
-
-    # Merge the per-chunk lists: chunks are in index order and each list
-    # is (distance, index)-sorted, so a stable sort keeps ties on the
-    # lower index.
-    cand_d = part_d.permute(2, 0, 1).reshape(n_rows, n_chunks * k)
-    cand_i = part_i.permute(2, 0, 1).reshape(n_rows, n_chunks * k)
-    d, order = torch.sort(cand_d, dim=1, stable=True)
-    idx = torch.gather(cand_i, 1, order[:, :k])
-    return finish(d[:, :k], idx, max_radius)
+    return out_d, out_i

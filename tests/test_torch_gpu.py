@@ -78,3 +78,110 @@ def test_wrapper_rejects_bad_inputs(cuda):
         kf.knn_fused(q, ref, mask, k=9)
     with pytest.raises(ValueError):
         kf.knn_fused(q.t().contiguous().t(), ref, mask)
+    rows = kf._library().knn_fused_max_rows(5) + kf.GROUP
+    big = kf.RefOperand(torch.zeros((rows, 4), device=cuda),
+                        torch.zeros((rows // kf.GROUP, 8), device=cuda),
+                        torch.zeros((), dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="largest operand"):
+        kf.knn_fused(q, ref, mask, ref_op=big)
+
+
+def test_operand_above_default_shared_memory(cuda):
+    """An operand whose group list needs more than 48 KB of shared memory
+    launches whatever limit a smaller launch or `launch_shape` set before."""
+    rng = np.random.default_rng(11)
+    m = 1 << 19
+    ref = np.zeros((m, 3), np.float32)
+    ref[:5000] = rng.uniform(-6, 6, (5000, 3))
+    mask = np.zeros(m, bool)
+    mask[:5000] = True
+    q = rng.uniform(-6, 6, (300, 3)).astype(np.float32)
+    q, ref, mask = (torch.from_numpy(a).to(cuda) for a in (q, ref, mask))
+    dp, ip = knn(q, ref, mask, k=5, max_radius=2.0)
+    assert kf.launch_shape(5, m)["smem_bytes"] > 48 * 1024
+    for small in (False, True):
+        if small:
+            kf.launch_shape(5, 2048)
+            kf.knn_fused(q, ref[:2048], mask[:2048], k=5, max_radius=2.0)
+        d, i = kf.knn_fused(q, ref, mask, k=5, max_radius=2.0)
+        torch.cuda.synchronize()
+        assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def split_case(name):
+    """(q, ref, mask, k, radius, query_count) of one edge case of the
+    kernel's work split (clusters of 8 blocks over 32-query tiles, each
+    block a strided share of the tile's 256-reference groups) and of its
+    merges (lanes in a block, blocks in a cluster)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    if name.startswith("n_ref_"):
+        n = int(name[6:])
+        ref = rng.uniform(-4, 4, (10000, 3)).astype(np.float32)
+        mask = np.zeros(10000, bool)
+        mask[:n] = True
+        q = rng.uniform(-5, 5, (300, 3)).astype(np.float32)
+        return q, ref, mask, 5, 3.0, None
+    ref, mask = voxel_map(rng, 16384, 8.0, 0.25, 0.6)
+    valid = np.nonzero(mask)[0]
+    q = (ref[rng.choice(valid, 400)] + rng.normal(0, 0.2, (400, 3))).astype(np.float32)
+    if name == "duplicates":
+        # the same point at a low and a high index, in groups that
+        # different blocks scan; queries on and near the copies, and the
+        # same query in two tiles
+        for a, b in ((3, 9000), (300, 7000), (2100, 2400), (700, 9500)):
+            ref[b] = ref[a]
+            q[a % 400] = ref[a]
+            q[(a + 1) % 400] = ref[a] + np.float32(1e-3)
+        q[399] = q[3]
+        return q, ref, mask, 5, 2.0 ** 0.5, None
+    if name == "all_invalid":
+        return q, ref, np.zeros_like(mask), 5, 2.0 ** 0.5, None
+    if name == "count_0":
+        return q, ref, mask, 5, 2.0 ** 0.5, 0
+    if name == "count_over":
+        return q, ref, mask, 5, 2.0 ** 0.5, 10 ** 6
+    if name in ("k1", "k8"):
+        return q, ref, mask, int(name[1]), 2.0 ** 0.5, 333
+    if name == "no_radius":
+        return q, ref, mask, 5, None, 250
+    if name == "far_ties":
+        # 100-200 m from the origin, where the prefilter's margin is
+        # widest: lattice neighbours at equal and one-ulp-apart distances
+        c = np.array([150.0, -120.0, 80.0], np.float32)
+        step = np.float32(0.125)
+        grid = np.stack(np.meshgrid(*[np.arange(-6, 7)] * 3, indexing="ij"), -1).reshape(-1, 3)
+        ref = (c + grid * step).astype(np.float32)
+        ref = np.concatenate([ref, ref[::-1]])        # every point twice
+        mask = np.ones(len(ref), bool)
+        mask[::7] = False
+        half = np.float32(0.0625)
+        q = np.concatenate([
+            c + rng.integers(-5, 6, (150, 3)) * step,            # on lattice points
+            c + rng.integers(-5, 6, (150, 3)) * step + half,     # at cell centres: 8-way ties
+            c + rng.uniform(-0.7, 0.7, (100, 3)),
+        ]).astype(np.float32)
+        return q, ref, mask, 8, 1.0, None
+    raise KeyError(name)
+
+
+SPLIT_CASES = ["duplicates", "all_invalid", "count_0", "count_over", "k1", "k8",
+               "no_radius", "far_ties"] + [
+    f"n_ref_{n}" for n in (1, 255, 256, 257, 2047, 2049, 8193)]
+
+
+@pytest.mark.parametrize("name", SPLIT_CASES)
+def test_split_and_merge_equal_plain(cuda, name):
+    q, ref, mask, k, radius, count = split_case(name)
+    q, ref, mask = (torch.from_numpy(a).to(cuda) for a in (q, ref, mask))
+    # a host count here (test_kernel_equals_plain passes device counts)
+    d, i = kf.knn_fused(q, ref, mask, k=k, query_count=count, max_radius=radius)
+    torch.cuda.synchronize()
+    dp, ip = knn(q, ref, mask, k=k, query_count=count, max_radius=radius)
+    assert torch.equal(d, dp)
+    assert torch.equal(i, ip)
+
+
+def test_launch_shape(cuda):
+    shape = kf.launch_shape(5, 65536)
+    assert shape["threads"] % 32 == 0 and shape["cluster"] == 8
+    assert shape["blocks_per_sm"] >= 1 and shape["max_active_clusters"] >= 1

@@ -192,8 +192,8 @@ def test_ref_operand_matches_tpu_operand():
     mask[2500:] = False
     op = tfused_mod.build_ref_operand(torch.from_numpy(ref), torch.from_numpy(mask))
     jop = jbuild_ref(jnp.asarray(ref), jnp.asarray(mask),
-                                       ref_tile=tfused_mod.CHUNK, bins=tfused_mod.GROUP)
-    assert op.ref4.shape == (4096, 4)
+                                       ref_tile=tfused_mod.GROUP, bins=tfused_mod.GROUP)
+    assert op.ref4.shape == (3072, 4)
     np.testing.assert_allclose(op.ref4.numpy().T, np.asarray(jop.ref4), rtol=1e-6)
     np.testing.assert_array_equal(op.boxes.numpy(), np.asarray(jop.boxes))
     assert int(op.n_ref) == int(np.nonzero(mask)[0][-1]) + 1
@@ -207,3 +207,74 @@ def test_cpu_tensors_take_the_plain_version():
                   k=k, max_radius=radius)
     assert tfused_mod.launches == before
     assert np.array_equal(d, d2.numpy()) and np.array_equal(i, i2.numpy())
+
+
+@pytest.mark.parametrize("radius", [2.0, None])
+def test_search_work_counts_pairs_by_brute_force(radius):
+    """`search_work`, the kernel's implementation-independent yardstick,
+    against a count pair by pair: every valid query with every valid
+    reference whose group's box lies within the radius of that query."""
+    rng = np.random.default_rng(9)
+    g = tfused_mod.GROUP
+    ref = rng.uniform(-6, 6, (1500, 3)).astype(np.float32)
+    ref = ref[np.argsort(ref[:, 0])]        # slab-shaped groups, so boxes differ
+    mask = rng.uniform(size=1500) < 0.8
+    mask[1300:] = False
+    mask[512:768] = False                   # one empty group
+    q = rng.uniform(-8, 8, (50, 3)).astype(np.float32)
+    count = 40
+    op = tfused_mod.build_ref_operand(torch.from_numpy(ref), torch.from_numpy(mask))
+    pairs, bytes_ = tfused_mod.search_work(torch.from_numpy(q), count, op, radius)
+    n = 0
+    for j in np.nonzero(mask)[0]:
+        s = slice(j // g * g, j // g * g + g)
+        pts = ref[s][mask[s]].astype(np.float64)
+        for qi in q[:count].astype(np.float64):
+            gap = np.maximum(np.maximum(pts.min(0) - qi, qi - pts.max(0)), 0)
+            n += radius is None or gap @ gap <= radius ** 2
+    assert pairs == n
+    if radius is not None:
+        assert 0 < n < count * mask.sum()
+    n_ref = int(np.nonzero(mask)[0][-1]) + 1
+    assert bytes_ == count * 12 + n_ref * 16 + -(-n_ref // g) * 32 + count * 5 * 8
+
+
+def test_prefilter_margin_bounds_the_gap():
+    """The exact prefilter of csrc/knn_fused.cu, emulated in f32 on points
+    100-200 m from the origin.  The kernel ranks first by p = w - 2<q, r>
+    (three FMA on w = ||r||^2) and computes the rounded distance d only
+    where p <= thr(T), T the query's current k-th distance.  The float64
+    gap between p + ||q||^2 and d must lie within the 13 u (T + qq + R2)
+    the proof allows, and no pair with d < T may fail the prefilter.  (An
+    FMA is emulated in float64, where the product of two f32 is exact; a
+    rare double rounding moves it by far less than the margin's slack.)"""
+    f32, f64, u = np.float32, np.float64, 2.0 ** -24
+    rng = np.random.default_rng(10)
+    c = rng.uniform(100, 200, 3) * rng.choice([-1, 1], 3)
+    ref = (c + rng.uniform(-4, 4, (256, 3))).astype(f32)
+    q = (c + rng.uniform(-4, 4, (96, 3))).astype(f32)
+    q[:32] = ref[:32]                        # zero distances
+    w = (ref * ref).sum(1, dtype=f32)        # as build_ref_operand
+
+    def fma(a, b, c_):
+        return (a.astype(f64) * b.astype(f64) + c_.astype(f64)).astype(f32)
+
+    def sq3(x, y, z):
+        return (x * x + y * y) + z * z       # f32, each operation rounded
+
+    a = (-2 * q).astype(f32)
+    p = fma(a[:, None, 0], ref[None, :, 0],
+            fma(a[:, None, 1], ref[None, :, 1], fma(a[:, None, 2], ref[None, :, 2], w[None])))
+    d = sq3(*(q[:, None, i] - ref[None, :, i] for i in range(3)))
+    qq = sq3(q[:, 0], q[:, 1], q[:, 2])[:, None]
+    mx = np.maximum(np.abs(ref.min(0)), np.abs(ref.max(0)))
+    r2 = sq3(mx[0], mx[1], mx[2])
+    assert d.dtype == p.dtype == qq.dtype == f32 and (qq > 1e4).all()
+    gap = np.abs((p.astype(f64) + qq) - d)
+    assert (gap <= 13 * u * (d.astype(f64) + qq + r2)).all()
+    assert gap.max() > 0                     # the two forms do differ here
+    for t in (np.nextafter(d, f32(np.inf)), np.sort(d, 1)[:, 4:5], np.full_like(d, 1.0)):
+        s = (t + qq) + r2
+        thr = (t - qq) + (s.astype(f64) * 2.0 ** -19 + 2.0 ** -100).astype(f32)
+        assert thr.dtype == f32
+        assert (p[d < t] <= np.broadcast_to(thr, d.shape)[d < t]).all()
