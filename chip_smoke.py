@@ -3,34 +3,55 @@
 
     python3 chip_smoke.py [--baseline DIR]
 
-Phases, each printing one JSON line; any failure exits nonzero:
+Phases, each printing JSON lines; any failure exits nonzero:
 
-1. card      the GPU's name and power limit (nvidia-smi);
-2. build     every CUDA kernel of the main path, from ``csrc/`` (one nvcc
-             per source, all started together), with ptxas's registers
-             and spills;
-3. kernel    each kernel against its plain PyTorch version at the main
-             path's shapes (corners 512 x 16,384 within sqrt(2) m;
-             surfaces 2,048 x 65,536 within sqrt(50) m; full buffers,
-             5 % prefixes, and 200 queries at the main path's 1.6 %
-             fill), bit for bit, with the wrapper's time, the kernel's
-             alone (profiler), the plain version's, a ``torch.cdist`` +
-             ``topk`` yardstick and the bound of `ops.knn_fused.search_work`.
-             ``--baseline DIR`` (an earlier checkout) times its kernel in
-             turns with this one's on the same inputs;
-4. reference the port on the card against the port on the CPU (the path
-             the CPU tests hold against the JAX package) on a small
-             stream: aligned ATE within 0.05 m, accepted counts within 2;
-5. main      ``OdometryPipeline`` on the card at the default capacities:
-             40 simulator frames of 10,000 points, motion deblur, history
-             matching, registration after 10 frames.  Frames/s, accepted
-             frames, aligned ATE against the simulator's ground truth,
-             host syncs a frame; the launch counters are reset just
-             before and read just after, and ``knn_fused`` must have
-             launched exactly twice per ICP iteration;
-6. kernels   one line per kernel: launches on the main path, its time,
-             the plain version's, the bound and the yardstick, measured
-             on the matching buffer and queries the main path ended on.
+1. card       the GPU's name and power limit (nvidia-smi);
+2. build      every CUDA kernel of the paths, from ``csrc/`` (one nvcc
+              per source, all started together), with ptxas's registers
+              and spills;
+3. kernel     each kernel against its plain PyTorch version at the
+              paths' shapes (corners 512 x 16,384 within sqrt(2) m;
+              surfaces 2,048 x 65,536 within sqrt(50) m; full buffers,
+              5 % prefixes, 200 queries at the main path's 1.6 % fill;
+              and the racing path's lane axis, 9 lanes of each search,
+              full, 5 % and uneven per-lane counts with an empty lane),
+              bit for bit, with the wrapper's time, the kernel's alone
+              (profiler), the plain version's, a ``torch.cdist`` +
+              ``topk`` yardstick and the bound of
+              `ops.knn_fused.search_work`.  ``--baseline DIR`` (an
+              earlier checkout) times its kernel in turns with this
+              one's on the inputs without a lane axis;
+4. reference  the port on the card against the port on the CPU (the path
+              the CPU tests hold against the JAX package) on small
+              streams of the main, precision and racing paths: aligned
+              ATE within 0.05 m, accepted rows within 2 (main) or 3;
+5. main       ``OdometryPipeline`` on the card at the default capacities:
+              40 simulator frames of 10,000 points, motion deblur,
+              history matching, registration after 10 frames.  Frames/s,
+              accepted frames, aligned ATE against the simulator's ground
+              truth, host syncs a frame; the launch counters are reset
+              just before and read just after, and ``knn_fused`` must
+              have launched exactly twice per ICP iteration.  Then the
+              kernel on the buffer and queries the main path ended on,
+              torch's sync-debug count against the host-sync audit
+              (``sync_check``), and a torch.profiler breakdown;
+6. path       the other rows of bench.py (bench.py:129-137) through
+              ``process_raw`` at full width, 30 raw frames of 10,000
+              points padded on the card beforehand: the shipped precision
+              and realtime profiles (3 pieces a frame), realtime racing
+              (3 raw frames x 3 pieces a group) and chunked dispatch (8
+              frames).  Frames/s, registrations (trajectory rows)/s, ATE,
+              accepted rows, ICP iterations, launches (2 per ICP loop
+              pass: a piece's iterations, a raced group's batched loop),
+              raced and fallen-back groups, host syncs a frame by place;
+              ``sync_check`` on the precision and racing paths, and the
+              lane-axis kernel on the racing path's own buffer;
+7. scenario   ``run_scenario("largescale_realtime", small=True)`` under
+              its golden (aligned ATE < 1.30 m, >= 12 accepted);
+8. kernels    one line listing every kernel: launches on the main path
+              (and on each path), its time, the plain version's, the
+              bound and the yardstick on the main path's buffer, and the
+              lane axis's on the racing path's.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is
@@ -113,7 +134,8 @@ def in_turns(timer, new, old, reps):
 
 
 def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
-    """Kernel vs plain on one input: bit-equality, times, bound.  With
+    """Kernel vs plain on one input: bit-equality, times, bound.  ``q``
+    may carry a lane axis (L, Q, 3) with ``n_q`` an (L,) tensor.  With
     ``base`` (an earlier version's wrapper module), its wrapper and
     kernel are timed in turns with this one's on the same inputs."""
     import torch
@@ -152,8 +174,8 @@ def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
                                          max_radius=radius), max(3, reps // 5))
 
     def library():
-        dist = torch.cdist(q, ref).masked_fill(~mask[None], float("inf"))
-        return torch.topk(dist, 5, dim=1, largest=False)
+        dist = torch.cdist(q, ref.expand(q.shape[:-2] + ref.shape))
+        return torch.topk(dist.masked_fill(~mask, float("inf")), 5, dim=-1, largest=False)
 
     out["library_ms"] = time_ms(library, max(3, reps // 5))
     op = kf.build_ref_operand(ref, mask)
@@ -161,7 +183,8 @@ def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
     t_ops, t_bytes = pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES
     out.update(bound_ms=1e3 * max(t_ops, t_bytes),
                bound_by="operations" if t_ops >= t_bytes else "bytes",
-               pairs=pairs, queries=int(n_q), refs=int(mask.sum()),
+               pairs=pairs, queries=torch.as_tensor(n_q).reshape(-1).tolist(),
+               lanes=q.shape[0] if q.dim() == 3 else None, refs=int(mask.sum()),
                ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
                launch_k5=kf.launch_shape(5, op.ref4.shape[0]))
     return out
@@ -184,31 +207,48 @@ def synthetic_map(rng, m, leaf, fill, device):
     return b.xyz, mask
 
 
-# the kernel phase's inputs: (search, query rows, query_count, buffer
+# the kernel phase's inputs: (search, lanes (None: no lane axis), query
+# rows, query_count ("uneven": a count a lane, one of them 0), buffer
 # capacity, voxel leaf, valid share of the buffer, radius)
 KERNEL_INPUTS = (
-    ("corners", 512, 512, 16384, 0.1, 1.0, 2.0 ** 0.5),
-    ("corners", 512, 512, 16384, 0.1, 0.05, 2.0 ** 0.5),
-    ("surfaces", 2048, 2048, 65536, 0.4, 1.0, 50.0 ** 0.5),
-    ("surfaces", 2048, 2048, 65536, 0.4, 0.05, 50.0 ** 0.5),
-    ("surfaces, main-path fill", 2048, 200, 65536, 0.4, 0.016, 50.0 ** 0.5),
+    ("corners", None, 512, 512, 16384, 0.1, 1.0, 2.0 ** 0.5),
+    ("corners", None, 512, 512, 16384, 0.1, 0.05, 2.0 ** 0.5),
+    ("surfaces", None, 2048, 2048, 65536, 0.4, 1.0, 50.0 ** 0.5),
+    ("surfaces", None, 2048, 2048, 65536, 0.4, 0.05, 50.0 ** 0.5),
+    ("surfaces, main-path fill", None, 2048, 200, 65536, 0.4, 0.016, 50.0 ** 0.5),
+    # the racing path's lane axis: 9 lanes (3 raw frames x 3 pieces)
+    ("corners, 9 lanes", 9, 512, 512, 16384, 0.1, 1.0, 2.0 ** 0.5),
+    ("corners, 9 lanes", 9, 512, 512, 16384, 0.1, 0.05, 2.0 ** 0.5),
+    ("corners, 9 lanes, uneven counts", 9, 512, "uneven", 16384, 0.1, 0.05, 2.0 ** 0.5),
+    ("surfaces, 9 lanes", 9, 2048, 2048, 65536, 0.4, 1.0, 50.0 ** 0.5),
+    ("surfaces, 9 lanes", 9, 2048, 2048, 65536, 0.4, 0.05, 50.0 ** 0.5),
+    ("surfaces, 9 lanes, uneven counts", 9, 2048, "uneven", 65536, 0.4, 0.05, 50.0 ** 0.5),
 )
 
 
 def kernel_phase(dev, base=None) -> float:
     """Every input of KERNEL_INPUTS through `compare_kernel`, one JSON
-    line each; returns the worst absolute error."""
+    line each; returns the worst absolute error.  The earlier version
+    (``base``) has no lane axis, so it times only the inputs without."""
     import torch
 
     rng = np.random.default_rng(0)
     worst = 0.0
-    for label, nq, count, m, leaf, fill, radius in KERNEL_INPUTS:
+    for label, lanes, nq, count, m, leaf, fill, radius in KERNEL_INPUTS:
         ref, mask = synthetic_map(rng, m, leaf, fill, dev)
         valid = torch.nonzero(mask).flatten()
-        pick = valid[torch.from_numpy(rng.integers(0, len(valid), nq)).to(dev)]
-        noise = torch.from_numpy(rng.normal(0, 0.3, (nq, 3)).astype(np.float32)).to(dev)
+        shape = (nq,) if lanes is None else (lanes, nq)
+        pick = valid[torch.from_numpy(rng.integers(0, len(valid), shape)).to(dev)]
+        noise = torch.from_numpy(rng.normal(0, 0.3, shape + (3,)).astype(np.float32)).to(dev)
         q = (ref[pick] + noise).contiguous()
-        r = compare_kernel(q, ref, mask, torch.tensor(count, device=dev), radius, base)
+        if count == "uneven":
+            counts = rng.integers(1, nq + 1, lanes)
+            counts[lanes // 2] = 0
+            n_q = torch.from_numpy(counts.astype(np.int32)).to(dev)
+        else:
+            n_q = torch.tensor(count if lanes is None else [count] * lanes,
+                               dtype=torch.int32, device=dev)
+        r = compare_kernel(q, ref, mask, n_q, radius, base if lanes is None else None)
         worst = max(worst, r["max_abs_err"])
         emit("kernel", kernel="knn_fused", search=label, fill=fill, **r)
     return worst
@@ -262,19 +302,90 @@ def simulate(n_frames, points, init, seed=0):
     return sim, [sim.frame(i) for i in range(n_frames)]
 
 
+def on_device(frames, n_raw, dev):
+    """Raw frames padded to ``n_raw`` points and moved to the card
+    beforehand, as bench.py:113-124 does: (points, intensities, time,
+    mask) for ``process_raw(..., mask=)``."""
+    from loam_livox_tpu_torch.core.types import to_device
+
+    out = []
+    for xyz, inten, t0 in frames:
+        pts = np.zeros((n_raw, 3), np.float32)
+        it = np.zeros(n_raw, np.float32)
+        m = np.zeros(n_raw, bool)
+        pts[:len(xyz)], it[:len(xyz)], m[:len(xyz)] = xyz, inten, True
+        out.append((to_device(pts, dev), to_device(it, dev), t0, to_device(m, dev)))
+    return out
+
+
+def feed(pipe, frames):
+    for frame in frames:
+        pipe.process_raw(*frame[:3], mask=frame[3] if len(frame) > 3 else None)
+
+
+def rows_per_frame(cfg) -> int:
+    from loam_livox_tpu_torch.runtime.pipeline import piece_count
+
+    return 1 if cfg.common.odom_mode == 0 else piece_count(cfg)
+
+
 def run_stream(cfg, sim, frames, device):
+    """The frames through a new pipeline; returns (pipeline, aligned ATE,
+    accepted trajectory rows)."""
     from loam_livox_tpu_torch.eval.ate import ate_rmse
     from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
 
     pipe = OdometryPipeline(cfg, device=device)
-    for xyz, inten, t0 in frames:
-        pipe.process_raw(xyz, inten, t0)
+    feed(pipe, frames)
     pipe.flush()
     est = pipe.trajectory.positions_array()
     gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
-    if not np.all(np.isfinite(est)) or est.shape != (len(frames), 3):
-        raise AssertionError(f"bad trajectory {est.shape}")
+    rows = len(frames) * rows_per_frame(cfg)
+    if not np.all(np.isfinite(est)) or est.shape != (rows, 3):
+        raise AssertionError(f"bad trajectory {est.shape}, expected ({rows}, 3)")
     return pipe, ate_rmse(est, gt), int(sum(pipe.trajectory.accepted))
+
+
+# where each place of the host-sync audit (runtime/pipeline.py) lives
+AUDIT_FILES = {
+    "debounce": "loam_livox_tpu_torch/frontend/livox.py",
+    "icp_exit": "loam_livox_tpu_torch/registration/icp.py",
+    "admit": "loam_livox_tpu_torch/runtime/odometry.py",
+    "drain": "loam_livox_tpu_torch/runtime/pipeline.py",
+}
+
+
+def sync_check(label, pipe, frames):
+    """torch's own count of synchronising calls (sync-debug warnings, by
+    source line) over ``frames`` fed to ``pipe``, against the audit's
+    count by place (`runtime.pipeline.host_syncs`)."""
+    import collections
+    import warnings
+
+    import torch
+
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    P.reset_host_syncs()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        feed(pipe, frames)
+        torch.cuda.set_sync_debug_mode("default")
+    where = collections.Counter(
+        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
+    audit = P.host_syncs()
+    by_file = collections.Counter()
+    for line, count in where.items():
+        by_file[line.rsplit(":", 1)[0]] += count
+    expected = collections.Counter({AUDIT_FILES[k]: v for k, v in audit.items() if v})
+    n = len(frames)
+    emit("sync_check", path=label, frames=n, counted_per_frame=sum(audit.values()) / n,
+         torch_sync_warnings_per_frame=sum(where.values()) / n,
+         audit={k: v / n for k, v in audit.items()},
+         by_line={k: v / n for k, v in sorted(where.items())},
+         match=by_file == expected)
 
 
 def main() -> int:
@@ -292,7 +403,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, HERE)
     try:
-        from loam_livox_tpu_torch.core.config import SlamConfig
+        from loam_livox_tpu_torch.core import config as C
         from loam_livox_tpu_torch.ops import build
         from loam_livox_tpu_torch.ops import knn_fused as kf
         from loam_livox_tpu_torch.runtime import pipeline as P
@@ -315,29 +426,36 @@ def main() -> int:
          launch_k5_surfaces=kf.launch_shape(5, 65536))
     base = load_baseline(args.baseline) if args.baseline else None
 
-    # 3. each kernel against its plain version at the main path's shapes
+    # 3. each kernel against its plain version at the paths' shapes
     worst_err = kernel_phase(dev, base)
 
-    # 4. the port on the card against the port on the CPU
-    small = SlamConfig().replace(
-        capacity={"max_raw_points": 16384, "max_corner": 256, "max_surface": 1024,
-                  "max_corner_ds": 256, "max_surface_ds": 1024,
-                  "map_corner_capacity": 1024, "map_surf_capacity": 4096,
-                  "hist_corner_capacity": 128, "hist_surf_capacity": 512,
-                  "history_window": 16},
-        mapping={"init_accumulate_frames": 6},
-        optimization={"icp_maximum_iteration": 5, "full_iterations": 3})
-    sim, frames = simulate(16, 10000, 6)
-    _, ate_gpu, acc_gpu = run_stream(small, sim, frames, dev)
-    _, ate_cpu, acc_cpu = run_stream(small, sim, frames, "cpu")
-    ok = abs(ate_gpu - ate_cpu) < 0.05 and abs(acc_gpu - acc_cpu) <= 2
-    emit("reference", frames=len(frames), ate_gpu=ate_gpu, ate_cpu=ate_cpu,
-         accepted_gpu=acc_gpu, accepted_cpu=acc_cpu, ok=ok)
-    if not ok:
-        raise AssertionError("the card's run departs from the CPU reference")
+    # 4. the port on the card against the port on the CPU, on small streams
+    def small(cfg):
+        return cfg.replace(
+            capacity={"max_raw_points": 16384, "max_corner": 256, "max_surface": 1024,
+                      "max_corner_ds": 256, "max_surface_ds": 1024,
+                      "map_corner_capacity": 1024, "map_surf_capacity": 4096,
+                      "hist_corner_capacity": 128, "hist_surf_capacity": 512,
+                      "history_window": 16},
+            mapping={"init_accumulate_frames": 6},
+            optimization={"icp_maximum_iteration": 5, "full_iterations": 3})
+
+    for label, cfg, n_small, acc_tol in (
+            ("main", small(C.SlamConfig()), 16, 2),
+            ("precision", small(C.precision_profile()), 12, 3),
+            ("racing", small(C.realtime_racing_profile()), 12, 3)):
+        sim, frames = simulate(n_small, 10000, 6)
+        _, ate_gpu, acc_gpu = run_stream(cfg, sim, frames, dev)
+        _, ate_cpu, acc_cpu = run_stream(cfg, sim, frames, "cpu")
+        ok = abs(ate_gpu - ate_cpu) < 0.05 and abs(acc_gpu - acc_cpu) <= acc_tol
+        emit("reference", path=label, frames=n_small, rows=n_small * rows_per_frame(cfg),
+             ate_gpu=ate_gpu, ate_cpu=ate_cpu, accepted_gpu=acc_gpu, accepted_cpu=acc_cpu,
+             ok=ok)
+        if not ok:
+            raise AssertionError(f"the card's {label} run departs from the CPU reference")
 
     # 5. the main path: default capacities, 40 frames of 10,000 points
-    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 10})
+    cfg = C.SlamConfig().replace(mapping={"init_accumulate_frames": 10})
     n = 40
     sim, frames = simulate(n + 5, 10000, 10)
     run_stream(cfg, sim, frames[:12], dev)          # warm-up: first registrations
@@ -361,8 +479,10 @@ def main() -> int:
         raise AssertionError(f"knn_fused launched {launches} times for {iters} ICP iterations")
     if not (ate < 0.35 and accepted >= n // 2):
         raise AssertionError(f"main path off: ATE {ate}, accepted {accepted}/{n}")
+    launches_by_path = {"main": launches}
 
     # 6. the kernel line, timed on the buffer and queries the main path ended on
+    from loam_livox_tpu_torch.core import se3
     from loam_livox_tpu_torch.core.types import to_device
     from loam_livox_tpu_torch.frontend.livox import extract_frame
     from loam_livox_tpu_torch.registration import residuals as res
@@ -376,8 +496,8 @@ def main() -> int:
     it = np.zeros(n_raw, np.float32)
     msk = np.zeros(n_raw, bool)
     pts[:len(xyz)], it[:len(xyz)], msk[:len(xyz)] = xyz, inten, True
-    _, _, fr = extract_frame(to_device(pts, dev), to_device(it, dev), to_device(msk, dev),
-                             t, cfg.feature_extraction, cfg.capacity)
+    _, _, (fr,) = extract_frame(to_device(pts, dev), to_device(it, dev), to_device(msk, dev),
+                                t, cfg.feature_extraction, cfg.capacity)
     _, surf_in = input_downsample(P.source_downsample(fr, cfg), cfg)
     s = refine_blur(surf_in.time, fr.time_min, fr.time_max, True)
     qs = res.transform_points_incre(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
@@ -390,22 +510,7 @@ def main() -> int:
 
     # torch's own count of synchronising calls over three more frames of
     # the same run (a cross-check of the audit in runtime/pipeline.py)
-    import collections
-    import warnings
-
-    P.reset_host_syncs()
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        torch.cuda.set_sync_debug_mode("warn")
-        for xyz, inten, t in frames[n:n + 3]:
-            pipe.process_raw(xyz, inten, t)
-        torch.cuda.set_sync_debug_mode("default")
-    where = collections.Counter(
-        f"{os.path.relpath(w.filename, HERE)}:{w.lineno}" for w in caught
-        if "synchroniz" in str(w.message) and "prototype" not in str(w.message))
-    emit("sync_check", frames=3, counted_per_frame=sum(P.host_syncs().values()) / 3,
-         torch_sync_warnings_per_frame=sum(where.values()) / 3,
-         by_line={k: v / 3 for k, v in sorted(where.items())})
+    sync_check("main", pipe, frames[n:n + 3])
 
     # where a frame's time goes: torch.profiler over the last two frames
     from torch.profiler import ProfilerActivity, profile
@@ -413,10 +518,10 @@ def main() -> int:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for xyz, inten, t in frames[n + 3:]:
-            pipe.process_raw(xyz, inten, t)
+        feed(pipe, frames[n + 3:])
         torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / 2
+    pipe.flush()
     ka = prof.key_averages()
     kernels_ka = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in kernels_ka) / 2e3
@@ -440,13 +545,97 @@ def main() -> int:
          top_kernels_self_device_ms_per_frame=top(kernels_ka, "self_device_time_total"),
          top_self_cpu_ms_per_frame=top(ka, "self_cpu_time_total"))
 
+    # 7. the other rows of bench.py (bench.py:129-137) at full width: 30
+    # raw frames of 10,000 points padded on the card beforehand
+    n_path = 30
+    sim, host_frames = simulate(n_path + 12, 10000, 10)
+    dev_frames = on_device(host_frames, n_raw, dev)
+    accel = {"init_accumulate_frames": 10}
+    paths = {
+        "precision": C.precision_profile().replace(mapping=accel),
+        "realtime": C.realtime_profile().replace(mapping=accel),
+        "racing": C.realtime_racing_profile().replace(mapping=accel),
+        "chunked": C.SlamConfig().replace(mapping=accel, parallel={"dispatch_chunk": 8}),
+    }
+    racing_pipe = None
+    for label, cfg_p in paths.items():
+        torch.cuda.synchronize()
+        kf.launches = 0
+        P.reset_host_syncs()
+        t0 = time.perf_counter()
+        pipe_p, ate_p, acc_p = run_stream(cfg_p, sim, dev_frames[:n_path], dev)
+        torch.cuda.synchronize()
+        wall_p = time.perf_counter() - t0
+        launches_p = kf.launches
+        syncs_p = P.host_syncs()
+        rows = len(pipe_p.trajectory.times)
+        fallback_iters = pipe_p.loop_iterations - pipe_p.raced_loop_iterations
+        emit("path", path=label, frames=n_path, rows=rows, fps=n_path / wall_p,
+             registrations_per_s=rows / wall_p, wall_s=wall_p, ate_aligned=ate_p,
+             accepted=acc_p, icp_iterations=sum(pipe_p.iterations),
+             loop_iterations=pipe_p.loop_iterations, knn_fused_launches=launches_p,
+             raced_groups=pipe_p.raced_groups, fallback_groups=pipe_p.fallback_groups,
+             raced_loop_iterations=pipe_p.raced_loop_iterations,
+             fallback_iterations=fallback_iters,
+             host_syncs_per_frame=sum(syncs_p.values()) / n_path,
+             host_syncs={k: v / n_path for k, v in syncs_p.items()},
+             map_surface_fill=int(pipe_p.state.map_surface.mask.sum()))
+        # each ICP pass searches corners and surfaces once: a piece's
+        # iterations on the sequential paths, the batched loop of a raced
+        # group plus the iterations of fallen-back frames on racing
+        if pipe_p.raced_groups == 0 and pipe_p.loop_iterations != sum(pipe_p.iterations):
+            raise AssertionError(f"{label}: loop passes differ from the rows' iterations")
+        if launches_p != 2 * (pipe_p.raced_loop_iterations + fallback_iters) or launches_p <= 0:
+            raise AssertionError(f"{label}: knn_fused launched {launches_p} times for "
+                                 f"{pipe_p.loop_iterations} ICP loop passes")
+        if not (ate_p < 0.35 and acc_p >= rows // 2):
+            raise AssertionError(f"{label} path off: ATE {ate_p}, accepted {acc_p}/{rows}")
+        launches_by_path[label] = launches_p
+        if label == "precision":
+            sync_check(label, pipe_p, dev_frames[n_path:n_path + 3])
+        if label == "racing":
+            # four more groups, so the queue (3 deep) drains one
+            sync_check(label, pipe_p, dev_frames[n_path:n_path + 12])
+            racing_pipe = pipe_p
+
+    # 8. the lane axis on the racing path's own buffer: the surface
+    # queries of the last group's 9 lanes, at the pose the path ended on
+    from loam_livox_tpu_torch.runtime.pipeline import extract_pieces
+
+    st = racing_pipe.state
+    cfg_r = paths["racing"]
+    lanes = [input_downsample(piece, cfg_r)[1]
+             for frame in dev_frames[n_path - 3:n_path]
+             for piece in extract_pieces(frame[0], frame[1], frame[3], frame[2], cfg_r)]
+    q_lanes = torch.stack([se3.quat_rotate(st.q_w, b.xyz) + st.t_w for b in lanes])
+    n_lanes = torch.stack([b.mask.sum(dtype=torch.int32) for b in lanes])
+    r_lanes = compare_kernel(q_lanes.contiguous(), st.map_surface.xyz, st.map_surface.mask,
+                             n_lanes, 50.0 ** 0.5, reps=50)
+    worst_err = max(worst_err, r_lanes["max_abs_err"])
+    emit("kernel", kernel="knn_fused", search="surfaces, racing-path buffer, 9 lanes",
+         **r_lanes)
+
+    # 9. the large-scale scenario's CPU-scale variant on the card, under
+    # its golden (tests/test_scenarios_ci.py:23)
+    from loam_livox_tpu_torch.eval.scenarios import run_scenario
+
+    kf.launches = 0
+    sc = run_scenario("largescale_realtime", small=True)
+    launches_by_path["largescale_realtime_small"] = kf.launches
+    emit("scenario", knn_fused_launches=kf.launches, **sc)
+    if not (sc["ate_aligned"] < 1.30 and sc["accepted"] >= 12):
+        raise AssertionError(f"largescale_realtime over its golden: {sc}")
+
     kernels = [{
         "name": "knn_fused", "route": "cuda",
         "source": "loam_livox_tpu_torch/csrc/knn_fused.cu",
         "replaces": "loam_livox_tpu/ops/pallas/knn_fused.py:305",
         "launches": launches, "max_abs_err": worst_err,
         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-        "bound_by": r["bound_by"], "library_ms": r["library_ms"]}]
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        "lanes_ms": r_lanes["ms"], "lanes_kernel_ms": r_lanes["kernel_ms"],
+        "lanes_bound_ms": r_lanes["bound_ms"], "lanes_plain_ms": r_lanes["plain_ms"],
+        "lanes_library_ms": r_lanes["library_ms"], "launches_by_path": launches_by_path}]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -8,11 +8,12 @@ mirror the reference's ROS parameters (``common/``,
 ``loop_closure/``); ``capacity`` and ``parallel`` size the padded
 buffers and the execution modes.
 
-The port runs one slice of the configuration space (the default
-``SlamConfig()``: Livox front end, motion deblur, history matching,
-loop closure off, one device).  `require_supported` raises
-``NotImplementedError`` on every other path, naming the ``ROADMAP.md``
-item that ports it.
+The port runs a slice of the configuration space: the Livox front end
+with motion deblur or piecewise windows (the shipped precision and
+realtime profiles), history matching, loop closure off, one device,
+with sequential, chunked or racing dispatch and optional residual
+subsampling.  `require_supported` raises ``NotImplementedError`` on
+every other path, naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
@@ -317,9 +318,6 @@ def require_supported(cfg: SlamConfig) -> None:
             f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
             f"({title})")
 
-    if not c.if_motion_deblur:
-        refuse("common/if_motion_deblur=0 (piecewise windows)", 9,
-               "shipped-profile paths")
     if c.lidar_type != "livox":
         refuse(f"common/lidar_type={c.lidar_type!r}", 11, "other front ends")
     if m.matching_mode != 0:
@@ -327,16 +325,10 @@ def require_supported(cfg: SlamConfig) -> None:
                "cell matching mode")
     if cfg.loop_closure.if_enable_loop_closure:
         refuse("loop closure", 12, "loop closure")
-    if p.frame_batch > 1 or p.dispatch_chunk > 1:
-        refuse("parallel/frame_batch or dispatch_chunk > 1", 9,
-               "racing and chunked dispatch")
     if p.mesh_devices > 1:
         refuse(f"parallel/mesh_devices={p.mesh_devices}", 15, "multi-GPU")
     if o.correspondence not in ("auto", "pallas"):
         refuse(f"optimization/correspondence={o.correspondence!r}", 14,
                "other correspondence engines")
-    if o.subsample_residuals > 0:
-        refuse("optimization/subsample_residuals > 0", 9,
-               "shipped-profile paths")
     if c.if_save_to_pcd_files or c.if_verbose_screen_printf == 0:
         refuse("pcd dumps and screen diagnostics", 13, "host side")

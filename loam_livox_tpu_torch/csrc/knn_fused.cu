@@ -23,6 +23,14 @@
 // step.  The main path's 193 x 1,056 search keeps 5 blocks of each of 7
 // clusters busy.
 //
+// Query sets.  The grid's y axis holds `lanes` query sets (the racing
+// path registers several frames at once against one matching buffer,
+// the counterpart of jax.vmap over the TPU kernel): grid row y reads its
+// queries `lane_stride` rows after row y - 1's, its count from n_q[y],
+// and writes its own (n_rows, k) block of the outputs.  Clusters stay
+// within one set's tile, so nothing else changes; a set whose count is 0
+// writes BIG rows like any tile past its count.
+//
 // Inside a block.  128 threads: 4 lanes (warps) of 32 threads, each
 // thread one query in registers, lane l scanning references
 // [64 l, 64 l + 64) of every staged group.  One thread keeps a ring of kRing groups in flight with 1-D
@@ -227,10 +235,10 @@ __device__ __forceinline__ void stage_group(float4* slot, uint64_t* bar, const f
 
 template <int K>
 __global__ void __launch_bounds__(kThreads, 2)
-knn_fused_kernel(const float* __restrict__ query, int n_rows, const float4* __restrict__ ref4,
-                 const float4* __restrict__ boxes, int n_groups_cap,
-                 const int* __restrict__ n_ref_ptr, const int* __restrict__ n_q_ptr,
-                 float radius2, float* __restrict__ out_d,
+knn_fused_kernel(const float* __restrict__ query, int n_rows, long long lane_stride,
+                 const float4* __restrict__ ref4, const float4* __restrict__ boxes,
+                 int n_groups_cap, const int* __restrict__ n_ref_ptr,
+                 const int* __restrict__ n_q_ptr, float radius2, float* __restrict__ out_d,
                  int* __restrict__ out_i) {
   extern __shared__ __align__(128) unsigned char smem[];
   float4* ring = reinterpret_cast<float4*>(smem);
@@ -253,10 +261,14 @@ knn_fused_kernel(const float* __restrict__ query, int n_rows, const float4* __re
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int q0 = (blockIdx.x / kCluster) * kTileQ;
+  // this grid row's query set
+  query += static_cast<size_t>(blockIdx.y) * static_cast<size_t>(lane_stride) * 3;
+  out_d += static_cast<size_t>(blockIdx.y) * n_rows * K;
+  out_i += static_cast<size_t>(blockIdx.y) * n_rows * K;
   // Loads that depend on nothing, issued together: the counts, the first
   // groups' boxes and the tile's queries.
   const int n_ref_raw = *n_ref_ptr;
-  const int n_q_raw = *n_q_ptr;
+  const int n_q_raw = n_q_ptr[blockIdx.y];
   float4 lo = make_float4(0.f, 0.f, 0.f, 0.f), hi = lo;
   if (tid < n_groups_cap) {
     lo = boxes[2 * tid];
@@ -543,16 +555,16 @@ cudaError_t allow_smem(int smem) {
 }
 
 template <int K>
-int launch(const float* query, int n_rows, const float* ref4, const float* boxes, int mp,
-           const int* n_ref, const int* n_q, float radius2, float* out_d,
-           int* out_i, cudaStream_t stream) {
+int launch(const float* query, int n_rows, int lanes, long long lane_stride, const float* ref4,
+           const float* boxes, int mp, const int* n_ref, const int* n_q, float radius2,
+           float* out_d, int* out_i, cudaStream_t stream) {
   auto kernel = knn_fused_kernel<K>;
   const int n_groups = mp / kGroup;
   const int smem = Smem<K>::bytes(n_groups);
   cudaError_t e = allow_smem<K>(smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(((n_rows + kTileQ - 1) / kTileQ) * kCluster);
+  cfg.gridDim = dim3(((n_rows + kTileQ - 1) / kTileQ) * kCluster, lanes);
   cfg.blockDim = dim3(kThreads);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
@@ -563,7 +575,8 @@ int launch(const float* query, int n_rows, const float* ref4, const float* boxes
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;
   cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, query, n_rows, reinterpret_cast<const float4*>(ref4),
+  e = cudaLaunchKernelEx(&cfg, kernel, query, n_rows, lane_stride,
+                         reinterpret_cast<const float4*>(ref4),
                          reinterpret_cast<const float4*>(boxes), n_groups, n_ref, n_q, radius2,
                          out_d, out_i);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
@@ -626,36 +639,38 @@ int knn_fused_max_rows(int k) {
   }
 }
 
-// query (n_rows, 3), ref4 (mp, 4) rows (x, y, z, ||r||^2 + mask penalty),
-// 16-byte aligned, boxes (mp / 256, 8) rows (lo_xyz, _, hi_xyz, _),
-// n_ref (one past the last valid reference) and n_q (valid query rows)
-// on the device, out_d/out_i (n_rows, k).  mp is a multiple of 256 no
-// larger than knn_fused_max_rows(k), and 1 <= k <= 8.  Returns a CUDA
-// error code, 0 on a launch that was accepted.
-int knn_fused_launch(const float* query, int n_rows, const float* ref4, const float* boxes,
-                     int mp, const int* n_ref, const int* n_q, float radius2, int k,
-                     float* out_d, int* out_i, void* stream) {
-  if (n_rows <= 0 || mp <= 0 || mp % kGroup != 0) return cudaErrorInvalidValue;
+// query: `lanes` sets of n_rows rows (x, y, z), set y starting
+// y * lane_stride rows after set 0; ref4 (mp, 4) rows (x, y, z, ||r||^2 +
+// mask penalty), 16-byte aligned, boxes (mp / 256, 8) rows (lo_xyz, _,
+// hi_xyz, _), n_ref (one past the last valid reference) and n_q[lanes]
+// (valid query rows of each set) on the device, out_d/out_i (lanes,
+// n_rows, k).  mp is a multiple of 256 no larger than
+// knn_fused_max_rows(k), 1 <= lanes <= 65535 (gridDim.y) and 1 <= k <= 8.
+// Returns a CUDA error code, 0 on a launch that was accepted.
+int knn_fused_launch(const float* query, int n_rows, int lanes, long long lane_stride,
+                     const float* ref4, const float* boxes, int mp, const int* n_ref,
+                     const int* n_q, float radius2, int k, float* out_d, int* out_i,
+                     void* stream) {
+  if (n_rows <= 0 || lanes <= 0 || lanes > 65535 || lane_stride < 0 || mp <= 0 ||
+      mp % kGroup != 0)
+    return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define KNN_LAUNCH(K)                                                                          \
+  case K:                                                                                      \
+    return launch<K>(query, n_rows, lanes, lane_stride, ref4, boxes, mp, n_ref, n_q, radius2, \
+                     out_d, out_i, s)
   switch (k) {
-    case 1:
-      return launch<1>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 2:
-      return launch<2>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 3:
-      return launch<3>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 4:
-      return launch<4>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 5:
-      return launch<5>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 6:
-      return launch<6>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 7:
-      return launch<7>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
-    case 8:
-      return launch<8>(query, n_rows, ref4, boxes, mp, n_ref, n_q, radius2, out_d, out_i, s);
+    KNN_LAUNCH(1);
+    KNN_LAUNCH(2);
+    KNN_LAUNCH(3);
+    KNN_LAUNCH(4);
+    KNN_LAUNCH(5);
+    KNN_LAUNCH(6);
+    KNN_LAUNCH(7);
+    KNN_LAUNCH(8);
     default: return cudaErrorInvalidValue;
   }
+#undef KNN_LAUNCH
 }
 
 // The launch shape of the k-kernel for an mp-reference operand: out =

@@ -1,0 +1,111 @@
+"""The JAX package's benchmark scenarios (``loam_livox_tpu/eval/
+scenarios.py``) that the port runs, on the synthetic stream.
+
+`scenario_config` returns ``(SlamConfig, runner kwargs)``; `run_scenario`
+drives `OdometryPipeline` over the simulator and scores the trajectory.
+``odometry_only`` and ``largescale_realtime`` are ported;
+``full_mapping`` (cell matching), ``loop_closure`` and
+``mid100_trilidar`` (three-head front end) raise
+``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict
+
+from ..core.config import SlamConfig, largescale_profile
+
+#: CPU-scale capacities of the CI variants (``small=True``), as in the
+#: JAX package
+SMALL_CAPS = {
+    "max_raw_points": 4096, "max_corner": 256, "max_surface": 1024,
+    "max_corner_ds": 256, "max_surface_ds": 1024,
+    "map_corner_capacity": 4096, "map_surf_capacity": 16384,
+    "hist_corner_capacity": 128, "hist_surf_capacity": 512,
+    "history_window": 16,
+}
+
+SCENARIOS = ("odometry_only", "full_mapping", "largescale_realtime",
+             "loop_closure", "mid100_trilidar")
+
+_UNPORTED = {
+    "full_mapping": (10, "cell matching mode"),
+    "loop_closure": (12, "loop closure"),
+    "mid100_trilidar": (11, "other front ends"),
+}
+
+
+def scenario_config(name: str, small: bool = False):
+    """(SlamConfig, runner kwargs) of a scenario; ``small=True`` is the
+    CPU-scale CI variant (tests/test_scenarios_ci.py)."""
+    if name in _UNPORTED:
+        item, title = _UNPORTED[name]
+        raise NotImplementedError(
+            f"scenario {name!r} is not ported yet: ROADMAP.md queue 1 item {item} ({title})")
+    if name == "odometry_only":
+        # Mid-40 short sequence, odometry only
+        cfg = SlamConfig().replace(
+            common={"if_motion_deblur": 0, "piecewise_number": 1},
+            mapping={"init_accumulate_frames": 10},
+            capacity={"max_raw_points": 8192, "map_surf_capacity": 32768,
+                      "map_corner_capacity": 8192},
+        )
+        kw = {"frames": 40, "points": 8192}
+    elif name == "largescale_realtime":
+        # coarse resolutions, realtime profile, an outdoor-scale scene
+        cfg = largescale_profile().replace(mapping={"init_accumulate_frames": 20})
+        kw = {"frames": 60, "points": 10000,
+              "scene": {"half_extent": 45.0, "half_extent_z": 8.0,
+                        "n_pillars": 14, "n_ridges": 24},
+              "traj_scale": 4.0}
+    else:
+        raise KeyError(name)
+    if small:
+        cfg = cfg.replace(
+            capacity=SMALL_CAPS,
+            mapping={"init_accumulate_frames": 6},
+            optimization={"icp_maximum_iteration": 5, "full_iterations": 3},
+        )
+        kw = dict(kw, points=3072, frames=min(kw["frames"], 24))
+    return cfg, kw
+
+
+def run_scenario(name: str, frames: int | None = None, small: bool = False,
+                 overrides: Dict | None = None, device=None) -> Dict:
+    """Run a scenario on the simulator; returns frames/s, aligned and raw
+    ATE and the accepted trajectory rows.  On the card unless ``device``
+    says otherwise."""
+    import numpy as np
+
+    from ..io.simulator import ConvexScene, LivoxSimulator, SimConfig, Trajectory
+    from ..runtime.pipeline import OdometryPipeline
+    from .ate import ate_rmse
+
+    cfg, kw = scenario_config(name, small=small)
+    if overrides:
+        cfg = cfg.replace(**overrides)
+    n = frames or kw["frames"]
+    # the standstill ramp covers the init-accumulation window
+    traj = Trajectory(ramp_t0=0.1 * cfg.mapping.init_accumulate_frames + 0.2)
+    traj.lin_amp = traj.lin_amp * kw.get("traj_scale", 1.0)
+    rng = np.random.default_rng(0)
+    scene = ConvexScene.random_room(rng, **kw["scene"]) if "scene" in kw else None
+    sim = LivoxSimulator(SimConfig(points_per_frame=kw["points"], seed=0),
+                         scene=scene, traj=traj)
+    pipe = OdometryPipeline(cfg, device=device)
+    t0 = time.perf_counter()
+    for i in range(n):
+        pipe.process_raw(*sim.frame(i))
+    pipe.flush()
+    wall = time.perf_counter() - t0
+    est = pipe.trajectory.positions_array()
+    gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
+    return {
+        "scenario": name,
+        "frames": n,
+        "fps": n / wall,
+        "ate_aligned": ate_rmse(est, gt),
+        "ate_raw": ate_rmse(est, gt, align=False),
+        "accepted": int(sum(pipe.trajectory.accepted)),
+        "rows": len(est),
+    }

@@ -291,9 +291,16 @@ def select_features(xyz: torch.Tensor, info: PtInfo, n_petals: int,
 
 def extract_frame(xyz: torch.Tensor, raw_intensity: torch.Tensor,
                   in_mask: torch.Tensor, base_time: float,
-                  fe: FeatureExtractionConfig, caps: CapacityConfig):
-    """Front end for one raw frame with motion deblur on (one window over
-    the whole frame).  Returns ``(PtInfo, n_petals, FeatureFrame)``."""
+                  fe: FeatureExtractionConfig, caps: CapacityConfig,
+                  piecewise_number: int = 1):
+    """Front end for one raw frame, split into ``piecewise_number``
+    index-fraction windows [p/P, (p+1)/P] (reference
+    laser_feature_extractor.hpp:305-335).  The bounds are fractions of
+    the valid count with both ends inclusive, so adjacent pieces share a
+    boundary index.  Returns ``(PtInfo, n_petals, [FeatureFrame] * P)``."""
     info, n_petals = extract_point_info(xyz, raw_intensity, in_mask,
                                         base_time, fe, caps)
-    return info, n_petals, select_features(xyz, info, n_petals, 0.0, 1.0, fe)
+    return info, n_petals, [
+        select_features(xyz, info, n_petals, p / piecewise_number,
+                        (p + 1) / piecewise_number, fe)
+        for p in range(piecewise_number)]

@@ -7,7 +7,9 @@ Python and numpy values (this module imports nothing of JAX).
   arrays (``{name: np.asarray(value)}``; the matching buffers as
   ``map_corners.xyz`` / ``map_corners.mask`` and so on) and keeps the
   fields the port's state has.  This state is what a run carries from
-  frame to frame: the system's counterpart of a model's weights.
+  frame to frame: the system's counterpart of a model's weights.  The
+  JAX rng key has no counterpart (the draws cannot match): the port's
+  generator starts from seed 0, as in a new state.
 """
 from __future__ import annotations
 
@@ -48,4 +50,5 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         last_q_incre=t("last_q_incre"), last_t_incre=t("last_t_incre"),
         map_corners=batch("map_corners"),
         map_surface=batch("map_surface"),
+        rng=torch.Generator(device=device).manual_seed(0),
     )

@@ -13,6 +13,8 @@ same function, bit for bit.
   ``query_count``, missing neighbours (fewer than k valid references)
   and, when ``max_radius`` is given, neighbours farther than it read
   ``BIG`` with index 0.
+* Queries may carry a leading lane axis, (L, Q, 3) with one count per
+  lane: L query sets against the same references (the racing path).
 """
 from __future__ import annotations
 
@@ -46,18 +48,31 @@ def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
         ref_mask: torch.Tensor, k: int = 5,
         query_count: torch.Tensor | int | None = None,
         max_radius: float | None = None):
-    """(Q, k) ascending squared distances and int32 indices (module doc).
+    """(Q, k) ascending squared distances and int32 indices (module doc);
+    (L, Q, k) for (L, Q, 3) queries, each lane searched on its own with
+    its own count (an (L,) tensor or sequence; a single count or None
+    applies to every lane).
 
     Reads the valid prefixes on the host, so on CUDA it synchronises:
     it is the reference the kernel is held against, not a device path.
     """
+    if query_xyz.dim() == 3:
+        n_lanes, n_rows = query_xyz.shape[:2]
+        counts = ([None] * n_lanes if query_count is None else
+                  torch.as_tensor(query_count).reshape(-1).expand(n_lanes).tolist())
+        out_d = torch.empty((n_lanes, n_rows, k), device=query_xyz.device)
+        out_i = torch.empty((n_lanes, n_rows, k), dtype=torch.int32, device=query_xyz.device)
+        for lane, count in enumerate(counts):
+            out_d[lane], out_i[lane] = knn(query_xyz[lane], ref_xyz, ref_mask, k, count,
+                                           max_radius)
+        return out_d, out_i
     nq_rows = query_xyz.shape[0]
     dev = query_xyz.device
     out_d = torch.full((nq_rows, k), BIG, dtype=torch.float32, device=dev)
     out_i = torch.zeros((nq_rows, k), dtype=torch.int64, device=dev)
     valid = torch.nonzero(ref_mask).flatten()
     n_ref = int(valid[-1]) + 1 if valid.numel() else 0
-    n_q = nq_rows if query_count is None else min(int(query_count), nq_rows)
+    n_q = nq_rows if query_count is None else min(max(int(query_count), 0), nq_rows)
     if n_ref and n_q:
         d = sq_dist(query_xyz[:n_q].float(), ref_xyz[:n_ref].float())
         d = torch.where(ref_mask[None, :n_ref], d,

@@ -12,6 +12,11 @@ TPU wrapper's rescoring pass and any merge here have nothing left to do.
 
 The reference operand (`build_ref_operand`) depends only on the
 matching buffer: build it once per frame, as ICP does.
+
+Queries may carry a leading lane axis, (L, Q, 3) with an (L,) tensor of
+counts: the counterpart of ``jax.vmap`` over the TPU kernel in the
+racing path (``loam_livox_tpu/runtime/batched.py:76-85``).  One launch
+serves every lane (a grid row per lane) against the one operand.
 """
 from __future__ import annotations
 
@@ -25,6 +30,7 @@ from .knn import BIG, knn
 
 GROUP = 256    # references per bounding box and operand padding (kGroup in the source)
 MAX_K = 8
+MAX_LANES = 65535   # gridDim.y
 
 #: kernel launches since the last reset (read and reset by callers that
 #: check the main path went through the kernel)
@@ -73,34 +79,39 @@ def search_work(query_xyz: torch.Tensor, query_count, ref_op: RefOperand,
     that query's own point (every group when it is None), box distances
     in float64.  Bytes: the valid queries, the reference rows up to the
     last valid one and their boxes read once, the (n_q, k) lists written
-    once.  Reads the counts on the host: a yardstick, not a device path.
+    once.  With a lane axis, pairs, queries and lists sum over the lanes
+    and the shared operand counts once.  Reads the counts on the host: a
+    yardstick, not a device path.
     """
-    n_q = query_xyz.shape[0] if query_count is None else min(
-        int(query_count), query_xyz.shape[0])
+    lanes = query_xyz.reshape(-1, query_xyz.shape[-2], 3)
+    counts = ([lanes.shape[1]] * lanes.shape[0] if query_count is None else
+              torch.as_tensor(query_count).reshape(-1).expand(lanes.shape[0]).tolist())
     n_ref = int(ref_op.n_ref)
     valid = (ref_op.ref4[:, 3] < 0.5 * BIG).reshape(-1, GROUP).sum(1)
     live = valid > 0
-    pairs = 0
-    if max_radius is None:
-        pairs = n_q * int(valid.sum())
-    elif n_q:
-        lo = ref_op.boxes[live, 0:3].double()
-        hi = ref_op.boxes[live, 4:7].double()
-        r2 = float(max_radius) ** 2
-        for q in query_xyz[:n_q].double().split(256):
+    lo = ref_op.boxes[live, 0:3].double()
+    hi = ref_op.boxes[live, 4:7].double()
+    pairs = n_q_all = 0
+    for q_lane, count in zip(lanes, counts):
+        n_q = min(max(int(count), 0), q_lane.shape[0])
+        n_q_all += n_q
+        if max_radius is None:
+            pairs += n_q * int(valid.sum())
+            continue
+        for q in q_lane[:n_q].double().split(256):
             gap = torch.clamp(torch.maximum(lo[None] - q[:, None], q[:, None] - hi[None]), min=0)
-            near = (gap * gap).sum(-1) <= r2
+            near = (gap * gap).sum(-1) <= float(max_radius) ** 2
             pairs += int((near.to(valid.dtype) * valid[live][None]).sum())
     n_groups = -(-n_ref // GROUP)
-    return pairs, n_q * 12 + n_ref * 16 + n_groups * 32 + n_q * k * 8
+    return pairs, n_q_all * 12 + n_ref * 16 + n_groups * 32 + n_q_all * k * 8
 
 
 def _library() -> ctypes.CDLL:
     lib = build.load("knn_fused")
     fn = lib.knn_fused_launch
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
@@ -132,10 +143,12 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
               query_count: torch.Tensor | int | None = None,
               max_radius: float | None = None):
     """(Q, k) ascending squared distances and int32 indices of the k
-    nearest valid references (contract in `ops.knn`).
+    nearest valid references (contract in `ops.knn`); (L, Q, k) for
+    (L, Q, 3) queries, with ``query_count`` an (L,) tensor, one count a
+    lane (a single count or None applies to every lane).
 
     A CUDA query launches the kernel; a CPU query runs the plain
-    version.  ``query_count`` may be a device scalar: it is never read
+    version.  ``query_count`` may live on the device: it is never read
     on the host.
     """
     if query_xyz.device.type == "cpu":
@@ -145,9 +158,17 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
     if not 1 <= k <= MAX_K:
         raise ValueError(f"knn_fused: k must lie in [1, {MAX_K}], got {k}")
     dev = query_xyz.device
-    if (query_xyz.dtype != torch.float32 or query_xyz.dim() != 2
-            or query_xyz.shape[1] != 3 or not query_xyz.is_contiguous()):
-        raise ValueError("knn_fused: query must be a contiguous (Q, 3) float32 tensor")
+    lane_axis = query_xyz.dim() == 3
+    q3 = query_xyz if lane_axis else query_xyz[None]
+    if (query_xyz.dtype != torch.float32 or query_xyz.dim() not in (2, 3)
+            or q3.shape[2] != 3 or q3.stride(2) != 1 or q3.stride(1) != 3
+            or (q3.shape[0] > 1 and q3.stride(0) % 3)):
+        raise ValueError("knn_fused: query must be a (Q, 3) or (L, Q, 3) float32 "
+                         "tensor with contiguous rows")
+    n_lanes, n_rows = q3.shape[:2]
+    if n_lanes > MAX_LANES:
+        raise ValueError(f"knn_fused: {n_lanes} lanes exceed the kernel's grid, "
+                         f"at most {MAX_LANES}")
     if ref_op is None:
         ref_op = build_ref_operand(ref_xyz, ref_mask)
     ref4, boxes = ref_op.ref4, ref_op.boxes
@@ -165,26 +186,29 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
         raise ValueError(f"knn_fused: {mp} reference rows exceed the kernel's largest "
                          f"operand, {max_rows} rows at k = {k}")
 
-    n_rows = query_xyz.shape[0]
-    out_d = torch.empty((n_rows, k), dtype=torch.float32, device=dev)
-    out_i = torch.empty((n_rows, k), dtype=torch.int32, device=dev)
-    if n_rows == 0:
-        return out_d, out_i
-    # the counts stay on the device; a host count is filled in there
-    n_ref = ref_op.n_ref.to(device=dev, dtype=torch.int32)
-    if isinstance(query_count, torch.Tensor):
-        n_q = query_count.to(device=dev, dtype=torch.int32)  # one element
-    else:
-        n = n_rows if query_count is None else min(max(int(query_count), 0), n_rows)
-        n_q = torch.full((), n, dtype=torch.int32, device=dev)
-    r2 = float("inf") if max_radius is None else float(max_radius) ** 2
+    out_d = torch.empty((n_lanes, n_rows, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((n_lanes, n_rows, k), dtype=torch.int32, device=dev)
+    if n_lanes and n_rows:
+        # the counts stay on the device; a host count is filled in there
+        n_ref = ref_op.n_ref.to(device=dev, dtype=torch.int32)
+        if isinstance(query_count, torch.Tensor):
+            n_q = query_count.to(device=dev, dtype=torch.int32).reshape(-1)
+            if n_q.numel() == 1:
+                n_q = n_q.expand(n_lanes)
+            if n_q.numel() != n_lanes:
+                raise ValueError(f"knn_fused: {n_q.numel()} query counts for {n_lanes} lanes")
+            n_q = n_q.contiguous()
+        else:
+            n = n_rows if query_count is None else min(max(int(query_count), 0), n_rows)
+            n_q = torch.full((n_lanes,), n, dtype=torch.int32, device=dev)
+        r2 = float("inf") if max_radius is None else float(max_radius) ** 2
 
-    global launches
-    err = lib.knn_fused_launch(
-        query_xyz.data_ptr(), n_rows, ref4.data_ptr(), boxes.data_ptr(), mp,
-        n_ref.data_ptr(), n_q.data_ptr(), r2, k, out_d.data_ptr(), out_i.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"knn_fused kernel launch failed: CUDA error {err}")
-    launches += 1
-    return out_d, out_i
+        global launches
+        err = lib.knn_fused_launch(
+            q3.data_ptr(), n_rows, n_lanes, q3.stride(0) // 3, ref4.data_ptr(),
+            boxes.data_ptr(), mp, n_ref.data_ptr(), n_q.data_ptr(), r2, k,
+            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"knn_fused kernel launch failed: CUDA error {err}")
+        launches += 1
+    return (out_d, out_i) if lane_axis else (out_d[0], out_i[0])

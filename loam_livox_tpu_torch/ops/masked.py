@@ -1,5 +1,6 @@
 """Masked-array helpers: fixed-capacity stand-ins for the reference's
-dynamically sized vectors and sets."""
+dynamically sized vectors and sets.  Reductions run over the last axis,
+so a leading lane axis batches them."""
 from __future__ import annotations
 
 import torch
@@ -10,14 +11,27 @@ BIG = 1e30
 def masked_quantile_l1(values: torch.Tensor, mask: torch.Tensor,
                        ratio: float) -> torch.Tensor:
     """Value at position ``floor(ratio * n_valid)`` of the ascending
-    valid entries (reference ``point_cloud_registration.hpp:153-161``)."""
+    valid entries along the last axis (reference
+    ``point_cloud_registration.hpp:153-161``)."""
     vals = torch.where(mask, values, torch.full_like(values, BIG))
-    svals = torch.sort(vals).values
-    n = mask.sum(dtype=torch.int32)
-    idx = torch.clamp((ratio * n.float()).to(torch.int32), 0, values.shape[0] - 1)
+    svals = torch.sort(vals, dim=-1).values
+    n = mask.sum(dim=-1, dtype=torch.int32)
+    idx = torch.clamp((ratio * n.float()).to(torch.int32), 0, values.shape[-1] - 1)
     idx = torch.minimum(idx, torch.clamp(n - 1, min=0))
     # gather, not svals[idx]: indexing with a 0-dim tensor reads it on the host
-    return torch.gather(svals, 0, idx.long().reshape(1)).reshape(())
+    return torch.gather(svals, -1, idx.long()[..., None])[..., 0]
+
+
+def random_keep_mask(mask: torch.Tensor, budget: int,
+                     uniforms: torch.Tensor) -> torch.Tensor:
+    """Thin ``mask`` so that about ``budget`` entries of the last axis
+    survive when more are valid: each is kept where its uniform draw in
+    [0, 1) lies below budget / count (reference residual-block
+    subsampling, ``point_cloud_registration.hpp:438-458``).  The caller
+    draws ``uniforms`` (the shape of ``mask``)."""
+    count = mask.sum(dim=-1, dtype=torch.int32)
+    keep_prob = torch.clamp(budget / torch.clamp(count.float(), min=1.0), max=1.0)
+    return mask & (uniforms < keep_prob[..., None])
 
 
 def compact(mask: torch.Tensor, *arrays: torch.Tensor):

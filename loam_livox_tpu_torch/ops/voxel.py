@@ -12,8 +12,11 @@ the JAX package's two-word key (x, y·2¹⁵ + z) does.  Masked-out points
 carry a key above every voxel key, so they sort last.  When more voxels
 are occupied than ``capacity``, the smallest keys win.
 
-On CUDA ``index_add_`` sums in atomic order, so centroids agree with the
-CPU to f32 round-off, not bitwise.
+The segment sums run in input (sorted) order on both devices:
+``index_add_`` does so on the CPU, and on CUDA, where ``index_add_``
+would sum in atomic order (a new rounding on every run),
+``index_put_(accumulate=True)`` sorts the indices and sums each segment
+in order.  So a run on the card repeats itself.
 """
 from __future__ import annotations
 
@@ -39,6 +42,13 @@ def voxel_keys(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
             | (coords[:, 1] << _AXIS_BITS) | coords[:, 2])
 
 
+def _segment_sum(out: torch.Tensor, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+    """out[seg[i]] += values[i], each segment summed in input order."""
+    if out.is_cuda:
+        return out.index_put_((seg,), values, accumulate=True)
+    return out.index_add_(0, seg, values)
+
+
 def voxel_downsample(batch: PointBatch, leaf: float,
                      capacity: int | None = None,
                      with_time: bool = True) -> PointBatch:
@@ -59,14 +69,14 @@ def voxel_downsample(batch: PointBatch, leaf: float,
     w = contrib.to(batch.xyz.dtype)
 
     xyz_s = batch.xyz[order]
-    sums = torch.zeros((capacity, 3), dtype=batch.xyz.dtype, device=dev)
-    sums.index_add_(0, seg_c, xyz_s * w[:, None])
-    cnts = torch.zeros((capacity,), dtype=batch.xyz.dtype, device=dev)
-    cnts.index_add_(0, seg_c, w)
+    sums = _segment_sum(torch.zeros((capacity, 3), dtype=batch.xyz.dtype, device=dev),
+                        seg_c, xyz_s * w[:, None])
+    cnts = _segment_sum(torch.zeros((capacity,), dtype=batch.xyz.dtype, device=dev),
+                        seg_c, w)
     denom = torch.clamp(cnts, min=1.0)
     if with_time:
-        tsum = torch.zeros((capacity,), dtype=batch.time.dtype, device=dev)
-        tsum.index_add_(0, seg_c, batch.time[order] * w)
+        tsum = _segment_sum(torch.zeros((capacity,), dtype=batch.time.dtype, device=dev),
+                            seg_c, batch.time[order] * w)
         time = tsum / denom
     else:
         time = torch.zeros((capacity,), dtype=batch.time.dtype, device=dev)

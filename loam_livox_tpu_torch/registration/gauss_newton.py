@@ -10,7 +10,10 @@ The two-phase schedule is a short prerun, an inlier-quantile prune, and
 the full solve.
 
 Accept/reject decisions stay on the device (``torch.where``), so the
-solver never waits for the host.
+solver never waits for the host.  Every tensor may carry a leading lane
+axis (residuals (L, N, 3), poses (L, 4) / (L, 3)): L independent
+solves batched into the same launches, each with its own damping,
+accept steps and prune threshold.
 """
 from __future__ import annotations
 
@@ -23,7 +26,7 @@ from ..core.config import OptimizationConfig
 from ..ops.masked import masked_quantile_l1
 from .residuals import huber_rho, huber_weight
 
-# fj(q, t) -> (residuals (N, 3), jacobian (N, 3, 6), block_mask (N,))
+# fj(q, t) -> (residuals (..., N, 3), jacobian (..., N, 3, 6), block_mask (..., N))
 ResidualJacFn = Callable[[torch.Tensor, torch.Tensor],
                          Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
 
@@ -42,18 +45,18 @@ def _sq_norm(r):
 def _cost(r, mask, delta: float):
     """Ceres-style cost: 0.5 Σ ρ(‖r_block‖²) over valid blocks."""
     terms = torch.where(mask, huber_rho(_sq_norm(r), delta), torch.zeros((), device=r.device))
-    return 0.5 * terms.sum()
+    return 0.5 * terms.sum(dim=-1)
 
 
 def system_from_rJ(r0, J, mask, delta: float):
-    """Huber-weighted JᵀJ (6×6) and Jᵀr (6,)."""
+    """Huber-weighted JᵀJ (..., 6, 6) and Jᵀr (..., 6)."""
     w = torch.where(mask, huber_weight(_sq_norm(r0), delta),
                     torch.zeros((), device=r0.device))
     sw = torch.sqrt(w)
-    rw = r0 * sw[:, None]
-    Jw = J * sw[:, None, None]
-    H = torch.einsum("nij,nik->jk", Jw, Jw)
-    g = torch.einsum("nij,ni->j", Jw, rw)
+    rw = r0 * sw[..., None]
+    Jw = J * sw[..., None, None]
+    H = torch.einsum("...nij,...nik->...jk", Jw, Jw)
+    g = torch.einsum("...nij,...ni->...j", Jw, rw)
     return H, g
 
 
@@ -64,11 +67,17 @@ def solve_damped(H, g, lam):
     non-finite values (as ``jnp.linalg.solve`` does) instead of raising,
     and the check would be a device sync."""
     eye = torch.eye(6, dtype=H.dtype, device=H.device)
-    damped = H + lam * torch.diag(torch.diagonal(H)) + 1e-8 * eye
-    d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(damped), min=1e-12))
-    Hs = damped * d[:, None] * d[None, :]
-    y, _ = torch.linalg.solve_ex(Hs, (-g * d)[:, None], check_errors=False)
-    return y[:, 0] * d
+    diag = torch.diagonal(H, dim1=-2, dim2=-1)
+    damped = H + lam[..., None, None] * torch.diag_embed(diag) + 1e-8 * eye
+    d = 1.0 / torch.sqrt(torch.clamp(torch.diagonal(damped, dim1=-2, dim2=-1), min=1e-12))
+    Hs = damped * d[..., :, None] * d[..., None, :]
+    y, _ = torch.linalg.solve_ex(Hs, (-g * d)[..., None], check_errors=False)
+    return y[..., 0] * d
+
+
+def _pick(take, a, b):
+    """``take ? a : b`` per lane: ``take`` has the lane shape of ``a``."""
+    return torch.where(take.reshape(take.shape + (1,) * (a.dim() - take.dim())), a, b)
 
 
 class LMState(NamedTuple):
@@ -97,26 +106,26 @@ def lm_solve(fj: ResidualJacFn, q0, t0, iterations: int,
     else:
         H0, g0, c0, r0, J0 = init_sys
     st = LMState(q=q0, t=t0,
-                 lam=torch.full((), opt.lm_init_lambda, dtype=torch.float32,
+                 lam=torch.full(q0.shape[:-1], opt.lm_init_lambda, dtype=torch.float32,
                                 device=q0.device),
                  cost=c0, H=H0, g=g0, r=r0, J=J0)
     for _ in range(iterations):
         dd = solve_damped(st.H, st.g, st.lam)
-        q_new = se3.quat_normalize(se3.quat_multiply(se3.quat_exp(dd[:3]), st.q))
-        t_new = torch.clamp(st.t + dd[3:], -tmax, tmax)
+        q_new = se3.quat_normalize(se3.quat_multiply(se3.quat_exp(dd[..., :3]), st.q))
+        t_new = torch.clamp(st.t + dd[..., 3:], -tmax, tmax)
         r_new, J_new, m_new = fj(q_new, t_new)
         H_new, g_new = system_from_rJ(r_new, J_new, m_new, delta)
         c_new = _cost(r_new, m_new, delta)
         acc = c_new < st.cost
         st = LMState(
-            q=torch.where(acc, q_new, st.q),
-            t=torch.where(acc, t_new, st.t),
+            q=_pick(acc, q_new, st.q),
+            t=_pick(acc, t_new, st.t),
             lam=torch.where(acc, st.lam * 0.3, st.lam * 5.0),
             cost=torch.minimum(c_new, st.cost),
-            H=torch.where(acc, H_new, st.H),
-            g=torch.where(acc, g_new, st.g),
-            r=torch.where(acc, r_new, st.r),
-            J=torch.where(acc, J_new, st.J),
+            H=_pick(acc, H_new, st.H),
+            g=_pick(acc, g_new, st.g),
+            r=_pick(acc, r_new, st.r),
+            J=_pick(acc, J_new, st.J),
         )
     return st
 
@@ -132,11 +141,11 @@ def solve_two_phase(fj_with_mask: Callable[[torch.Tensor], ResidualJacFn],
     # inlier_ratio quantile) (reference :484-499).  The prerun's final
     # (r, J) is re-reduced under the pruned mask, not re-evaluated.
     r = pre.r
-    rc = r * torch.sqrt(huber_weight(_sq_norm(r), opt.huber_delta))[:, None]
+    rc = r * torch.sqrt(huber_weight(_sq_norm(r), opt.huber_delta))[..., None]
     l1 = torch.abs(rc).sum(dim=-1)
     thr = torch.clamp(masked_quantile_l1(l1, base_mask, opt.inlier_ratio),
                       min=opt.inlier_dis)
-    keep = base_mask & (l1 <= thr)
+    keep = base_mask & (l1 <= thr[..., None])
     initial_cost = _cost(r, keep, opt.huber_delta)
     H_i, g_i = system_from_rJ(r, pre.J, keep, opt.huber_delta)
     full = lm_solve(fj_with_mask(keep), pre.q, pre.t, opt.full_iterations, opt,
@@ -145,6 +154,6 @@ def solve_two_phase(fj_with_mask: Callable[[torch.Tensor], ResidualJacFn],
         initial_cost=initial_cost,
         final_cost=full.cost,
         inlier_threshold=thr * full.cost / torch.clamp(initial_cost, min=1e-12),
-        n_blocks=keep.sum(dtype=torch.int32),
+        n_blocks=keep.sum(dim=-1, dtype=torch.int32),
     )
     return full.q, full.t, info

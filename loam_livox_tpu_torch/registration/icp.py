@@ -14,20 +14,31 @@ radian angle with ``57.3 * minimum_icp_R_diff`` (:521), and the gate
 cost is normalised to the reference's residual-block budget, since this
 solver uses every residual.
 
-The outer loop exits early, so the host reads the ``active`` flag once
-per iteration: at most ``icp_maximum_iteration`` device syncs a frame
-(`SYNCS` counts them).
+`register_frames` registers L frames at once against one matching
+buffer (the racing path; the counterpart of ``jax.vmap(register_frame)``
+in ``loam_livox_tpu/runtime/batched.py:76-85``): every tensor gains a
+leading lane axis, the kNN kernel takes all lanes in one launch, and
+the 6×6 solves are batched.  As under ``vmap``, the loop runs until
+every lane has converged, and a lane that has converged (or never ran)
+is frozen: its increment, cost and block count stop changing.
+`register_frame` is the one-lane case.
+
+The outer loop exits early, so the host reads whether any lane is
+still active once per iteration: at most ``icp_maximum_iteration`` + 1
+device syncs a registration (`SYNCS` counts them).
 """
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..core import se3
 from ..core.config import SlamConfig
-from ..core.types import PointBatch
+from ..core.types import PointBatch, to_device
 from ..ops.knn_fused import build_ref_operand, knn_fused
+from ..ops.masked import random_keep_mask
 from . import residuals as res
 from .gauss_newton import solve_two_phase
 
@@ -52,7 +63,7 @@ class RegistrationResult(NamedTuple):
     angular_diff_deg: torch.Tensor
     t_diff: torch.Tensor
     n_blocks: torch.Tensor
-    iterations: int
+    iterations: int | torch.Tensor   # one lane: a host int; lanes: (L,) int32
 
 
 def refine_blur(time, tmin, tmax, deblur: bool):
@@ -65,67 +76,85 @@ def refine_blur(time, tmin, tmax, deblur: bool):
     return torch.clamp(s, 0.0, 1.0)
 
 
-def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
-                   map_corners: PointBatch, map_surface: PointBatch,
-                   q_last, t_last, time_min, time_max, enabled: bool,
-                   cfg: SlamConfig, q_incre_init=None,
-                   t_incre_init=None) -> RegistrationResult:
-    """Register one feature frame against the matching buffer.  With
-    ``enabled`` false (init window) the frame keeps the previous pose."""
+def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
+                    map_corners: PointBatch, map_surface: PointBatch,
+                    q_last, t_last, time_min, time_max, enabled,
+                    cfg: SlamConfig, q_incre_init=None, t_incre_init=None,
+                    rng: torch.Generator | None = None):
+    """Register L feature frames (every tensor with a leading lane axis:
+    frames (L, N, ...), start poses (L, 4) / (L, 3), times (L,)) against
+    one matching buffer.  ``enabled`` holds one host bool a lane; a lane
+    that is not enabled (init window) keeps its start pose.  ``rng``
+    draws the uniforms of residual subsampling, when that is on.
+
+    Returns ``(result, loops)``: the result with a lane axis on every
+    field (``iterations`` an (L,) tensor) and the number of loop passes,
+    each of which launched the kNN kernel twice.
+    """
     opt = cfg.optimization
     dev = q_last.device
+    n_lanes = q_last.shape[0]
     deblur = bool(cfg.common.if_motion_deblur)
-    s_corner = refine_blur(frame_corners.time, time_min, time_max, deblur)
-    s_surf = refine_blur(frame_surface.time, time_min, time_max, deblur)
+    s_corner = refine_blur(frame_corners.time, time_min[:, None], time_max[:, None], deblur)
+    s_surf = refine_blur(frame_surface.time, time_min[:, None], time_max[:, None], deblur)
 
     map_ok = ((map_corners.mask.sum() > CORNER_MIN_MAP_NUM)
               & (map_surface.mask.sum() > SURFACE_MIN_MAP_NUM))
-    run = map_ok & enabled
+    enabled = [bool(e) for e in enabled]
+    run = (map_ok.expand(n_lanes) if all(enabled)
+           else map_ok & to_device(np.asarray(enabled), dev))
 
     if opt.increment_init == 1 and q_incre_init is not None:
         q_incre, t_incre = q_incre_init, t_incre_init
     else:
-        q_incre = se3.quat_identity(device=dev)
-        t_incre = torch.zeros(3, device=dev)
-    zero = torch.zeros((), device=dev)
-    final_cost = inlier_threshold = zero
-    n_blocks = torch.zeros((), dtype=torch.int32, device=dev)
-    iterations = 0
+        q_incre = se3.quat_identity(device=dev).expand(n_lanes, 4)
+        t_incre = torch.zeros((n_lanes, 3), device=dev)
+    final_cost = inlier_threshold = torch.zeros(n_lanes, device=dev)
+    n_blocks = iterations = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    loops = 0
 
-    if enabled:
+    if any(enabled):
         # The matching buffer is fixed over the ICP loop: build the
         # kernel's reference operands once.  The query sets are voxel
         # filter outputs (valid prefixes), so their counts bound the
         # query tiles; the radii are the correspondence gates.
         ref_c = build_ref_operand(map_corners.xyz, map_corners.mask)
         ref_s = build_ref_operand(map_surface.xyz, map_surface.mask)
-        n_qc = frame_corners.mask.sum(dtype=torch.int32)
-        n_qs = frame_surface.mask.sum(dtype=torch.int32)
+        n_qc = frame_corners.mask.sum(dim=-1, dtype=torch.int32)
+        n_qs = frame_surface.mask.sum(dim=-1, dtype=torch.int32)
+        no_queries = torch.zeros((), dtype=torch.int32, device=dev)
         radius_c = float(opt.maximum_dis_line_for_match) ** 0.5
         radius_s = float(opt.maximum_dis_plane_for_match) ** 0.5
         q_last_opt, t_last_opt = q_incre, t_incre
         active = run
-        while iterations < opt.icp_maximum_iteration:
+        while loops < opt.icp_maximum_iteration:
             SYNCS["icp_exit"] += 1
-            if not bool(active):
+            if not bool(active.any()):
                 break
             qc = res.transform_points_incre(q_incre, t_incre, frame_corners.xyz,
                                             s_corner, q_last, t_last, deblur)
             qs = res.transform_points_incre(q_incre, t_incre, frame_surface.xyz,
                                             s_surf, q_last, t_last, deblur)
+            # a frozen lane's results are discarded: give it no queries
             cd, ci = knn_fused(qc, map_corners.xyz, map_corners.mask,
                                k=opt.line_search_num, ref_op=ref_c,
-                               query_count=n_qc, max_radius=radius_c)
+                               query_count=torch.where(active, n_qc, no_queries),
+                               max_radius=radius_c)
             sd, si = knn_fused(qs, map_surface.xyz, map_surface.mask,
                                k=opt.plane_search_num, ref_op=ref_s,
-                               query_count=n_qs, max_radius=radius_s)
+                               query_count=torch.where(active, n_qs, no_queries),
+                               max_radius=radius_s)
             line_tgt = res.build_line_targets(cd, ci, map_corners.xyz,
                                               frame_corners.mask,
                                               opt.maximum_dis_line_for_match)
             plane_tgt = res.build_plane_targets(sd, si, map_surface.xyz,
                                                 frame_surface.mask,
                                                 opt.maximum_dis_plane_for_match)
-            base_mask = torch.cat([line_tgt.valid, plane_tgt.valid])
+            base_mask = torch.cat([line_tgt.valid, plane_tgt.valid], dim=-1)
+            if opt.subsample_residuals > 0:
+                base_mask = random_keep_mask(
+                    base_mask, opt.subsample_residuals,
+                    torch.rand(base_mask.shape, generator=rng, device=dev))
 
             def fj_with_mask(mask, line_tgt=line_tgt, plane_tgt=plane_tgt):
                 def fj(q, t):
@@ -142,37 +171,40 @@ def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
                         jc = res.point_world_jacobian(q, t, frame_corners.xyz, q_last)
                         js = res.point_world_jacobian(q, t, frame_surface.xyz, q_last)
                     J = torch.cat([res.line_jacobian(jc, line_tgt),
-                                   res.plane_jacobian(js, plane_tgt)])
-                    return torch.cat([rl, rp]), J, mask
+                                   res.plane_jacobian(js, plane_tgt)], dim=-3)
+                    return torch.cat([rl, rp], dim=-2), J, mask
                 return fj
 
             q_new, t_new, info = solve_two_phase(fj_with_mask, base_mask,
                                                  q_incre, t_incre, opt)
             ang = se3.quat_angular_distance(q_last_opt, q_new)
             converged = ((ang < 57.3 * opt.minimum_icp_R_diff)
-                         & (torch.linalg.vector_norm(t_last_opt - t_new)
+                         & (torch.linalg.vector_norm(t_last_opt - t_new, dim=-1)
                             < opt.minimum_icp_T_diff))
-            q_incre, t_incre = q_new, t_new
-            q_last_opt, t_last_opt = q_new, t_new
-            active = ~converged
-            final_cost, inlier_threshold = info.final_cost, info.inlier_threshold
-            n_blocks = info.n_blocks
-            iterations += 1
+            step = active[:, None]
+            q_incre = q_last_opt = torch.where(step, q_new, q_incre)
+            t_incre = t_last_opt = torch.where(step, t_new, t_incre)
+            final_cost = torch.where(active, info.final_cost, final_cost)
+            inlier_threshold = torch.where(active, info.inlier_threshold, inlier_threshold)
+            n_blocks = torch.where(active, info.n_blocks, n_blocks)
+            iterations = iterations + active.to(torch.int32)
+            active = active & ~converged
+            loops += 1
 
     q_w = se3.quat_multiply(q_last, q_incre)
     t_w = se3.quat_rotate(q_last, t_incre) + t_last
     angular_diff = se3.quat_angular_distance(q_w, q_last) * 57.3
-    t_diff = torch.linalg.vector_norm(t_w - t_last)
+    t_diff = torch.linalg.vector_norm(t_w - t_last, dim=-1)
     budget = float(max(opt.maximum_residual_blocks, 1))
     nb = torch.clamp(n_blocks.to(torch.float32), min=1.0)
     gate_cost = final_cost * torch.clamp(budget / nb, max=1.0)
     reject = run & ((angular_diff > opt.max_allow_incre_R)
                     | (gate_cost > opt.max_allow_final_cost))
     accepted = ~reject
-    keep_w = run & accepted
+    keep_w = (run & accepted)[:, None]
     ident_q = se3.quat_identity(device=dev)
     zero_t = torch.zeros(3, device=dev)
-    return RegistrationResult(
+    result = RegistrationResult(
         q_w=torch.where(keep_w, q_w, q_last),
         t_w=torch.where(keep_w, t_w, t_last),
         q_incre=torch.where(keep_w, q_incre, ident_q),
@@ -189,3 +221,33 @@ def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
         n_blocks=n_blocks,
         iterations=iterations,
     )
+    return result, loops
+
+
+def lane(result: RegistrationResult, k: int) -> RegistrationResult:
+    """Lane ``k`` of a lane-batched result."""
+    return RegistrationResult(*(x[k] for x in result))
+
+
+def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
+                   map_corners: PointBatch, map_surface: PointBatch,
+                   q_last, t_last, time_min, time_max, enabled: bool,
+                   cfg: SlamConfig, q_incre_init=None,
+                   t_incre_init=None, rng: torch.Generator | None = None
+                   ) -> RegistrationResult:
+    """Register one feature frame against the matching buffer: the
+    one-lane case of `register_frames`, with ``iterations`` a host int.
+    With ``enabled`` false (init window) the frame keeps the previous
+    pose."""
+    def one(x):
+        return None if x is None else x[None]
+
+    def batch(b: PointBatch) -> PointBatch:
+        return PointBatch(*(x[None] for x in b))
+
+    result, loops = register_frames(
+        batch(frame_corners), batch(frame_surface), map_corners, map_surface,
+        one(q_last), one(t_last), one(time_min), one(time_max), [enabled], cfg,
+        q_incre_init=one(q_incre_init), t_incre_init=one(t_incre_init), rng=rng)
+    # one lane runs exactly as many iterations as the loop made passes
+    return lane(result, 0)._replace(iterations=loops)

@@ -17,9 +17,11 @@
 The state carries only what this path reads.  The JAX package's
 ``OdometryState`` also holds the feature and full-cloud cell maps and
 the touched-cell mask (1-slot dummies unless cell matching or loop
-closure is on), the bucket grids (read only by the grid engine) and an
-rng key (used only for residual subsampling, which is off); the port
-drops them.  The frame counter, ring pointer and ring length are host
+closure is on) and the bucket grids (read only by the grid engine); the
+port drops them.  In place of the JAX rng key the state carries a
+``torch.Generator`` on the device, which draws the uniforms of residual
+subsampling (``optimization/subsample_residuals``); its draws cannot
+match JAX's.  The frame counter, ring pointer and ring length are host
 integers: the host decides from them whether to register, rebuild or
 append.
 
@@ -59,6 +61,7 @@ class OdometryState(NamedTuple):
     last_t_incre: torch.Tensor
     map_corners: PointBatch         # matching buffer
     map_surface: PointBatch
+    rng: torch.Generator            # residual subsampling draws
 
 
 def init_state(cfg: SlamConfig, device) -> OdometryState:
@@ -84,6 +87,7 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         last_t_incre=torch.zeros(3, **f32),
         map_corners=PointBatch.empty(caps.map_corner_capacity, device),
         map_surface=PointBatch.empty(caps.map_surf_capacity, device),
+        rng=torch.Generator(device=device).manual_seed(0),
     )
 
 
@@ -154,19 +158,26 @@ def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
         corner_in, surf_in, state.map_corners, state.map_surface,
         state.q_w, state.t_w, frame.time_min, frame.time_max,
         state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
-        q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre)
+        q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
+        rng=state.rng)
     return commit_frame(state, frame, corner_in, surf_in, reg, cfg)
 
 
 def commit_frame(state: OdometryState, frame: FeatureFrame,
                  corner_in: PointBatch, surf_in: PointBatch,
-                 reg: RegistrationResult, cfg: SlamConfig
+                 reg: RegistrationResult, cfg: SlamConfig,
+                 q_base=None, t_base=None
                  ) -> Tuple[OdometryState, RegistrationResult]:
     """Pose policy, history ring and matching buffer after registration
-    (reference :1413-1564).  Returns a new state; the input state's
-    tensors are not modified."""
+    (reference :1413-1564).  ``q_base`` / ``t_base`` is the pose the
+    registration's increment composes from: ``state.q_w`` / ``state.t_w``
+    (the default) in the sequential step, each lane's coasted start pose
+    in the racing step.  Returns a new state; the input state's tensors
+    are not modified."""
     fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
     deblur = bool(cfg.common.if_motion_deblur)
+    if q_base is None:
+        q_base, t_base = state.q_w, state.t_w
 
     if mp.reject_recovery_mode == 1:
         rejected = reg.enabled & ~reg.accepted
@@ -182,7 +193,7 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     def to_world(pts: PointBatch, leaf: float, cap: int) -> PointBatch:
         s = refine_blur(pts.time, frame.time_min, frame.time_max, deblur)
         xyz = res.transform_points_incre(reg.q_incre, reg.t_incre, pts.xyz, s,
-                                         state.q_w, state.t_w, deblur)
+                                         q_base, t_base, deblur)
         return voxel_downsample(pts._replace(xyz=xyz), leaf, capacity=cap)
 
     corner_w = to_world(corner_in, fe.mapping_line_resolution, caps.hist_corner_capacity)

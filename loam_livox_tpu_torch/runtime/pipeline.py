@@ -1,28 +1,53 @@
 """End-to-end odometry over a stream of raw frames: front end → source
-voxel filter → odometry step, one raw frame at a time.
+voxel filter → odometry step.
+
+Three ways to dispatch, as in the JAX package's pipeline:
+
+* sequential (the default): each raw frame at once.  With motion
+  deblur off, a frame is ``common/piecewise_number`` index-fraction
+  pieces (P), each registered on its own, in order; with
+  ``common/odom_mode`` 0 only the first piece runs.  Motion deblur
+  forces one piece.
+* chunked (``parallel/dispatch_chunk`` K > 1): K raw frames buffered,
+  then run back to back.  The per-frame semantics are the sequential
+  ones, so the trajectory is bitwise the sequential one.
+* racing (``parallel/frame_batch`` G > 1): G raw frames buffered, then
+  their G·P pieces registered in one lane-batched solve
+  (`runtime.batched`).  When the last observed per-step translation
+  exceeds ``parallel/batch_motion_guard_t`` the group runs sequentially
+  instead.  The observation lags: dispatched groups (a fallback's raw
+  frames, one each) wait in a queue, and the host reads one only once
+  more than ``common/maximum_parallel_thread`` are queued, so the guard
+  sees motion up to that many groups old.
 
 The entry points (`OdometryPipeline`, `run_odometry`) run on the card
 unless the caller passes ``device="cpu"``; without a card and without
-that argument they raise.  The poses stay on the device until `flush`
-copies the whole trajectory to the host at once.
+that argument they raise.  The trajectory has one row per registered
+piece, stamped with the piece's first point time.  Its rows stay on
+the device until the host reads them: at `flush` in one transfer, or
+group by group in the racing queue.
 
-Host-sync audit of the per-frame path (the input to a CUDA-graph port):
+Host-sync audit (the input to a CUDA-graph port):
 
-    where                                   what                         per frame
-    frontend/livox.py extract_point_info    .cpu() of the <= max_splits  1
+    where                                   what                             how often
+    frontend/livox.py extract_point_info    .cpu() of the <= max_splits      1 a raw frame
                                             turning-point candidates for
                                             the host debounce
-    registration/icp.py register_frame      bool(active): the early-exit  <= icp_maximum_iteration
-                                            test of the ICP loop          (the first read also
-                                                                          carries the map-size gate)
-    runtime/odometry.py commit_frame        bool(admit): history          1
-                                            admission, which decides the
-                                            ring write and rebuild/append
+    registration/icp.py register_frames     bool(active.any()): the early    <= icp_maximum_iteration
+                                            exit of the ICP loop (the first  + 1 a piece, or a
+                                            read also carries the map-size   racing group
+                                            gate)
+    runtime/odometry.py commit_frame        bool(admit): history admission,  1 a piece (1 a lane
+                                            which decides the ring write     of a racing group)
+                                            and rebuild/append
+    runtime/pipeline.py _drain              .cpu() of the rows of the        1 a racing group (or
+                                            groups drained past the queue    fallback frame) past
+                                            depth, for the motion guard      the queue depth
 
 Everything else stays on the device: the raw frame and the split table
 go up through pinned memory without blocking, the kNN kernel reads its
 valid-prefix counts from device memory, and the solver's accept/reject
-steps are ``torch.where``.  `host_syncs` counts the three reads;
+steps are ``torch.where``.  `host_syncs` counts the reads;
 ``chip_smoke.py`` checks the list against PyTorch's own sync-debug
 report, by source line.  (Writing a Python scalar into a CUDA tensor,
 ``t[0] = 1.0``, is a blocking copy too, and stays off this path.)
@@ -30,6 +55,7 @@ report, by source line.  (Writing a Python scalar into a CUDA tensor,
 from __future__ import annotations
 
 import time as _time
+from collections import deque
 from dataclasses import dataclass, field
 from typing import List, Optional
 
@@ -43,17 +69,21 @@ from ..io.simulator import LivoxSimulator
 from ..ops.voxel import voxel_downsample
 from ..registration import icp
 from . import odometry
+from .batched import odometry_step_batched
 from .odometry import OdometryState, init_state, odometry_step
+
+#: host reads of drained racing groups since the last reset
+SYNCS = {"drain": 0}
 
 
 def host_syncs() -> dict:
     """Host reads of device values on the per-frame path since the last
     `reset_host_syncs`, by place."""
-    return {**livox.SYNCS, **icp.SYNCS, **odometry.SYNCS}
+    return {**livox.SYNCS, **icp.SYNCS, **odometry.SYNCS, **SYNCS}
 
 
 def reset_host_syncs() -> None:
-    for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS):
+    for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS, SYNCS):
         for key in counts:
             counts[key] = 0
 
@@ -80,16 +110,49 @@ def source_downsample(frame: FeatureFrame, cfg: SlamConfig) -> FeatureFrame:
                                  capacity=caps.max_surface))
 
 
+def piece_count(cfg: SlamConfig) -> int:
+    """Pieces a raw frame splits into: motion deblur forces one
+    (reference laser_feature_extractor.hpp:306-309)."""
+    return 1 if cfg.common.if_motion_deblur else max(1, cfg.common.piecewise_number)
+
+
+def extract_pieces(pts, inten, mask, base_time: float, cfg: SlamConfig,
+                   n_run: int | None = None) -> List[FeatureFrame]:
+    """The front end and the source voxel filter of one padded raw frame:
+    its first ``n_run`` (default all) pieces."""
+    _, _, frames = livox.extract_frame(pts, inten, mask, base_time, cfg.feature_extraction,
+                                       cfg.capacity, piece_count(cfg))
+    return [source_downsample(f, cfg) for f in frames[:n_run]]
+
+
 def process_raw_frame(state: OdometryState, pts, inten, mask, base_time: float,
                       cfg: SlamConfig):
     """One padded raw frame through the front end and one odometry step
-    (motion deblur: one registration per frame).  Returns
-    ``(state, reg, frame)``."""
-    fe, caps = cfg.feature_extraction, cfg.capacity
-    _, _, frame = livox.extract_frame(pts, inten, mask, base_time, fe, caps)
-    frame = source_downsample(frame, cfg)
-    state, reg = odometry_step(state, frame, cfg)
-    return state, reg, frame
+    a piece (reference pipeline.py:99-133): with ``odom_mode`` 0 and
+    more than one piece, only the first runs (the reference's extractor
+    publishes only piece 0 in odometry mode,
+    laser_feature_extractor.hpp:385-388).  Returns ``(state, regs,
+    frames)``, one result and feature frame a piece that ran."""
+    n_run = 1 if cfg.common.odom_mode == 0 else None
+    frames = extract_pieces(pts, inten, mask, base_time, cfg, n_run)
+    regs = []
+    for frame in frames:
+        state, reg = odometry_step(state, frame, cfg)
+        regs.append(reg)
+    return state, regs, frames
+
+
+def trajectory_rows(regs, frames) -> torch.Tensor:
+    """(n, 10) device rows (time_min, t_w, q_w, accepted, iterations)."""
+    def iters(reg):
+        if isinstance(reg.iterations, torch.Tensor):
+            return reg.iterations.to(torch.float32).reshape(1)
+        return torch.full((1,), float(reg.iterations), device=reg.t_w.device)
+
+    return torch.stack([
+        torch.cat([f.time_min.reshape(1), r.t_w, r.q_w,
+                   r.accepted.reshape(1).to(torch.float32), iters(r)])
+        for r, f in zip(regs, frames)])
 
 
 @dataclass
@@ -104,12 +167,28 @@ class TrajectoryRecord:
 
 
 class OdometryPipeline:
-    """Livox front end + odometry over raw frames, one frame per call."""
+    """Livox front end + odometry over raw frames (module doc)."""
 
     def __init__(self, cfg: SlamConfig, device=None):
         require_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        par = cfg.parallel
+        self.frame_batch = max(1, int(par.frame_batch))
+        self.dispatch_chunk = max(1, int(par.dispatch_chunk))
+        if self.frame_batch > 1 and piece_count(cfg) > 1 and cfg.common.odom_mode == 0:
+            raise ValueError(
+                "parallel/frame_batch > 1 with piecewise > 1 requires "
+                "common/odom_mode = 1 (odometry mode publishes only "
+                "piece 0, which the batched lanes do not model)")
+        if self.frame_batch > 1 and self.dispatch_chunk > 1:
+            raise ValueError(
+                "parallel/dispatch_chunk and parallel/frame_batch are "
+                "mutually exclusive (sequential chunking vs racing)")
+        # racing: groups left queued before the host reads them (a depth
+        # of 1 reads every group at once, fully synchronous)
+        depth = max(1, int(cfg.common.maximum_parallel_thread))
+        self.queue_depth = 0 if depth == 1 else depth
         # The 6×6 normal equations and every float32 product must stay
         # full f32: TF32 keeps ~3 decimal digits, enough to move the
         # LM steps and the acceptance gates.
@@ -117,41 +196,108 @@ class OdometryPipeline:
         torch.backends.cudnn.allow_tf32 = False
         self.state: OdometryState = init_state(cfg, self.device)
         self.trajectory = TrajectoryRecord()
-        self.iterations: List[int] = []   # ICP iterations of each frame
-        self._pending: list = []          # device poses not yet on the host
+        self.iterations: List[int] = []   # ICP iterations of each trajectory row
+        self._buf: list = []              # raw frames waiting for their chunk or group
+        self._pending: deque = deque()    # device rows not yet on the host
+        self._last_motion = 0.0           # racing guard: last observed step (m)
+        #: ICP loop passes run (each launches the kNN kernel twice): a
+        #: piece's iterations, or one batched loop for a racing group
+        self.loop_iterations = 0
+        self.raced_groups = 0
+        self.raced_loop_iterations = 0    # the batched loops' share
+        self.fallback_groups = 0
 
-    def process_raw(self, xyz: np.ndarray, intensity: np.ndarray,
-                    base_time: float) -> None:
-        """One raw sensor frame: (N, 3) points and (N,) intensities,
-        padded here to ``capacity.max_raw_points``."""
+    def process_raw(self, xyz, intensity, base_time: float, mask=None) -> None:
+        """One raw sensor frame: (N, 3) points and (N,) intensities as
+        host arrays, padded here to ``capacity.max_raw_points``; or, with
+        ``mask``, tensors already padded to that size (on the pipeline's
+        device, as bench.py hands the JAX pipeline device arrays)."""
         n = self.cfg.capacity.max_raw_points
-        m = min(len(xyz), n)
-        pts = np.zeros((n, 3), np.float32)
-        inten = np.zeros((n,), np.float32)
-        mask = np.zeros((n,), bool)
-        pts[:m] = xyz[:m]
-        inten[:m] = intensity[:m]
-        mask[:m] = True
         dev = self.device
-        self.state, reg, frame = process_raw_frame(
-            self.state, to_device(pts, dev), to_device(inten, dev),
-            to_device(mask, dev), float(base_time), self.cfg)
-        self.iterations.append(reg.iterations)
-        self._pending.append(torch.cat([
-            frame.time_min.reshape(1), reg.t_w, reg.q_w,
-            reg.accepted.reshape(1).to(torch.float32)]))
+        if mask is not None and isinstance(xyz, torch.Tensor) and xyz.shape == (n, 3):
+            pts, inten, mask = (torch.as_tensor(a, device=dev)
+                                for a in (xyz, intensity, mask))
+        else:
+            m = min(len(xyz), n)
+            pts = np.zeros((n, 3), np.float32)
+            inten = np.zeros((n,), np.float32)
+            valid = np.zeros((n,), bool)
+            pts[:m] = xyz[:m]
+            inten[:m] = intensity[:m]
+            valid[:m] = True
+            pts, inten, mask = (to_device(a, dev) for a in (pts, inten, valid))
+        frame = (pts, inten, mask, float(base_time))
+        if self.frame_batch > 1:
+            self._buf.append(frame)
+            if len(self._buf) == self.frame_batch:
+                self._dispatch_group()
+            self._drain(len(self._pending) - self.queue_depth)
+        elif self.dispatch_chunk > 1:
+            self._buf.append(frame)
+            if len(self._buf) == self.dispatch_chunk:
+                self._dispatch_chunk()
+        else:
+            self._run_frame(*frame)
+
+    def _run_frame(self, pts, inten, mask, base_time: float) -> None:
+        self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
+                                                     base_time, self.cfg)
+        self.loop_iterations += sum(r.iterations for r in regs)
+        self._pending.append(trajectory_rows(regs, frames))
+
+    def _dispatch_chunk(self) -> None:
+        buf, self._buf = self._buf, []
+        for frame in buf:
+            self._run_frame(*frame)
+
+    def _dispatch_group(self) -> None:
+        """The buffered raw frames as one racing group, or sequentially
+        when the motion guard trips."""
+        buf, self._buf = self._buf, []
+        guard = self.cfg.parallel.batch_motion_guard_t
+        if guard > 0 and self._last_motion > guard:
+            self.fallback_groups += 1
+            for frame in buf:
+                self._run_frame(*frame)
+            return
+        self.raced_groups += 1
+        frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg)]
+        self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg)
+        self.loop_iterations += loops
+        self.raced_loop_iterations += loops
+        self._pending.append(trajectory_rows(regs, frames))
+
+    def _drain(self, count: int) -> None:
+        """Read the oldest ``count`` queued entries on the host (one
+        transfer) into the trajectory, and observe their motion."""
+        if count <= 0:
+            return
+        entries = [self._pending.popleft() for _ in range(count)]
+        SYNCS["drain"] += 1
+        host = torch.cat(entries).cpu().numpy()
+        start = 0
+        for entry in entries:
+            rows = host[start:start + len(entry)]
+            start += len(entry)
+            prev = self.trajectory.positions[-1] if self.trajectory.positions else rows[0, 1:4]
+            steps = np.diff(np.vstack([prev[None], rows[:, 1:4]]), axis=0)
+            self._last_motion = float(np.linalg.norm(steps, axis=1).max())
+            for row in rows:
+                self.trajectory.times.append(float(row[0]))
+                self.trajectory.positions.append(row[1:4].copy())
+                self.trajectory.quaternions.append(row[4:8].copy())
+                self.trajectory.accepted.append(bool(row[8]))
+                self.iterations.append(int(row[9]))
 
     def flush(self) -> None:
-        """Copy every pending pose to the host (one transfer)."""
-        if not self._pending:
-            return
-        rows = torch.stack(self._pending).cpu().numpy()
-        self._pending = []
-        for row in rows:
-            self.trajectory.times.append(float(row[0]))
-            self.trajectory.positions.append(row[1:4].copy())
-            self.trajectory.quaternions.append(row[4:8].copy())
-            self.trajectory.accepted.append(bool(row[8]))
+        """Dispatch a partial chunk or group, then copy every pending row
+        to the host (one transfer)."""
+        if self._buf:
+            if self.frame_batch > 1:
+                self._dispatch_group()
+            else:
+                self._dispatch_chunk()
+        self._drain(len(self._pending))
 
 
 def run_odometry(cfg: SlamConfig, n_frames: int,

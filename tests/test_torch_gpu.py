@@ -9,7 +9,7 @@ and PyTorch alone:
 
 The kernel computes the plain version's function bit for bit (same
 rounded operations, same tie order), so distances and indices must be
-equal, not merely close.
+equal, not merely close; with a lane axis, lane by lane.
 """
 import numpy as np
 import pytest
@@ -179,6 +179,62 @@ def test_split_and_merge_equal_plain(cuda, name):
     dp, ip = knn(q, ref, mask, k=k, query_count=count, max_radius=radius)
     assert torch.equal(d, dp)
     assert torch.equal(i, ip)
+
+
+@pytest.mark.parametrize("lanes", [1, 2, 9])
+@pytest.mark.parametrize("k", [1, 5, 8])
+def test_lanes_equal_plain(cuda, lanes, k):
+    """The lane axis (the racing path's query sets): one launch, each
+    lane equal to the plain version with its own count, uneven counts
+    and an empty lane among them."""
+    rng = np.random.default_rng(100 * lanes + k)
+    ref, mask = voxel_map(rng, 16384, 10.0, 0.25, 0.3)
+    valid = np.nonzero(mask)[0]
+    q = (ref[rng.choice(valid, (lanes, 300))]
+         + rng.normal(0, 0.3, (lanes, 300, 3))).astype(np.float32)
+    counts = rng.integers(1, 301, lanes)
+    counts[lanes // 2] = 0 if lanes > 1 else counts[0]
+    q, ref, mask = (torch.from_numpy(a).to(cuda) for a in (q, ref, mask))
+    n_q = torch.from_numpy(counts.astype(np.int32)).to(cuda)
+    before = kf.launches
+    d, i = kf.knn_fused(q, ref, mask, k=k, query_count=n_q, max_radius=2.0)
+    torch.cuda.synchronize()
+    assert kf.launches == before + 1
+    assert d.shape == i.shape == (lanes, 300, k)
+    dp, ip = knn(q, ref, mask, k=k, query_count=n_q, max_radius=2.0)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    for lane in range(lanes):
+        dl, il = knn(q[lane], ref, mask, k=k, query_count=int(counts[lane]), max_radius=2.0)
+        assert torch.equal(d[lane], dl) and torch.equal(i[lane], il)
+
+
+def test_wrapper_rejects_bad_lane_shapes(cuda):
+    ref = torch.zeros((8, 3), device=cuda)
+    mask = torch.ones(8, dtype=torch.bool, device=cuda)
+    too_many = torch.zeros((kf.MAX_LANES + 1, 1, 3), device=cuda)
+    with pytest.raises(ValueError, match="lanes"):
+        kf.knn_fused(too_many, ref, mask)
+    q = torch.zeros((3, 4, 3), device=cuda)
+    with pytest.raises(ValueError, match="counts"):
+        kf.knn_fused(q, ref, mask, query_count=torch.ones(2, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError):
+        kf.knn_fused(torch.zeros((2, 3, 4, 3), device=cuda), ref, mask)
+
+
+def test_voxel_filter_repeats_and_equals_cpu(cuda):
+    """The voxel filter's segment sums run in input order on the card
+    (not in atomic order), so its centroids equal the CPU's bit for bit
+    and a run repeats itself."""
+    rng = np.random.default_rng(12)
+    xyz = rng.uniform(-12, 12, (60000, 3)).astype(np.float32)
+    time = rng.uniform(0, 0.1, 60000).astype(np.float32)
+    mask = rng.uniform(size=60000) < 0.9
+    host = PointBatch(*(torch.from_numpy(a) for a in (xyz, time, mask)))
+    ref = voxel_downsample(host, 0.4, capacity=16384)
+    for _ in range(2):
+        out = voxel_downsample(PointBatch(*(x.to(cuda) for x in host)), 0.4, capacity=16384)
+        for a, b in zip(out, ref):
+            assert torch.equal(a.cpu(), b)
 
 
 def test_launch_shape(cuda):

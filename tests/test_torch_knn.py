@@ -209,6 +209,37 @@ def test_cpu_tensors_take_the_plain_version():
     assert np.array_equal(d, d2.numpy()) and np.array_equal(i, i2.numpy())
 
 
+@pytest.mark.parametrize("radius", [0.5, None])
+@pytest.mark.parametrize("k", [1, 5])
+def test_lanes_match_single_lane_and_jax(k, radius):
+    """The lane axis of the racing path: (L, Q, 3) queries, one count a
+    lane (uneven, one lane empty).  Each lane equals the single-lane
+    search bit for bit, and the JAX dense engine per lane within 1e-6
+    (coordinates within 1 m, where its expanded form errs by ~1e-7) with
+    the same indices away from near-ties."""
+    rng = np.random.default_rng(11 + k)
+    ref = rng.uniform(-1, 1, (700, 3)).astype(np.float32)
+    mask = rng.uniform(size=700) < 0.8
+    mask[600:] = False
+    q = rng.uniform(-1, 1, (4, 64, 3)).astype(np.float32)
+    counts = np.array([64, 17, 0, 40])
+    tq, tref, tmask = (torch.from_numpy(a) for a in (q, ref, mask))
+    d, i = tfused_mod.knn_fused(tq, tref, tmask, k=k, query_count=torch.from_numpy(counts),
+                                max_radius=radius)
+    assert d.shape == i.shape == (4, 64, k) and i.dtype == torch.int32
+    for lane, count in enumerate(counts):
+        d1, i1 = tknn(tq[lane], tref, tmask, k=k, query_count=int(count), max_radius=radius)
+        assert torch.equal(d[lane], d1) and torch.equal(i[lane], i1)
+        dj, ij = jknn(jnp.asarray(q[lane]), jnp.asarray(ref), jnp.asarray(mask), k=k, exact=True)
+        dj, ij = np.asarray(dj).copy(), np.asarray(ij)
+        dj[count:] = BIG
+        if radius is not None:
+            dj[dj > radius ** 2] = BIG
+        dj[dj >= 0.5 * BIG] = BIG
+        assert_same_neighbours(d[lane].numpy(), i[lane].numpy(), dj, ij, q[lane], ref, tol=1e-6)
+    assert (d[2] == BIG).all() and (i[2] == 0).all()
+
+
 @pytest.mark.parametrize("radius", [2.0, None])
 def test_search_work_counts_pairs_by_brute_force(radius):
     """`search_work`, the kernel's implementation-independent yardstick,
@@ -237,6 +268,14 @@ def test_search_work_counts_pairs_by_brute_force(radius):
         assert 0 < n < count * mask.sum()
     n_ref = int(np.nonzero(mask)[0][-1]) + 1
     assert bytes_ == count * 12 + n_ref * 16 + -(-n_ref // g) * 32 + count * 5 * 8
+    # with a lane axis the pairs and the query bytes sum over the lanes;
+    # the shared operand counts once
+    lanes = torch.from_numpy(np.stack([q, q[::-1].copy()]))
+    pairs2, bytes2 = tfused_mod.search_work(lanes, torch.tensor([count, 0]), op, radius)
+    assert pairs2 == pairs and bytes2 == bytes_
+    pairs3, bytes3 = tfused_mod.search_work(lanes, count, op, radius)
+    assert bytes3 == bytes_ + count * (12 + 5 * 8)
+    assert pairs3 == pairs + tfused_mod.search_work(lanes[1], count, op, radius)[0]
 
 
 def test_prefilter_margin_bounds_the_gap():

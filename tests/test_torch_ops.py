@@ -67,16 +67,17 @@ def test_config_yaml_loads_unchanged(name):
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"common": {"if_motion_deblur": 0}}, 9),
     ({"common": {"lidar_type": "velodyne"}}, 11),
     ({"mapping": {"matching_mode": 1}}, 10),
     ({"loop_closure": {"if_enable_loop_closure": 1}}, 12),
-    ({"parallel": {"frame_batch": 3}}, 9),
-    ({"parallel": {"dispatch_chunk": 4}}, 9),
     ({"parallel": {"mesh_devices": 8}}, 15),
     ({"optimization": {"correspondence": "dense"}}, 14),
     ({"optimization": {"correspondence": "grid"}}, 14),
-    ({"optimization": {"subsample_residuals": 200}}, 9),
+    ({"common": {"if_save_to_pcd_files": 1}}, 13),
+    ({"common": {"if_verbose_screen_printf": 0}}, 13),
+    # an unported item on top of a ported shipped-profile path
+    ({"common": {"if_motion_deblur": 0}, "mapping": {"matching_mode": 1}}, 10),
+    ({"parallel": {"frame_batch": 3, "mesh_devices": 4}}, 15),
 ])
 def test_unported_paths_raise(override, item):
     cfg = tcfg.SlamConfig().replace(**override)
@@ -84,6 +85,18 @@ def test_unported_paths_raise(override, item):
         tcfg.require_supported(cfg)
     tcfg.require_supported(tcfg.SlamConfig().replace(
         capacity={"auto_schedule": 0}, optimization={"correspondence": "pallas"}))
+
+
+@pytest.mark.parametrize("override", [
+    {"common": {"if_motion_deblur": 0}},
+    {"parallel": {"frame_batch": 3}},
+    {"parallel": {"dispatch_chunk": 4}},
+    {"optimization": {"subsample_residuals": 200}},
+])
+def test_shipped_profile_paths_are_accepted(override):
+    """Queue 1 item 9 (piecewise windows, racing, chunked dispatch,
+    residual subsampling) is ported."""
+    tcfg.require_supported(tcfg.SlamConfig().replace(**override))
 
 
 # ------------------------------------------------------------------- se3 --

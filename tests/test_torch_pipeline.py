@@ -75,20 +75,27 @@ def test_port_trajectory_matches_jax_run():
 
 
 def test_port_imports_no_jax():
+    """The sequential, piecewise (precision profile) and racing paths and
+    the scenario runner, a few frames each, load nothing of JAX."""
     code = (
         "import sys\n"
         "import numpy as np\n"
         "import torch\n"
         "torch.set_num_threads(1)\n"
         "from loam_livox_tpu_torch import SlamConfig, run_odometry\n"
+        "from loam_livox_tpu_torch.core.config import precision_profile, realtime_racing_profile\n"
+        "from loam_livox_tpu_torch.eval.scenarios import scenario_config\n"
         "from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig\n"
-        "cfg = SlamConfig().replace(capacity={'max_raw_points': 4096, 'map_corner_capacity': 1024,\n"
+        "small = dict(capacity={'max_raw_points': 4096, 'map_corner_capacity': 1024,\n"
         "    'map_surf_capacity': 4096, 'history_window': 4},\n"
         "    mapping={'init_accumulate_frames': 1}, optimization={'icp_maximum_iteration': 2})\n"
-        "pipe, sim, wall = run_odometry(cfg, 2, LivoxSimulator(SimConfig(points_per_frame=3000)),\n"
-        "                               device='cpu')\n"
-        "assert len(pipe.trajectory.positions) == 2\n"
-        "assert np.all(np.isfinite(pipe.trajectory.positions_array()))\n"
+        "for base, frames, rows in ((SlamConfig(), 2, 2), (precision_profile(), 2, 6),\n"
+        "                           (realtime_racing_profile(), 4, 12)):\n"
+        "    pipe, sim, wall = run_odometry(base.replace(**small), frames,\n"
+        "        LivoxSimulator(SimConfig(points_per_frame=3000)), device='cpu')\n"
+        "    assert len(pipe.trajectory.positions) == rows\n"
+        "    assert np.all(np.isfinite(pipe.trajectory.positions_array()))\n"
+        "scenario_config('largescale_realtime', small=True)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'loam_livox_tpu' or m.startswith('loam_livox_tpu.')]\n"
         "assert not bad, bad\n"

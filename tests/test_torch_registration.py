@@ -192,10 +192,11 @@ def test_register_frame_matches_jax(seeded_map, monkeypatch, which):
                    fr.time_min, fr.time_max, jnp.bool_(True), jax.random.PRNGKey(0), cfg)
 
     def knn_fused(q, ref, mask, k=5, ref_op=None, query_count=None, max_radius=None):
-        d, i = jknn(jnp.asarray(q.numpy()), jnp.asarray(ref.numpy()),
+        # register_frame searches with one lane: (1, Q, 3) queries
+        d, i = jknn(jnp.asarray(q[0].numpy()), jnp.asarray(ref.numpy()),
                     jnp.asarray(mask.numpy()), k=k, exact=True, precision="high",
                     query_tile=1024)
-        return finish(t(d), t(i), max_radius)
+        return finish(t(d)[None], t(i)[None], max_radius)
 
     monkeypatch.setattr(ticp, "knn_fused", knn_fused)
     batch = lambda b: PointBatch(*(t(x) for x in b))  # noqa: E731
