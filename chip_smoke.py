@@ -23,8 +23,11 @@ Phases, each printing JSON lines; any failure exits nonzero:
               one's on the inputs without a lane axis;
 4. reference  the port on the card against the port on the CPU (the path
               the CPU tests hold against the JAX package) on small
-              streams of the main, precision and racing paths: aligned
-              ATE within 0.05 m, accepted rows within 2 (main) or 3;
+              streams of the main, precision and racing paths, the
+              ``full_mapping`` CI variant (cell matching), a CPU-scale
+              ``mid100_trilidar`` (3 heads of 8,192 points, 12 frames) and
+              8 Velodyne sweeps: aligned ATE within 0.05 m, accepted rows
+              within 2 (main) or 3;
 5. main       ``OdometryPipeline`` on the card at the default capacities:
               40 simulator frames of 10,000 points, motion deblur,
               history matching, registration after 10 frames.  Frames/s,
@@ -45,13 +48,22 @@ Phases, each printing JSON lines; any failure exits nonzero:
               pass: a piece's iterations, a raced group's batched loop),
               raced and fallen-back groups, host syncs a frame by place;
               ``sync_check`` on the precision and racing paths, and the
-              lane-axis kernel on the racing path's own buffer;
+              lane-axis kernel on the racing path's own buffer.  Then, at
+              full width, the ``full_mapping`` scenario (60 frames of
+              10,000 points, cell matching, 8,192 cells x 32 points; ATE
+              < 0.40 m, >= 30 accepted; ``sync_check``; the kernel on its
+              cell-gathered buffer), ``mid100_trilidar`` (30 frames of 3
+              heads x 8,192 points, 2 pieces a frame; ATE < 0.75 m, >= 30
+              of 60 accepted) and 20 VLP-16 sweeps (16 x 720 points)
+              along a known trajectory through ``process_raw`` with
+              ``lidar_type`` velodyne;
 7. scenario   ``run_scenario("largescale_realtime", small=True)`` under
               its golden (aligned ATE < 1.30 m, >= 12 accepted);
 8. kernels    one line listing every kernel: launches on the main path
               (and on each path), its time, the plain version's, the
-              bound and the yardstick on the main path's buffer, and the
-              lane axis's on the racing path's.
+              bound and the yardstick on the main path's buffer, the
+              lane axis's on the racing path's, and its time on the
+              ``full_mapping`` buffer.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is
@@ -294,6 +306,38 @@ def ptxas_report(log: str, k: int = 5) -> dict:
     return {}
 
 
+def vlp16_sweep(origin=(0.0, 0.0, 0.0), n_az=720, room=8.0, pillar=True,
+                seed=0) -> np.ndarray:
+    """A VLP-16 sweep (16 rings x ``n_az`` azimuths, ring by ring) from a
+    sensor at ``origin`` (no rotation) inside a square room of half-size
+    ``room``, floor 1.2 m below and ceiling 1.8 m above the room's centre,
+    with, optionally, a vertical plate 0.72 m wide, 3 m from the centre
+    at azimuth 0.5 rad.  The azimuths sit half a step off the +-pi seam
+    and carry a seeded jitter of up to a quarter step: on an even grid
+    some points lie exactly on the half- and quarter-turn tests of the
+    sweep time, where one ulp of atan2 (the card's against the CPU's)
+    decides."""
+    o = np.asarray(origin, np.float64)
+    rv = np.deg2rad(np.linspace(-15, 15, 16))[:, None]
+    step = 2 * np.pi / n_az
+    az = (-np.pi + step * (np.arange(n_az) + 0.5)
+          + np.random.default_rng(seed).uniform(-0.25, 0.25, (16, n_az)) * step)
+    d = np.stack(np.broadcast_arrays(np.cos(az) * np.cos(rv), np.sin(az) * np.cos(rv),
+                                     np.sin(rv)), axis=-1).reshape(-1, 3)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        walls = [room * np.sign(d[:, 0]), room * np.sign(d[:, 1]),
+                 np.where(d[:, 2] < 0, -1.2, 1.8)]
+        r = np.min([np.where(d[:, k] != 0, (walls[k] - o[k]) / d[:, k], np.inf)
+                    for k in range(3)], axis=0)
+        if pillar:
+            n = np.array([np.cos(0.5), np.sin(0.5), 0.0])
+            t = (3.0 - o @ n) / (d @ n)
+            hit = o + t[:, None] * d
+            side = np.abs(hit[:, 0] * -n[1] + hit[:, 1] * n[0])
+            r = np.where((t > 0) & (side < 3.0 * np.tan(0.12)), np.minimum(r, t), r)
+    return (d * r[:, None]).astype(np.float32)
+
+
 def simulate(n_frames, points, init, seed=0):
     from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig, Trajectory
 
@@ -388,6 +432,88 @@ def sync_check(label, pipe, frames):
          match=by_file == expected)
 
 
+def surface_queries(state, frame, cfg, dev):
+    """The surface ICP queries of a host raw frame ``(xyz, intensity,
+    t0)`` at the state's pose (with deblur, as the path applies it) and
+    their count."""
+    import torch
+
+    from loam_livox_tpu_torch.core.types import to_device
+    from loam_livox_tpu_torch.frontend.livox import extract_frame
+    from loam_livox_tpu_torch.registration import residuals as res
+    from loam_livox_tpu_torch.registration.icp import refine_blur
+    from loam_livox_tpu_torch.runtime.odometry import input_downsample
+    from loam_livox_tpu_torch.runtime.pipeline import source_downsample
+
+    xyz, inten, t = frame[:3]
+    n_raw = cfg.capacity.max_raw_points
+    pts = np.zeros((n_raw, 3), np.float32)
+    it = np.zeros(n_raw, np.float32)
+    msk = np.zeros(n_raw, bool)
+    pts[:len(xyz)], it[:len(xyz)], msk[:len(xyz)] = xyz, inten, True
+    _, _, (fr,) = extract_frame(to_device(pts, dev), to_device(it, dev), to_device(msk, dev),
+                                t, cfg.feature_extraction, cfg.capacity)
+    _, surf_in = input_downsample(source_downsample(fr, cfg), cfg)
+    deblur = bool(cfg.common.if_motion_deblur)
+    s = refine_blur(surf_in.time, fr.time_min, fr.time_max, deblur)
+    qs = res.transform_points_incre(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
+                                    torch.zeros(3, device=dev), surf_in.xyz, s,
+                                    state.q_w, state.t_w, deblur).contiguous()
+    return qs, surf_in.mask.sum(dtype=torch.int32)
+
+
+def velodyne_config(C, capacity=None):
+    """VLP-16 sweeps through the Velodyne front end: registration from
+    the second sweep, motion deblur off (a synthetic sweep is taken from
+    one pose)."""
+    cfg = C.SlamConfig().replace(common={"lidar_type": "velodyne", "if_motion_deblur": 0},
+                                 feature_extraction={"scan_line": 16},
+                                 mapping={"init_accumulate_frames": 1})
+    return cfg.replace(capacity=capacity) if capacity else cfg
+
+
+def velodyne_sweeps(n):
+    """``n`` VLP-16 sweeps along a known trajectory (3 cm and 2 cm a sweep
+    along x and y): host frames for `feed`, and the true positions."""
+    truth = np.array([[0.03 * i, 0.02 * i, 0.0] for i in range(n)])
+    frames = []
+    for i, o in enumerate(truth):
+        pts = vlp16_sweep(origin=o)
+        frames.append((pts, np.zeros(len(pts), np.float32), 0.1 * i))
+    return frames, truth
+
+
+def run_velodyne(cfg, frames, truth, device):
+    """(pipeline, aligned ATE, accepted rows) of the sweeps."""
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    pipe = OdometryPipeline(cfg, device=device)
+    feed(pipe, frames)
+    pipe.flush()
+    est = pipe.trajectory.positions_array()
+    if not np.all(np.isfinite(est)) or est.shape != truth.shape:
+        raise AssertionError(f"bad Velodyne trajectory {est.shape}")
+    return pipe, ate_rmse(est, truth), int(sum(pipe.trajectory.accepted))
+
+
+def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, **extra):
+    """Emit a ``path`` line; fail unless the kernel launched twice per
+    ICP loop pass."""
+    rows = len(pipe.trajectory.times)
+    emit("path", path=label, frames=n_frames, rows=rows, fps=n_frames / wall,
+         registrations_per_s=rows / wall, wall_s=wall, ate_aligned=ate, accepted=accepted,
+         icp_iterations=sum(pipe.iterations), loop_iterations=pipe.loop_iterations,
+         knn_fused_launches=launches,
+         host_syncs_per_frame=sum(syncs.values()) / n_frames,
+         host_syncs={k: v / n_frames for k, v in syncs.items()},
+         map_corner_fill=int(pipe.state.map_corners.mask.sum()),
+         map_surface_fill=int(pipe.state.map_surface.mask.sum()), **extra)
+    if launches != 2 * pipe.loop_iterations or launches <= 0:
+        raise AssertionError(f"{label}: knn_fused launched {launches} times for "
+                             f"{pipe.loop_iterations} ICP loop passes")
+
+
 def main() -> int:
     import argparse
 
@@ -454,6 +580,37 @@ def main() -> int:
         if not ok:
             raise AssertionError(f"the card's {label} run departs from the CPU reference")
 
+    # cell matching, the three-head front end and the Velodyne front end.
+    # The mid100_trilidar CI variant (3 x 3,072 points) leaves its pieces
+    # too weakly constrained to hold two runs together, so its reference
+    # runs the scenario's own 3 x 8,192 points at CPU scale.
+    from loam_livox_tpu_torch.eval import scenarios as S
+
+    cut = {"map_corner_capacity": 1024, "map_surf_capacity": 4096}
+    mid_cpu_scale = {"capacity": {**S.SMALL_CAPS, **cut, "max_raw_points": 8192},
+                     "mapping": {"init_accumulate_frames": 6},
+                     "optimization": {"icp_maximum_iteration": 5, "full_iterations": 3}}
+    for label, kw in (("full_mapping", dict(small=True, overrides={"capacity": cut})),
+                      ("mid100_trilidar", dict(frames=12, overrides=mid_cpu_scale))):
+        g = S.run_scenario(label, device=dev, **kw)
+        c = S.run_scenario(label, device="cpu", **kw)
+        ok = (abs(g["ate_aligned"] - c["ate_aligned"]) < 0.05
+              and abs(g["accepted"] - c["accepted"]) <= 3)
+        emit("reference", path=label, frames=g["frames"], rows=g["rows"],
+             ate_gpu=g["ate_aligned"], ate_cpu=c["ate_aligned"], accepted_gpu=g["accepted"],
+             accepted_cpu=c["accepted"], ok=ok)
+        if not ok:
+            raise AssertionError(f"the card's {label} run departs from the CPU reference")
+    vel_small = velodyne_config(C, {**S.SMALL_CAPS, **cut, "max_raw_points": 16384})
+    sweeps, truth = velodyne_sweeps(8)
+    _, ate_gpu, acc_gpu = run_velodyne(vel_small, sweeps, truth, dev)
+    _, ate_cpu, acc_cpu = run_velodyne(vel_small, sweeps, truth, "cpu")
+    ok = abs(ate_gpu - ate_cpu) < 0.05 and acc_gpu == acc_cpu
+    emit("reference", path="velodyne", frames=8, rows=8, ate_gpu=ate_gpu, ate_cpu=ate_cpu,
+         accepted_gpu=acc_gpu, accepted_cpu=acc_cpu, ok=ok)
+    if not ok:
+        raise AssertionError("the card's Velodyne run departs from the CPU reference")
+
     # 5. the main path: default capacities, 40 frames of 10,000 points
     cfg = C.SlamConfig().replace(mapping={"init_accumulate_frames": 10})
     n = 40
@@ -483,28 +640,13 @@ def main() -> int:
 
     # 6. the kernel line, timed on the buffer and queries the main path ended on
     from loam_livox_tpu_torch.core import se3
-    from loam_livox_tpu_torch.core.types import to_device
-    from loam_livox_tpu_torch.frontend.livox import extract_frame
-    from loam_livox_tpu_torch.registration import residuals as res
-    from loam_livox_tpu_torch.registration.icp import refine_blur
     from loam_livox_tpu_torch.runtime.odometry import input_downsample
 
     st = pipe.state
-    xyz, inten, t = frames[n - 1]
     n_raw = cfg.capacity.max_raw_points
-    pts = np.zeros((n_raw, 3), np.float32)
-    it = np.zeros(n_raw, np.float32)
-    msk = np.zeros(n_raw, bool)
-    pts[:len(xyz)], it[:len(xyz)], msk[:len(xyz)] = xyz, inten, True
-    _, _, (fr,) = extract_frame(to_device(pts, dev), to_device(it, dev), to_device(msk, dev),
-                                t, cfg.feature_extraction, cfg.capacity)
-    _, surf_in = input_downsample(P.source_downsample(fr, cfg), cfg)
-    s = refine_blur(surf_in.time, fr.time_min, fr.time_max, True)
-    qs = res.transform_points_incre(torch.tensor([1.0, 0.0, 0.0, 0.0], device=dev),
-                                    torch.zeros(3, device=dev), surf_in.xyz, s,
-                                    st.q_w, st.t_w, True).contiguous()
-    r = compare_kernel(qs, st.map_surface.xyz, st.map_surface.mask,
-                       surf_in.mask.sum(dtype=torch.int32), 50.0 ** 0.5, base, reps=50)
+    qs, n_qs = surface_queries(st, frames[n - 1], cfg, dev)
+    r = compare_kernel(qs, st.map_surface.xyz, st.map_surface.mask, n_qs, 50.0 ** 0.5, base,
+                       reps=50)
     worst_err = max(worst_err, r["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer", **r)
 
@@ -615,7 +757,86 @@ def main() -> int:
     emit("kernel", kernel="knn_fused", search="surfaces, racing-path buffer, 9 lanes",
          **r_lanes)
 
-    # 9. the large-scale scenario's CPU-scale variant on the card, under
+    # 9. cell matching at full width: the full_mapping scenario's own
+    # configuration and stream (60 frames of 10,000 points, registration
+    # after 20, 8,192 cells x 32 points, 16,384 / 65,536-point buffers)
+    cfg_f, kw_f = S.scenario_config("full_mapping")
+    n_f = kw_f["frames"]
+    sim_f = S.simulators(cfg_f, kw_f)[0]
+    host_f = [sim_f.frame(i) for i in range(n_f + 3)]
+    dev_f = on_device(host_f, cfg_f.capacity.max_raw_points, dev)
+    torch.cuda.synchronize()
+    kf.launches = 0
+    P.reset_host_syncs()
+    t0 = time.perf_counter()
+    pipe_f, ate_f, acc_f = run_stream(cfg_f, sim_f, dev_f[:n_f], dev)
+    torch.cuda.synchronize()
+    wall_f = time.perf_counter() - t0
+    launches_by_path["full_mapping"] = kf.launches
+    st_f = pipe_f.state
+    path_line("full_mapping", pipe_f, n_f, wall_f, ate_f, acc_f, kf.launches, P.host_syncs(),
+              corner_cells=int(st_f.cell_corners.n_cells()),
+              plane_cells=int(st_f.cell_planes.n_cells()),
+              cell_capacity=st_f.cell_planes.capacity, cell_pool=st_f.cell_planes.pool_size)
+    if not (ate_f < 0.40 and acc_f >= 30):
+        raise AssertionError(f"full_mapping off: ATE {ate_f}, accepted {acc_f}/{n_f}")
+    sync_check("full_mapping", pipe_f, dev_f[n_f:])
+    # the kernel on the cell-gathered buffer the path ended on
+    qs_f, n_qs_f = surface_queries(st_f, host_f[n_f - 1], cfg_f, dev)
+    r_f = compare_kernel(qs_f, st_f.map_surface.xyz, st_f.map_surface.mask, n_qs_f,
+                         50.0 ** 0.5, reps=50)
+    worst_err = max(worst_err, r_f["max_abs_err"])
+    emit("kernel", kernel="knn_fused", search="surfaces, full_mapping cell-gathered buffer",
+         **r_f)
+
+    # 10. three heads at full width: 30 frames of 3 x 8,192 points, two
+    # merged pieces a frame through process_feature_frame
+    cfg_m, kw_m = S.scenario_config("mid100_trilidar")
+    n_m = kw_m["frames"]
+    sims_m = S.simulators(cfg_m, kw_m)
+    parts = [[sim.frame(i) for sim in sims_m] for i in range(n_m)]
+    torch.cuda.synchronize()
+    kf.launches = 0
+    P.reset_host_syncs()
+    t0 = time.perf_counter()
+    pipe_m = P.OdometryPipeline(cfg_m, device=dev)
+    for heads in parts:
+        S.multi_head_frame(pipe_m, heads)
+    pipe_m.flush()
+    torch.cuda.synchronize()
+    wall_m = time.perf_counter() - t0
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+
+    est_m = pipe_m.trajectory.positions_array()
+    gt_m = np.stack([sims_m[0].gt_pose_at(t)[1] for t in pipe_m.trajectory.times])
+    ate_m, acc_m = ate_rmse(est_m, gt_m), int(sum(pipe_m.trajectory.accepted))
+    launches_by_path["mid100_trilidar"] = kf.launches
+    path_line("mid100_trilidar", pipe_m, n_m, wall_m, ate_m, acc_m, kf.launches, P.host_syncs(),
+              heads=len(sims_m), points_per_head=kw_m["points"])
+    if not (np.all(np.isfinite(est_m)) and est_m.shape == (2 * n_m, 3)
+            and ate_m < 0.75 and acc_m >= 30):
+        raise AssertionError(f"mid100_trilidar off: ATE {ate_m}, accepted {acc_m}/{2 * n_m}")
+
+    # 11. the Velodyne front end: 20 VLP-16 sweeps of 16 x 720 points
+    cfg_v = velodyne_config(C)
+    n_v = 20
+    sweeps, truth = velodyne_sweeps(n_v)
+    sweeps = on_device(sweeps, cfg_v.capacity.max_raw_points, dev)
+    torch.cuda.synchronize()
+    kf.launches = 0
+    P.reset_host_syncs()
+    t0 = time.perf_counter()
+    pipe_v, ate_v, acc_v = run_velodyne(cfg_v, sweeps, truth, dev)
+    torch.cuda.synchronize()
+    wall_v = time.perf_counter() - t0
+    launches_by_path["velodyne"] = kf.launches
+    err_v = float(np.abs(pipe_v.trajectory.positions_array() - truth).max())
+    path_line("velodyne", pipe_v, n_v, wall_v, ate_v, acc_v, kf.launches, P.host_syncs(),
+              max_position_error=err_v)
+    if not (acc_v == n_v and err_v < 0.10):
+        raise AssertionError(f"velodyne off: accepted {acc_v}/{n_v}, position error {err_v}")
+
+    # 12. the large-scale scenario's CPU-scale variant on the card, under
     # its golden (tests/test_scenarios_ci.py:23)
     from loam_livox_tpu_torch.eval.scenarios import run_scenario
 
@@ -635,7 +856,10 @@ def main() -> int:
         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         "lanes_ms": r_lanes["ms"], "lanes_kernel_ms": r_lanes["kernel_ms"],
         "lanes_bound_ms": r_lanes["bound_ms"], "lanes_plain_ms": r_lanes["plain_ms"],
-        "lanes_library_ms": r_lanes["library_ms"], "launches_by_path": launches_by_path}]
+        "lanes_library_ms": r_lanes["library_ms"],
+        "full_mapping_ms": r_f["ms"], "full_mapping_kernel_ms": r_f["kernel_ms"],
+        "full_mapping_bound_ms": r_f["bound_ms"], "full_mapping_plain_ms": r_f["plain_ms"],
+        "full_mapping_library_ms": r_f["library_ms"], "launches_by_path": launches_by_path}]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

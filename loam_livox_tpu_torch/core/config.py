@@ -10,9 +10,9 @@ buffers and the execution modes.
 
 The port runs a slice of the configuration space: the Livox front end
 with motion deblur or piecewise windows (the shipped precision and
-realtime profiles), history matching, loop closure off, one device,
-with sequential, chunked or racing dispatch and optional residual
-subsampling.  `require_supported` raises ``NotImplementedError`` on
+realtime profiles) or the Velodyne front end, history or cell
+matching, loop closure off, one device, with sequential, chunked or
+racing dispatch and optional residual subsampling.  `require_supported` raises ``NotImplementedError`` on
 every other path, naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
@@ -310,7 +310,7 @@ def largescale_profile() -> SlamConfig:
 def require_supported(cfg: SlamConfig) -> None:
     """Raise ``NotImplementedError`` on any configuration path outside
     the ported slice, naming the ROADMAP.md queue-1 item that ports it."""
-    c, o, m = cfg.common, cfg.optimization, cfg.mapping
+    c, o = cfg.common, cfg.optimization
     p = cfg.parallel
 
     def refuse(what: str, item: int, title: str):
@@ -318,11 +318,9 @@ def require_supported(cfg: SlamConfig) -> None:
             f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
             f"({title})")
 
-    if c.lidar_type != "livox":
-        refuse(f"common/lidar_type={c.lidar_type!r}", 11, "other front ends")
-    if m.matching_mode != 0:
-        refuse(f"mapping/matching_mode={m.matching_mode}", 10,
-               "cell matching mode")
+    if c.lidar_type not in ("livox", "velodyne"):
+        raise ValueError(f"common/lidar_type={c.lidar_type!r}: the front ends are "
+                         "'livox' and 'velodyne'")
     if cfg.loop_closure.if_enable_loop_closure:
         refuse("loop closure", 12, "loop closure")
     if p.mesh_devices > 1:

@@ -28,11 +28,7 @@ SMALL_CAPS = {
 SCENARIOS = ("odometry_only", "full_mapping", "largescale_realtime",
              "loop_closure", "mid100_trilidar")
 
-_UNPORTED = {
-    "full_mapping": (10, "cell matching mode"),
-    "loop_closure": (12, "loop closure"),
-    "mid100_trilidar": (11, "other front ends"),
-}
+_UNPORTED = {"loop_closure": (12, "loop closure")}
 
 
 def scenario_config(name: str, small: bool = False):
@@ -51,6 +47,17 @@ def scenario_config(name: str, small: bool = False):
                       "map_corner_capacity": 8192},
         )
         kw = {"frames": 40, "points": 8192}
+    elif name == "full_mapping":
+        # Mid-40 odometry and mapping with motion deblur and cell matching
+        cfg = SlamConfig().replace(
+            mapping={"init_accumulate_frames": 20, "matching_mode": 1})
+        kw = {"frames": 60, "points": 10000}
+    elif name == "mid100_trilidar":
+        # three heads through the multi-LiDAR front end, two pieces a frame
+        cfg = SlamConfig().replace(
+            common={"if_motion_deblur": 0, "piecewise_number": 2},
+            capacity={"max_raw_points": 8192})
+        kw = {"frames": 30, "points": 8192, "sensors": 3}
     elif name == "largescale_realtime":
         # coarse resolutions, realtime profile, an outdoor-scale scene
         cfg = largescale_profile().replace(mapping={"init_accumulate_frames": 20})
@@ -70,6 +77,57 @@ def scenario_config(name: str, small: bool = False):
     return cfg, kw
 
 
+def simulators(cfg: SlamConfig, kw: Dict):
+    """One simulator a head (``kw['sensors']``, default 1), seeded 0, 1,
+    ...: each with its own scene from that seed, all on one trajectory
+    whose standstill ramp covers the init-accumulation window."""
+    import numpy as np
+
+    from ..io.simulator import ConvexScene, LivoxSimulator, SimConfig, Trajectory
+
+    sims = []
+    for s in range(kw.get("sensors", 1)):
+        rng = np.random.default_rng(s)
+        scene = ConvexScene.random_room(rng, **kw["scene"]) if "scene" in kw else None
+        traj = Trajectory(ramp_t0=0.1 * cfg.mapping.init_accumulate_frames + 0.2)
+        traj.lin_amp = traj.lin_amp * kw.get("traj_scale", 1.0)
+        sims.append(LivoxSimulator(SimConfig(points_per_frame=kw["points"], seed=s,
+                                             noise_std=kw.get("noise", 0.005)),
+                                   scene=scene, traj=traj))
+    return sims
+
+
+def multi_head_frame(pipe, parts) -> None:
+    """One raw frame of every head (``parts``: each head's ``(xyz,
+    intensity, t0)``) through the multi-LiDAR front end, then each merged
+    piece through the source voxel filter (at the merged capacities) and
+    one odometry step."""
+    import numpy as np
+
+    from ..core.types import to_device
+    from ..frontend.multi import extract_multi_lidar
+    from ..ops.voxel import voxel_downsample
+
+    cfg, dev = pipe.cfg, pipe.device
+    fe, caps = cfg.feature_extraction, cfg.capacity
+    nr = caps.max_raw_points
+    xyz = np.zeros((len(parts), nr, 3), np.float32)
+    inten = np.zeros((len(parts), nr), np.float32)
+    mask = np.zeros((len(parts), nr), bool)
+    for s, (x, it, _) in enumerate(parts):
+        m = min(len(x), nr)
+        xyz[s, :m], inten[s, :m], mask[s, :m] = x[:m], it[:m], True
+    frames = extract_multi_lidar(to_device(xyz, dev), to_device(inten, dev),
+                                 to_device(mask, dev), parts[0][2], fe, caps,
+                                 piecewise_number=cfg.common.piecewise_number)
+    for fr in frames:
+        pipe.process_feature_frame(fr._replace(
+            corners=voxel_downsample(fr.corners, fe.mapping_line_resolution,
+                                     capacity=fr.corners.capacity),
+            surface=voxel_downsample(fr.surface, fe.mapping_plane_resolution / 2.0,
+                                     capacity=fr.surface.capacity)))
+
+
 def run_scenario(name: str, frames: int | None = None, small: bool = False,
                  overrides: Dict | None = None, device=None) -> Dict:
     """Run a scenario on the simulator; returns frames/s, aligned and raw
@@ -77,7 +135,6 @@ def run_scenario(name: str, frames: int | None = None, small: bool = False,
     says otherwise."""
     import numpy as np
 
-    from ..io.simulator import ConvexScene, LivoxSimulator, SimConfig, Trajectory
     from ..runtime.pipeline import OdometryPipeline
     from .ate import ate_rmse
 
@@ -85,21 +142,18 @@ def run_scenario(name: str, frames: int | None = None, small: bool = False,
     if overrides:
         cfg = cfg.replace(**overrides)
     n = frames or kw["frames"]
-    # the standstill ramp covers the init-accumulation window
-    traj = Trajectory(ramp_t0=0.1 * cfg.mapping.init_accumulate_frames + 0.2)
-    traj.lin_amp = traj.lin_amp * kw.get("traj_scale", 1.0)
-    rng = np.random.default_rng(0)
-    scene = ConvexScene.random_room(rng, **kw["scene"]) if "scene" in kw else None
-    sim = LivoxSimulator(SimConfig(points_per_frame=kw["points"], seed=0),
-                         scene=scene, traj=traj)
+    sims = simulators(cfg, kw)
     pipe = OdometryPipeline(cfg, device=device)
     t0 = time.perf_counter()
     for i in range(n):
-        pipe.process_raw(*sim.frame(i))
+        if len(sims) == 1:
+            pipe.process_raw(*sims[0].frame(i))
+        else:
+            multi_head_frame(pipe, [sim.frame(i) for sim in sims])
     pipe.flush()
     wall = time.perf_counter() - t0
     est = pipe.trajectory.positions_array()
-    gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
+    gt = np.stack([sims[0].gt_pose_at(t)[1] for t in pipe.trajectory.times])
     return {
         "scenario": name,
         "frames": n,

@@ -83,6 +83,8 @@ def _forward_fill(values: torch.Tensor, valid: torch.Tensor, fallback: float):
 
 def _shift(a: torch.Tensor, s: int) -> torch.Tensor:
     """a[i + s] with zero fill."""
+    if s == 0:
+        return a
     out = torch.zeros_like(a)
     if s > 0:
         out[:-s] = a[s:]

@@ -5,11 +5,14 @@ Python and numpy values (this module imports nothing of JAX).
   ``SlamConfig``: the two config trees share section and field names.
 * `state_from_numpy` takes the JAX ``OdometryState`` fields as numpy
   arrays (``{name: np.asarray(value)}``; the matching buffers as
-  ``map_corners.xyz`` / ``map_corners.mask`` and so on) and keeps the
-  fields the port's state has.  This state is what a run carries from
-  frame to frame: the system's counterpart of a model's weights.  The
-  JAX rng key has no counterpart (the draws cannot match): the port's
-  generator starts from seed 0, as in a new state.
+  ``map_corners.xyz`` / ``map_corners.mask`` and so on, the feature cell
+  maps as ``cell_corners.keys`` / ``cell_corners.count`` and so on) and
+  keeps the fields the port's state has.  This state is what a run
+  carries from frame to frame: the system's counterpart of a model's
+  weights.  The JAX rng key has no counterpart (the draws cannot
+  match): the port's generator starts from seed 0, as in a new state.
+  A JAX cell map of one slot (its placeholder when nothing reads the
+  maps) becomes ``None``, the port's placeholder.
 """
 from __future__ import annotations
 
@@ -20,11 +23,29 @@ import torch
 
 from .core.config import SlamConfig, from_dict
 from .core.types import PointBatch
+from .map.cell_map import CellMap
 from .runtime.odometry import OdometryState
+
+#: the array fields of a cell map, as the JAX ``CellMap`` names them
+CELL_MAP_ARRAYS = ("keys", "count", "sum_p", "sum_pp", "pts",
+                   "last_update_frame", "create_frame")
 
 
 def config_from_dict(d: Dict[str, Any]) -> SlamConfig:
     return from_dict(d)
+
+
+def cell_map_from_numpy(fields: Dict[str, np.ndarray], prefix: str, device):
+    """The cell map under ``prefix`` (``{prefix}.keys`` and so on, with
+    ``{prefix}.cell_size`` and ``{prefix}.frame_idx``), or ``None`` for a
+    one-slot placeholder."""
+    keys = np.asarray(fields[f"{prefix}.keys"])
+    if keys.shape[0] <= 1:
+        return None
+    arrays = {name: torch.as_tensor(np.asarray(fields[f"{prefix}.{name}"])).to(device)
+              for name in CELL_MAP_ARRAYS}
+    return CellMap(cell_size=float(fields[f"{prefix}.cell_size"]),
+                   frame_idx=int(fields[f"{prefix}.frame_idx"]), **arrays)
 
 
 def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
@@ -37,6 +58,10 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
                 else torch.zeros(xyz.shape[0], device=device))
         return PointBatch(xyz=xyz, time=time, mask=t(f"{prefix}.mask", torch.bool))
 
+    def cells(prefix):
+        return (cell_map_from_numpy(fields, prefix, device)
+                if f"{prefix}.keys" in fields else None)
+
     return OdometryState(
         q_w=t("q_w"), t_w=t("t_w"),
         frame_count=int(fields["frame_count"]),
@@ -48,6 +73,8 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         hist_len=int(fields["hist_len"]),
         last_his_q=t("last_his_q"), last_his_t=t("last_his_t"),
         last_q_incre=t("last_q_incre"), last_t_incre=t("last_t_incre"),
+        cell_corners=cells("cell_corners"),
+        cell_planes=cells("cell_planes"),
         map_corners=batch("map_corners"),
         map_surface=batch("map_surface"),
         rng=torch.Generator(device=device).manual_seed(0),

@@ -42,7 +42,7 @@ def voxel_keys(xyz: torch.Tensor, leaf: float) -> torch.Tensor:
             | (coords[:, 1] << _AXIS_BITS) | coords[:, 2])
 
 
-def _segment_sum(out: torch.Tensor, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
+def segment_sum(out: torch.Tensor, seg: torch.Tensor, values: torch.Tensor) -> torch.Tensor:
     """out[seg[i]] += values[i], each segment summed in input order."""
     if out.is_cuda:
         return out.index_put_((seg,), values, accumulate=True)
@@ -69,13 +69,13 @@ def voxel_downsample(batch: PointBatch, leaf: float,
     w = contrib.to(batch.xyz.dtype)
 
     xyz_s = batch.xyz[order]
-    sums = _segment_sum(torch.zeros((capacity, 3), dtype=batch.xyz.dtype, device=dev),
+    sums = segment_sum(torch.zeros((capacity, 3), dtype=batch.xyz.dtype, device=dev),
                         seg_c, xyz_s * w[:, None])
-    cnts = _segment_sum(torch.zeros((capacity,), dtype=batch.xyz.dtype, device=dev),
+    cnts = segment_sum(torch.zeros((capacity,), dtype=batch.xyz.dtype, device=dev),
                         seg_c, w)
     denom = torch.clamp(cnts, min=1.0)
     if with_time:
-        tsum = _segment_sum(torch.zeros((capacity,), dtype=batch.time.dtype, device=dev),
+        tsum = segment_sum(torch.zeros((capacity,), dtype=batch.time.dtype, device=dev),
                             seg_c, batch.time[order] * w)
         time = tsum / denom
     else:

@@ -1,6 +1,6 @@
 """Per-frame odometry and mapping (reference `Laser_mapping`:
 ``source/laser_mapping.hpp:1316-1660`` `process_new_scan` and
-``:460-566`` `update_buff_for_matching`), history matching mode.
+``:460-566`` `update_buff_for_matching`).
 
     state, reg = odometry_step(state, frame, cfg)
 
@@ -10,23 +10,28 @@
 * a rejected frame changes neither the pose nor the map (:1416-1420);
 * registered features go to the world frame with per-point deblur and
   are voxel-filtered again before they enter the history ring
-  (:1422-1437), gated on motion and the window size (:1444-1487);
-* the matching buffer is the voxel-filtered history window (:517-537),
+  (:1422-1437), gated on motion and the window size (:1444-1487), and,
+  in cell matching mode, the corner and plane cell maps (:1491-1493);
+* the matching buffer (:460-566) is, in history mode
+  (``mapping/matching_mode`` 0), the voxel-filtered history window; in
+  cell mode (1), the voxel-filtered pools of the cells within the
+  search ranges of the pose and inside its field of view.  It is
   rebuilt in full on every 4th frame and appended to in between.
 
-The state carries only what this path reads.  The JAX package's
-``OdometryState`` also holds the feature and full-cloud cell maps and
-the touched-cell mask (1-slot dummies unless cell matching or loop
-closure is on) and the bucket grids (read only by the grid engine); the
-port drops them.  In place of the JAX rng key the state carries a
-``torch.Generator`` on the device, which draws the uniforms of residual
-subsampling (``optimization/subsample_residuals``); its draws cannot
-match JAX's.  The frame counter, ring pointer and ring length are host
-integers: the host decides from them whether to register, rebuild or
-append.
+The state carries only what the ported paths read.  The feature cell
+maps are ``None`` unless cell matching is on (the JAX package keeps
+1-slot dummies then); the full-cloud cell map and the touched-cell mask
+of loop closure and the bucket grids of the grid engine are not ported.
+In place of the JAX rng key the state carries a ``torch.Generator`` on
+the device, which draws the uniforms of residual subsampling
+(``optimization/subsample_residuals``); its draws cannot match JAX's.
+The frame counter, ring pointer, ring length and the cell maps' frame
+index are host integers: the host decides from them whether to
+register, rebuild or append.
 
 After registration the host reads one flag, whether the frame enters
-the history (`SYNCS`); rebuild and append follow from it on the host.
+the history and the cell maps (`SYNCS`); rebuild and append follow from
+it on the host.
 """
 from __future__ import annotations
 
@@ -37,6 +42,8 @@ import torch
 from ..core import se3
 from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, PointBatch
+from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius,
+                            empty_cell_map, gather_cell_points, skip_frame)
 from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
 from ..registration.icp import RegistrationResult, refine_blur, register_frame
@@ -59,6 +66,8 @@ class OdometryState(NamedTuple):
     last_his_t: torch.Tensor
     last_q_incre: torch.Tensor      # last accepted increment
     last_t_incre: torch.Tensor
+    cell_corners: CellMap | None    # feature cell maps (cell matching mode)
+    cell_planes: CellMap | None
     map_corners: PointBatch         # matching buffer
     map_surface: PointBatch
     rng: torch.Generator            # residual subsampling draws
@@ -69,6 +78,13 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
     caps = cfg.capacity
     w = caps.history_window
     f32 = dict(dtype=torch.float32, device=device)
+
+    def cells():
+        if cfg.mapping.matching_mode != 1:
+            return None
+        return empty_cell_map(cfg.mapping.cell_resolution * 0.5, caps.cell_capacity,
+                              caps.cell_point_capacity, device)
+
     return OdometryState(
         q_w=se3.quat_identity(device=device),
         t_w=torch.zeros(3, **f32),
@@ -85,17 +101,29 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         last_his_t=torch.zeros(3, **f32),
         last_q_incre=se3.quat_identity(device=device),
         last_t_incre=torch.zeros(3, **f32),
+        cell_corners=cells(),
+        cell_planes=cells(),
         map_corners=PointBatch.empty(caps.map_corner_capacity, device),
         map_surface=PointBatch.empty(caps.map_surf_capacity, device),
         rng=torch.Generator(device=device).manual_seed(0),
     )
 
 
-def rebuild_matching_buffer(state: OdometryState, cfg: SlamConfig
-                            ) -> Tuple[PointBatch, PointBatch]:
-    """The voxel-filtered history window at the registration leaves
-    (reference :517-537)."""
-    fe, caps = cfg.feature_extraction, cfg.capacity
+def matching_sources(state: OdometryState, cfg: SlamConfig
+                     ) -> Tuple[PointBatch, PointBatch]:
+    """The unfiltered corner and surface sources of the matching buffer:
+    the history window (matching mode 0), or the pools of the cells
+    within ``maximum_search_range_*`` of the pose and inside its field
+    of view (mode 1, reference :471-515)."""
+    mp = cfg.mapping
+    if mp.matching_mode == 1:
+        def near(cells: CellMap, radius: float) -> PointBatch:
+            sel = (cells_in_radius(cells, state.t_w, radius)
+                   & cells_in_fov(cells, state.t_w, state.q_w, mp.maximum_in_fov_angle))
+            return gather_cell_points(cells, sel)
+
+        return (near(state.cell_corners, mp.maximum_search_range_corner),
+                near(state.cell_planes, mp.maximum_search_range_surface))
 
     def flat(xyz, mask):
         n = xyz.shape[0] * xyz.shape[1]
@@ -103,11 +131,19 @@ def rebuild_matching_buffer(state: OdometryState, cfg: SlamConfig
                           time=torch.zeros(n, device=xyz.device),
                           mask=mask.reshape(n))
 
-    corners = voxel_downsample(flat(state.hist_corner_xyz, state.hist_corner_mask),
-                               fe.mapping_line_resolution,
+    return (flat(state.hist_corner_xyz, state.hist_corner_mask),
+            flat(state.hist_surf_xyz, state.hist_surf_mask))
+
+
+def rebuild_matching_buffer(state: OdometryState, cfg: SlamConfig
+                            ) -> Tuple[PointBatch, PointBatch]:
+    """The matching sources voxel-filtered at the registration leaves
+    (reference :517-537)."""
+    fe, caps = cfg.feature_extraction, cfg.capacity
+    raw_c, raw_s = matching_sources(state, cfg)
+    corners = voxel_downsample(raw_c, fe.mapping_line_resolution,
                                capacity=caps.map_corner_capacity, with_time=False)
-    surface = voxel_downsample(flat(state.hist_surf_xyz, state.hist_surf_mask),
-                               fe.mapping_plane_resolution,
+    surface = voxel_downsample(raw_s, fe.mapping_plane_resolution,
                                capacity=caps.map_surf_capacity, with_time=False)
     return corners, surface
 
@@ -168,11 +204,11 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
                  reg: RegistrationResult, cfg: SlamConfig,
                  q_base=None, t_base=None
                  ) -> Tuple[OdometryState, RegistrationResult]:
-    """Pose policy, history ring and matching buffer after registration
-    (reference :1413-1564).  ``q_base`` / ``t_base`` is the pose the
-    registration's increment composes from: ``state.q_w`` / ``state.t_w``
-    (the default) in the sequential step, each lane's coasted start pose
-    in the racing step.  Returns a new state; the input state's tensors
+    """Pose policy, history ring, cell maps and matching buffer after
+    registration (reference :1413-1564).  ``q_base`` / ``t_base`` is the
+    pose the registration's increment composes from: ``state.q_w`` /
+    ``state.t_w`` (the default) in the sequential step, each lane's
+    coasted start pose in the racing step.  Returns a new state; the input state's tensors
     are not modified."""
     fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
     deblur = bool(cfg.common.if_motion_deblur)
@@ -211,7 +247,13 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     new = state._replace(q_w=reg.q_w, t_w=reg.t_w,
                          frame_count=state.frame_count + 1,
                          last_q_incre=last_q_incre, last_t_incre=last_t_incre)
+    # The cell maps count every frame (the JAX step appends each frame
+    # with an admit-gated mask), so a frame that is not admitted still
+    # moves their frame index.
     if not admit:
+        if state.cell_corners is not None:
+            new = new._replace(cell_corners=skip_frame(state.cell_corners),
+                               cell_planes=skip_frame(state.cell_planes))
         return new, reg
 
     w = caps.history_window
@@ -230,6 +272,13 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
         hist_ptr=(slot + 1) % w,
         hist_len=min(state.hist_len + 1, w),
         last_his_q=reg.q_w, last_his_t=reg.t_w)
+    # cell-map insertion (reference :1491-1493), before the rebuild, so
+    # that a rebuild sees this frame's cells
+    if state.cell_corners is not None:
+        revisit, max_new = cfg.common.threshold_cell_revisit, caps.cell_max_new_per_frame
+        new = new._replace(
+            cell_corners=append_cloud(state.cell_corners, corner_w, revisit, max_new)[0],
+            cell_planes=append_cloud(state.cell_planes, surf_w, revisit, max_new)[0])
 
     interval = rebuild_interval(cfg)
     if interval == 1 or state.frame_count % interval == 0:

@@ -1,6 +1,12 @@
 """End-to-end odometry over a stream of raw frames: front end → source
 voxel filter → odometry step.
 
+The front end is the Livox extractor, or with ``common/lidar_type``
+``velodyne`` the mechanical-LiDAR one (one sweep, one registration, no
+pieces; intensity unused).  A multi-head frame (`frontend.multi`) is
+extracted by the caller and handed over piece by piece through
+`OdometryPipeline.process_feature_frame`.
+
 Three ways to dispatch, as in the JAX package's pipeline:
 
 * sequential (the default): each raw frame at once.  With motion
@@ -30,9 +36,10 @@ group by group in the racing queue.
 Host-sync audit (the input to a CUDA-graph port):
 
     where                                   what                             how often
-    frontend/livox.py extract_point_info    .cpu() of the <= max_splits      1 a raw frame
-                                            turning-point candidates for
-                                            the host debounce
+    frontend/livox.py extract_point_info    .cpu() of the <= max_splits      1 a raw Livox frame
+                                            turning-point candidates for     (1 a head of a
+                                            the host debounce                multi-head frame;
+                                                                             none for Velodyne)
     registration/icp.py register_frames     bool(active.any()): the early    <= icp_maximum_iteration
                                             exit of the ICP loop (the first  + 1 a piece, or a
                                             read also carries the map-size   racing group
@@ -65,6 +72,7 @@ import torch
 from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, to_device
 from ..frontend import livox
+from ..frontend.velodyne import extract_velodyne_features
 from ..io.simulator import LivoxSimulator
 from ..ops.voxel import voxel_downsample
 from ..registration import icp
@@ -112,16 +120,24 @@ def source_downsample(frame: FeatureFrame, cfg: SlamConfig) -> FeatureFrame:
 
 def piece_count(cfg: SlamConfig) -> int:
     """Pieces a raw frame splits into: motion deblur forces one
-    (reference laser_feature_extractor.hpp:306-309)."""
-    return 1 if cfg.common.if_motion_deblur else max(1, cfg.common.piecewise_number)
+    (reference laser_feature_extractor.hpp:306-309), and a Velodyne
+    sweep is one (reference :827-864)."""
+    if cfg.common.if_motion_deblur or cfg.common.lidar_type == "velodyne":
+        return 1
+    return max(1, cfg.common.piecewise_number)
 
 
 def extract_pieces(pts, inten, mask, base_time: float, cfg: SlamConfig,
                    n_run: int | None = None) -> List[FeatureFrame]:
     """The front end and the source voxel filter of one padded raw frame:
     its first ``n_run`` (default all) pieces."""
-    _, _, frames = livox.extract_frame(pts, inten, mask, base_time, cfg.feature_extraction,
-                                       cfg.capacity, piece_count(cfg))
+    fe = cfg.feature_extraction
+    if cfg.common.lidar_type == "velodyne":
+        frames = [extract_velodyne_features(pts, mask, base_time, fe,
+                                            minimum_range=fe.minimum_range)]
+    else:
+        _, _, frames = livox.extract_frame(pts, inten, mask, base_time, fe,
+                                           cfg.capacity, piece_count(cfg))
     return [source_downsample(f, cfg) for f in frames[:n_run]]
 
 
@@ -244,6 +260,15 @@ class OdometryPipeline:
                                                      base_time, self.cfg)
         self.loop_iterations += sum(r.iterations for r in regs)
         self._pending.append(trajectory_rows(regs, frames))
+
+    def process_feature_frame(self, frame: FeatureFrame) -> None:
+        """One odometry step on a finished feature frame (a multi-head
+        piece, `frontend.multi`); its trajectory row waits on the device
+        like a raw frame's.  Frames given here bypass any chunk or group
+        that `process_raw` is filling."""
+        self.state, reg = odometry_step(self.state, frame, self.cfg)
+        self.loop_iterations += reg.iterations
+        self._pending.append(trajectory_rows([reg], [frame]))
 
     def _dispatch_chunk(self) -> None:
         buf, self._buf = self._buf, []

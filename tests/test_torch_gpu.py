@@ -1,4 +1,5 @@
-"""The port's CUDA kernel against its plain PyTorch version, on the card.
+"""The port's CUDA kernel against its plain PyTorch version, and the
+card's cell map and Velodyne front end against the CPU's, on the card.
 
 Every test here is marked ``gpu`` and skips where
 ``torch.cuda.is_available()`` is false: a CUDA kernel has no CPU mode.
@@ -9,13 +10,22 @@ and PyTorch alone:
 
 The kernel computes the plain version's function bit for bit (same
 rounded operations, same tie order), so distances and indices must be
-equal, not merely close; with a lane axis, lane by lane.
+equal, not merely close; with a lane axis, lane by lane.  The cell map
+sums each cell in input order and writes its pools at unique indices on
+both devices, so the card's map equals the CPU's bit for bit.  The
+Velodyne front end's selections must be equal on both devices, its
+points equal (copies) and its times and centroids within 1e-6 (CUDA's
+atan2 and sqrt may round the last bit differently).
 """
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import vlp16_sweep
+from loam_livox_tpu_torch.core.config import SlamConfig
 from loam_livox_tpu_torch.core.types import PointBatch
+from loam_livox_tpu_torch.frontend.velodyne import extract_velodyne_features
+from loam_livox_tpu_torch.map import cell_map as cm
 from loam_livox_tpu_torch.ops import knn_fused as kf
 from loam_livox_tpu_torch.ops.knn import knn
 from loam_livox_tpu_torch.ops.voxel import voxel_downsample
@@ -241,3 +251,72 @@ def test_launch_shape(cuda):
     shape = kf.launch_shape(5, 65536)
     assert shape["threads"] % 32 == 0 and shape["cluster"] == 8
     assert shape["blocks_per_sm"] >= 1 and shape["max_active_clusters"] >= 1
+
+
+def cell_frames(rng, n_frames=4, cap=2048):
+    """World-frame batches over a 12 m box, with a few dense clusters
+    (more points than the pool into one cell in one frame) and masked
+    and padded slots."""
+    out = []
+    for _ in range(n_frames):
+        pts = np.vstack([rng.uniform(-6, 6, (1500, 3)),
+                         *(c + rng.uniform(-0.2, 0.2, (60, 3))
+                           for c in rng.uniform(-5, 5, (4, 3)))]).astype(np.float32)
+        xyz = np.zeros((cap, 3), np.float32)
+        mask = np.zeros(cap, bool)
+        xyz[:len(pts)], mask[:len(pts)] = rng.permutation(pts), True
+        mask[rng.choice(len(pts), 100, replace=False)] = False
+        out.append(PointBatch(torch.from_numpy(xyz), torch.zeros(cap), torch.from_numpy(mask)))
+    return out
+
+
+def test_append_cloud_equals_cpu(cuda):
+    """Directory, counts, moments, pools, frames and the touched mask,
+    bit for bit, over frames that overflow pools, hit the new-cell cap
+    and reset revisited cells; then the cell-gathered matching source."""
+    rng = np.random.default_rng(21)
+    host = cm.empty_cell_map(0.5, 4096, 32)
+    card = cm.empty_cell_map(0.5, 4096, 32, device=cuda)
+    for batch in cell_frames(rng):
+        host, h3 = cm.append_cloud(host, batch, 2, max_new=512)
+        card, c3 = cm.append_cloud(card, PointBatch(*(x.to(cuda) for x in batch)), 2,
+                                   max_new=512)
+        assert torch.equal(c3.cpu(), h3)
+        for name in cm.CellMap._fields[1:-1]:
+            assert torch.equal(getattr(card, name).cpu(), getattr(host, name)), name
+        assert card.frame_idx == host.frame_idx
+    assert int(host.count.max()) > 32 and int(host.n_cells()) > 512
+    # the new-cell cap keeps the smallest keys, so the map lies at x < 0:
+    # look back at it from x = 1
+    t = torch.tensor([1.0, 0.5, 0.0])
+    yaw = np.deg2rad(170.0)
+    q = torch.tensor([np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2)], dtype=torch.float32)
+    sel_h = cm.cells_in_radius(host, t, 4.0) & cm.cells_in_fov(host, t, q, 45.0)
+    sel_c = (cm.cells_in_radius(card, t.to(cuda), 4.0)
+             & cm.cells_in_fov(card, t.to(cuda), q.to(cuda), 45.0))
+    assert torch.equal(sel_c.cpu(), sel_h) and 0 < int(sel_h.sum()) < int(host.n_cells())
+    src_h = voxel_downsample(cm.gather_cell_points(host, sel_h), 0.4, capacity=4096,
+                             with_time=False)
+    src_c = voxel_downsample(cm.gather_cell_points(card, sel_c), 0.4, capacity=4096,
+                             with_time=False)
+    for a, b in zip(src_c, src_h):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("pillar", [True, False])
+def test_velodyne_extraction_equals_cpu(cuda, pillar):
+    pts = vlp16_sweep(pillar=pillar)
+    xyz = np.zeros((16384, 3), np.float32)
+    mask = np.zeros(16384, bool)
+    xyz[:len(pts)], mask[:len(pts)] = pts, True
+    fe = SlamConfig().replace(feature_extraction={"scan_line": 16}).feature_extraction
+    host = extract_velodyne_features(torch.from_numpy(xyz), torch.from_numpy(mask), 1.5, fe)
+    card = extract_velodyne_features(torch.from_numpy(xyz).to(cuda),
+                                     torch.from_numpy(mask).to(cuda), 1.5, fe)
+    for name in ("full", "corners", "surface"):
+        h, c = getattr(host, name), getattr(card, name)
+        assert torch.equal(c.mask.cpu(), h.mask), name
+        tol = dict(rtol=0, atol=1e-6) if name == "surface" else dict(rtol=0, atol=0)
+        torch.testing.assert_close(c.xyz.cpu(), h.xyz, **tol)
+        torch.testing.assert_close(c.time.cpu(), h.time, rtol=1e-6, atol=0)
+    assert int(host.surface.mask.sum()) > 100

@@ -67,16 +67,14 @@ def test_config_yaml_loads_unchanged(name):
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"common": {"lidar_type": "velodyne"}}, 11),
-    ({"mapping": {"matching_mode": 1}}, 10),
     ({"loop_closure": {"if_enable_loop_closure": 1}}, 12),
     ({"parallel": {"mesh_devices": 8}}, 15),
     ({"optimization": {"correspondence": "dense"}}, 14),
     ({"optimization": {"correspondence": "grid"}}, 14),
     ({"common": {"if_save_to_pcd_files": 1}}, 13),
     ({"common": {"if_verbose_screen_printf": 0}}, 13),
-    # an unported item on top of a ported shipped-profile path
-    ({"common": {"if_motion_deblur": 0}, "mapping": {"matching_mode": 1}}, 10),
+    # an unported item on top of a ported path
+    ({"mapping": {"matching_mode": 1}, "loop_closure": {"if_enable_loop_closure": 1}}, 12),
     ({"parallel": {"frame_batch": 3, "mesh_devices": 4}}, 15),
 ])
 def test_unported_paths_raise(override, item):
@@ -92,11 +90,20 @@ def test_unported_paths_raise(override, item):
     {"parallel": {"frame_batch": 3}},
     {"parallel": {"dispatch_chunk": 4}},
     {"optimization": {"subsample_residuals": 200}},
+    {"common": {"lidar_type": "velodyne"}},
+    {"mapping": {"matching_mode": 1}},
+    {"common": {"if_motion_deblur": 0}, "mapping": {"matching_mode": 1}},
 ])
 def test_shipped_profile_paths_are_accepted(override):
-    """Queue 1 item 9 (piecewise windows, racing, chunked dispatch,
-    residual subsampling) is ported."""
+    """Queue 1 items 9 (piecewise windows, racing, chunked dispatch,
+    residual subsampling), 10 (cell matching) and 11 (the Velodyne front
+    end) are ported."""
     tcfg.require_supported(tcfg.SlamConfig().replace(**override))
+
+
+def test_unknown_lidar_type_raises():
+    with pytest.raises(ValueError, match="'livox' and 'velodyne'"):
+        tcfg.require_supported(tcfg.SlamConfig().replace(common={"lidar_type": "ouster"}))
 
 
 # ------------------------------------------------------------------- se3 --

@@ -1,0 +1,129 @@
+"""The port's Velodyne front end (``loam_livox_tpu_torch.frontend.velodyne``)
+and the Velodyne pipeline against the JAX package on the CPU.
+
+Inputs are synthetic VLP-16 sweeps (16 rings × 720 azimuths in a square
+room, with and without a plate; `chip_smoke.vlp16_sweep`), padded to
+16,384 slots with a few NaN, too-near and masked points.
+
+* Ring ids, the kept mask and the sweep time, then the full, corner and
+  surface clouds: masks equal, full and corner points equal (they are
+  copies), the surface's voxel centroids within 1e-5 m, times within
+  rtol 1e-6 (f32 atan2 / division round-off in the last bit).  The
+  HDL-64 ring formula on the same points; other ring counts raise.
+* A short stream: the sensor moves 3 cm and 2 cm a sweep along x and y
+  through the room with the plate; the port's and the JAX pipeline
+  (``lidar_type`` velodyne, ``scan_line`` 16, motion deblur off since a
+  synthetic sweep is taken from one pose) register every sweep after
+  the first; accept flags equal, positions within 0.05 m of each other
+  and of the truth.  Not closer: the convergence test stops each
+  registration once a step moves less than 1 cm
+  (``minimum_icp_T_diff``), here after 2 iterations, and the two
+  searches' near-tie order differs (tests/test_torch_odometry.py), so
+  the packages drift apart by ~1 cm in z over 8 sweeps.
+"""
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from loam_livox_tpu.core.config import SlamConfig
+from loam_livox_tpu.eval.scenarios import SMALL_CAPS
+from loam_livox_tpu.frontend import velodyne as jvel
+from loam_livox_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
+
+from chip_smoke import vlp16_sweep
+from loam_livox_tpu_torch.frontend import velodyne as tvel
+from loam_livox_tpu_torch.interop import config_from_dict
+from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+torch.set_num_threads(2)
+CAP = 16384
+CFG = SlamConfig().replace(feature_extraction={"scan_line": 16})
+TIME_TOL = dict(rtol=1e-6, atol=0)
+
+
+def padded_sweep(pillar: bool):
+    pts = vlp16_sweep(pillar=pillar)
+    xyz = np.zeros((CAP, 3), np.float32)
+    mask = np.zeros(CAP, bool)
+    xyz[:len(pts)], mask[:len(pts)] = pts, True
+    xyz[100] = np.nan                    # a NaN return
+    xyz[2000] = [0.05, 0.0, 0.0]         # inside minimum_range
+    mask[3000:3010] = False              # dropped by the caller
+    return xyz, mask
+
+
+@pytest.fixture(scope="module", params=[True, False], ids=["plate", "room"])
+def sweep(request):
+    xyz, mask = padded_sweep(request.param)
+    fe = CFG.feature_extraction
+    j = jvel.extract_velodyne_features(jnp.asarray(xyz), jnp.asarray(mask), jnp.float32(1.5),
+                                       fe, CFG.capacity)
+    tfe = config_from_dict(dataclasses.asdict(CFG)).feature_extraction
+    t = tvel.extract_velodyne_features(torch.from_numpy(xyz), torch.from_numpy(mask), 1.5, tfe)
+    return request.param, j, t
+
+
+@pytest.mark.parametrize("pillar", [True, False], ids=["plate", "room"])
+def test_ring_ids_and_sweep_time_match_jax(pillar):
+    xyz, mask = padded_sweep(pillar)
+    xs = np.nan_to_num(xyz, nan=0.0)
+    for lines in (16, 64):
+        jsid, jm = jvel._scan_id(jnp.asarray(xs), jnp.asarray(mask), lines)
+        tsid, tm = tvel._scan_id(torch.from_numpy(xs), torch.from_numpy(mask), lines)
+        np.testing.assert_array_equal(tsid.numpy(), np.array(jsid))
+        np.testing.assert_array_equal(tm.numpy(), np.array(jm))
+        if lines == 16:
+            assert len(np.unique(tsid.numpy()[tm.numpy()])) == 16
+            jrel = jvel._relative_time(jnp.asarray(xs), jm)
+            trel = tvel._relative_time(torch.from_numpy(xs), tm)
+            np.testing.assert_allclose(trel.numpy(), np.array(jrel), rtol=0, atol=2e-6)
+    with pytest.raises(ValueError, match="16 and 64"):
+        tvel._scan_id(torch.from_numpy(xs), torch.from_numpy(mask), 32)
+
+
+def test_feature_clouds_match_jax(sweep):
+    plate, j, t = sweep
+    for name in ("full", "corners", "surface"):
+        jb, tb = getattr(j, name), getattr(t, name)
+        assert tb.capacity == CAP
+        np.testing.assert_array_equal(tb.mask.numpy(), np.array(jb.mask), err_msg=name)
+        tol = dict(rtol=0, atol=1e-5) if name == "surface" else dict(rtol=0, atol=0)
+        np.testing.assert_allclose(tb.xyz.numpy(), np.array(jb.xyz), **tol, err_msg=name)
+        np.testing.assert_allclose(tb.time.numpy(), np.array(jb.time), **TIME_TOL, err_msg=name)
+    np.testing.assert_allclose([float(t.time_min), float(t.time_max)],
+                               [float(j.time_min), float(j.time_max)], **TIME_TOL)
+    assert int(t.full.mask.sum()) == 16 * 720 - 12
+    # the plate's edges are the sweep's only corners
+    assert (int(t.corners.mask.sum()) > 10) == plate and int(t.surface.mask.sum()) > 100
+    assert 1.5 <= float(t.time_min) and float(t.time_max) <= 1.6 + 1e-6
+
+
+def stream_config():
+    return CFG.replace(
+        common={"lidar_type": "velodyne", "if_motion_deblur": 0},
+        capacity={**SMALL_CAPS, "auto_schedule": 0, "max_raw_points": CAP,
+                  "map_corner_capacity": 1024, "map_surf_capacity": 4096},
+        mapping={"init_accumulate_frames": 1},
+        optimization={"icp_maximum_iteration": 5, "full_iterations": 3})
+
+
+def run(pipe, n=8):
+    truth = np.array([[0.03 * i, 0.02 * i, 0.0] for i in range(n)])
+    for i, o in enumerate(truth):
+        pts = vlp16_sweep(origin=o)
+        pipe.process_raw(pts, np.zeros(len(pts), np.float32), 0.1 * i)
+    pipe.flush()
+    return truth, pipe.trajectory.positions_array(), list(pipe.trajectory.accepted)
+
+
+def test_velodyne_stream_matches_jax():
+    cfg = stream_config()
+    truth, est_j, acc_j = run(JaxPipeline(cfg))
+    _, est_t, acc_t = run(OdometryPipeline(config_from_dict(dataclasses.asdict(cfg)),
+                                           device="cpu"))
+    assert est_t.shape == truth.shape and acc_t == acc_j and all(acc_t)
+    np.testing.assert_allclose(est_t, est_j, rtol=0, atol=0.05)
+    np.testing.assert_allclose(est_t, truth, rtol=0, atol=0.05)
