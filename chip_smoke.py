@@ -14,13 +14,21 @@ Phases, each printing JSON lines; any failure exits nonzero:
               surfaces 2,048 x 65,536 within sqrt(50) m; full buffers,
               5 % prefixes, 200 queries at the main path's 1.6 % fill;
               and the racing path's lane axis, 9 lanes of each search,
-              full, 5 % and uneven per-lane counts with an empty lane),
+              full, 5 % and uneven per-lane counts with an empty lane;
+              and the scene alignment's finest plane search, 8,192
+              queries against 8,192 voxel-sorted rows of the committed
+              loop artifact's closing keyframes within sqrt(50) m),
               bit for bit, with the wrapper's time, the kernel's alone
               (profiler), the plain version's, a ``torch.cdist`` +
               ``topk`` yardstick and the bound of
               `ops.knn_fused.search_work`.  ``--baseline DIR`` (an
               earlier checkout) times its kernel in turns with this
-              one's on the inputs without a lane axis;
+              one's on the inputs without a lane axis.  Then the loop
+              gates over ``scripts/loop_unscaled_state.npz`` on the card
+              and on the CPU: the same pair (keyframes 0 / 19) must
+              close, scores within 0.02, under the 0.20 gate, and the
+              card's solve passes `payoff_verdict` against the
+              keyframes' recorded true positions;
 4. reference  the port on the card against the port on the CPU (the path
               the CPU tests hold against the JAX package) on small
               streams of the main, precision and racing paths, the
@@ -39,7 +47,7 @@ Phases, each printing JSON lines; any failure exits nonzero:
               torch's sync-debug count against the host-sync audit
               (``sync_check``), and a torch.profiler breakdown;
 6. path       the other rows of bench.py (bench.py:129-137) through
-              ``process_raw`` at full width, 30 raw frames of 10,000
+              ``process_raw`` at full width, 20 raw frames of 10,000
               points padded on the card beforehand: the shipped precision
               and realtime profiles (3 pieces a frame), realtime racing
               (3 raw frames x 3 pieces a group) and chunked dispatch (8
@@ -56,14 +64,22 @@ Phases, each printing JSON lines; any failure exits nonzero:
               heads x 8,192 points, 2 pieces a frame; ATE < 0.75 m, >= 30
               of 60 accepted) and 20 VLP-16 sweeps (16 x 720 points)
               along a known trajectory through ``process_raw`` with
-              ``lidar_type`` velodyne;
+              ``lidar_type`` velodyne; then the ``loop_closure`` scenario
+              at its own configuration (170 frames of 10,000 points in
+              the rich world, the loop service on its worker thread and
+              CUDA stream): frames/s, ATE, the loop's pair, score,
+              keyframes and payoff, the worker's ms a keyframe by stage,
+              frame-time percentiles with the worker busy and idle, the
+              odometry's and the loop's kernel launches apart, and the
+              card's eigh against the host's on the run's own rotations
+              (aligned ATE < 0.45 m and the loop closed, or it fails);
 7. scenario   ``run_scenario("largescale_realtime", small=True)`` under
               its golden (aligned ATE < 1.30 m, >= 12 accepted);
 8. kernels    one line listing every kernel: launches on the main path
               (and on each path), its time, the plain version's, the
               bound and the yardstick on the main path's buffer, the
               lane axis's on the racing path's, and its time on the
-              ``full_mapping`` buffer.
+              ``full_mapping`` buffer and at the scene alignment's input.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is
@@ -514,6 +530,257 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, **ext
                              f"{pipe.loop_iterations} ICP loop passes")
 
 
+ARTIFACT = os.path.join(HERE, "scripts", "loop_unscaled_state.npz")
+
+
+def artifact_config(C):
+    """The configuration of the run that made ``scripts/loop_unscaled_state.npz``
+    (``make_cfg`` of ``scripts/loop_unscaled.py``), with the service inline."""
+    return C.SlamConfig().replace(
+        common={"if_motion_deblur": 0, "piecewise_number": 1},
+        mapping={"init_accumulate_frames": 10},
+        loop_closure={"if_enable_loop_closure": 1, "minimum_keyframe_differen": 20,
+                      "if_loop_service_async": 0},
+        capacity={"cell_capacity": 16384})
+
+
+def replay_artifact(C, device):
+    """The artifact's 20 keyframes one at a time through a fresh
+    `LoopCloser`'s gate scan on ``device``; returns the service."""
+    from loam_livox_tpu_torch.core import accounting
+    from loam_livox_tpu_torch.interop import loop_state_from_npz
+    from loam_livox_tpu_torch.runtime.loop_service import LoopCloser
+
+    saved = loop_state_from_npz(ARTIFACT, device)
+    closer = LoopCloser(artifact_config(C), device=device)
+    with accounting.charged_to(closer.counts):
+        for rec in saved.keyframes:
+            closer.keyframes.append(rec)
+            if not closer.closed:
+                closer._scan_for_loop()
+    return closer
+
+
+def artifact_payoff(closer) -> dict:
+    """`payoff_verdict` of a replayed solve against the keyframes' true
+    positions recorded beside the artifact (``loop_unscaled_out.json``),
+    as tests/test_torch_loop_replay.py judges it on the CPU."""
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.eval.loop_payoff import payoff_verdict
+
+    with open(os.path.join(HERE, "scripts", "loop_unscaled_out.json")) as f:
+        out = json.load(f)
+    gt = np.asarray(out["kf_gt_positions"], np.float64)
+    kt = np.stack([k.t.cpu().numpy() for k in closer.keyframes])
+    n = min(len(gt), len(kt))
+    payoff = dict(out["payoff"], ate_kf_raw_before_loop=ate_rmse(kt[:n], gt[:n], align=False),
+                  ate_kf_raw_after_loop=ate_rmse(closer.result.t_opt[:n], gt[:n], align=False))
+    return dict(payoff_verdict(payoff), **payoff)
+
+
+def alignment_kernel(dev):
+    """The kernel at the scene alignment's finest-scale plane search of
+    the artifact's closing pair: keyframe 0's plane snapshot (the
+    historical side, the queries) and keyframe 19's (the current side,
+    the rows), each voxel-filtered at 0.1 m into 8,192 slots, within
+    √50 m."""
+    from loam_livox_tpu_torch.core.types import PointBatch
+    from loam_livox_tpu_torch.interop import loop_state_from_npz
+    from loam_livox_tpu_torch.ops.voxel import voxel_downsample
+
+    import torch
+
+    saved = loop_state_from_npz(ARTIFACT, "cpu")
+
+    def filtered(xyz):
+        pts = torch.from_numpy(xyz).to(dev)
+        return voxel_downsample(PointBatch(pts, torch.zeros(len(xyz), device=dev),
+                                           torch.ones(len(xyz), dtype=torch.bool, device=dev)),
+                                0.1, capacity=8192)
+
+    q, ref = filtered(saved.keyframes[0].snap_plane), filtered(saved.keyframes[19].snap_plane)
+    return compare_kernel(q.xyz, ref.xyz, ref.mask, q.mask.sum(dtype=torch.int32),
+                          50.0 ** 0.5, reps=20)
+
+
+#: the loop service's stages as `time_loop_worker` times them: the name
+#: each is called by in runtime/loop_service.py
+WORKER_STAGES = {"describe": "describe_keyframe", "snapshot": "_host_points",
+                 "alignment": "align_keyframes", "pose_graph": "optimize_pose_graph"}
+
+
+def time_loop_worker(LS):
+    """Wrap the loop service's stages to time them on the worker (each
+    wrapper synchronises the worker's stream): one row a processed
+    keyframe, in ms; ``scan`` is the rest (the similarity scan and the
+    gates).  Returns (rows, restore)."""
+    import torch
+
+    rows, cur = [], {}
+    originals = {name: getattr(LS, name) for name in WORKER_STAGES.values()}
+    process = LS.LoopCloser.process_keyframe
+
+    def timed(label, fn):
+        def run(*args, **kw):
+            t = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.current_stream().synchronize()
+            cur[label] = cur.get(label, 0.0) + (time.perf_counter() - t) * 1e3
+            return out
+        return run
+
+    def process_timed(self, rec, m):
+        cur.clear()
+        t = time.perf_counter()
+        process(self, rec, m)
+        torch.cuda.current_stream().synchronize()
+        total = (time.perf_counter() - t) * 1e3
+        parts = {k: cur.get(k, 0.0) for k in WORKER_STAGES}
+        rows.append(dict(total=total, scan=total - sum(parts.values()), **parts))
+
+    for label, name in WORKER_STAGES.items():
+        setattr(LS, name, timed(label, originals[name]))
+    LS.LoopCloser.process_keyframe = process_timed
+
+    def restore():
+        for name, fn in originals.items():
+            setattr(LS, name, fn)
+        LS.LoopCloser.process_keyframe = process
+
+    return rows, restore
+
+
+def record_rotations(KF):
+    """Keep the (directions, mask) of every canonical rotation the loop
+    service's descriptors solve (`loop.keyframe._alignment_rotation`).
+    Returns (records, restore)."""
+    records = []
+    real = KF._alignment_rotation
+
+    def keep(vecs, mask):
+        records.append((vecs, mask))
+        return real(vecs, mask)
+
+    KF._alignment_rotation = keep
+
+    def restore():
+        KF._alignment_rotation = real
+
+    return records, restore
+
+
+def eigh_on_card(KF, records) -> dict:
+    """The card's eigh (cuSOLVER) against the host's (LAPACK, the port's
+    choice) on the run's own moment matrices: how often each of the two
+    leading eigenvectors comes out with the other sign, and the
+    similarity of the plane image drawn with the card's rotation to the
+    one drawn with the host's (1 where the signs agree; a mirror lowers
+    it)."""
+    import torch
+
+    flips0 = flips1 = differ = 0
+    sims = []
+    for vecs, mask in records:
+        m = torch.einsum("n,ni,nj->ij", mask.to(torch.float32), vecs, vecs)
+        vh = torch.linalg.eigh(m.cpu())[1].flip(-1)
+        vc = torch.linalg.eigh(m)[1].flip(-1).cpu()
+        flips0 += int(float(vh[:, 0] @ vc[:, 0]) < 0)
+        flips1 += int(float(vh[:, 1] @ vc[:, 1]) < 0)
+
+        def rot(v):
+            return torch.stack([v[:, 0], v[:, 1], torch.linalg.cross(v[:, 0], v[:, 1])],
+                               dim=1).to(vecs.device)
+
+        img_h = KF._hist_image(vecs, mask, rot(vh))[0]
+        img_c = KF._hist_image(vecs, mask, rot(vc))[0]
+        differ += int(not torch.equal(img_h, img_c))
+        sims.append(float(KF.max_similarity(img_c, img_h)))
+    return {"rotations": len(records), "e0_sign_differs": flips0, "e1_sign_differs": flips1,
+            "plane_images_differ": differ,
+            "min_similarity_card_vs_host_rotation": min(sims) if sims else None}
+
+
+def loop_path(S, P, kf, dev, host_frames) -> dict:
+    """The ``loop_closure`` scenario at its own configuration, nothing cut:
+    170 frames of 10,000 points in the 56 m rich world, the service on
+    its worker thread and stream.  Each frame's time ends with the frame
+    stream's synchronisation.  Returns the path line's fields."""
+    import torch
+
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.eval.loop_payoff import payoff_verdict, score_loop_payoff
+    from loam_livox_tpu_torch.loop import keyframe as KF
+    from loam_livox_tpu_torch.runtime import loop_service as LS
+
+    cfg, kw = S.scenario_config("loop_closure")
+    n = kw["frames"]
+    sim = S.simulators(cfg, kw)[0]
+    frames = on_device(host_frames, cfg.capacity.max_raw_points, dev)
+    worker_rows, restore = time_loop_worker(LS)
+    rotations, restore_kf = record_rotations(KF)
+    try:
+        torch.cuda.synchronize()
+        kf.launches = 0
+        P.reset_host_syncs()
+        t0 = time.perf_counter()
+        pipe = P.OdometryPipeline(cfg, device=dev)
+        closer = pipe.loop_closer
+        frame_ms, busy = [], []
+        for frame in frames:
+            # busy: the worker was processing a keyframe at the frame's
+            # start or end, or finished one in between
+            was_busy, done = closer.busy, len(closer.keyframes)
+            t = time.perf_counter()
+            feed(pipe, [frame])
+            torch.cuda.current_stream(dev).synchronize()
+            frame_ms.append((time.perf_counter() - t) * 1e3)
+            busy.append(was_busy or closer.busy or len(closer.keyframes) != done)
+        pipe.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+        restore_kf()
+    launches, syncs = kf.launches, P.host_syncs()
+    closer.shutdown()
+    est = pipe.trajectory.positions_array()
+    gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
+    if not np.all(np.isfinite(est)) or est.shape != (n, 3):
+        raise AssertionError(f"bad loop_closure trajectory {est.shape}")
+    payoff = score_loop_payoff(closer, pipe.trajectory.times, sim.gt_pose_at)
+    ms, busy = np.asarray(frame_ms), np.asarray(busy)
+
+    def pct(sel):
+        x = ms[sel]
+        return ({"n": int(sel.sum()), "p50": float(np.percentile(x, 50)),
+                 "p99": float(np.percentile(x, 99)), "max": float(x.max())} if len(x) else None)
+
+    res = closer.result
+    parts = ("describe", "snapshot", "scan", "alignment", "pose_graph", "total")
+    out = dict(
+        frames=n, rows=len(est), fps=n / wall, wall_s=wall, ate_aligned=ate_rmse(est, gt),
+        ate_raw=ate_rmse(est, gt, align=False), accepted=int(sum(pipe.trajectory.accepted)),
+        loop_closed=closer.closed, his=res.his_idx if res else None,
+        cur=res.cur_idx if res else None, icp_score=res.icp_score if res else None,
+        keyframes=len(closer.keyframes), dropped_keyframes=closer.dropped_keyframes,
+        payoff=payoff, payoff_verdict=payoff_verdict(payoff) if payoff else None,
+        worker_ms_per_keyframe=worker_rows,
+        worker_ms_mean=({k: float(np.mean([r[k] for r in worker_rows])) for k in parts}
+                        if worker_rows else None),
+        icp_iterations=sum(pipe.iterations), loop_iterations=pipe.loop_iterations,
+        knn_fused_launches=launches, loop_knn_fused_launches=closer.counts["knn_fused"],
+        loop_service_counts=dict(closer.counts),
+        host_syncs_per_frame=sum(syncs.values()) / n,
+        host_syncs={k: v / n for k, v in syncs.items()},
+        frame_ms_all=pct(np.ones(n, bool)), frame_ms_worker_busy=pct(busy),
+        frame_ms_worker_idle=pct(~busy), eigh_card_vs_host=eigh_on_card(KF, rotations),
+        gate_trace=closer.gate_trace)
+    if launches != 2 * pipe.loop_iterations or launches <= 0:
+        raise AssertionError(f"loop_closure: knn_fused launched {launches} times for "
+                             f"{pipe.loop_iterations} ICP loop passes")
+    return out
+
+
 def main() -> int:
     import argparse
 
@@ -536,6 +803,28 @@ def main() -> int:
     except ImportError as e:
         print(f"chip_smoke: the package is not beside this script: {e}", file=sys.stderr)
         return 1
+    # the loop_closure stream is made on the host by a child process while
+    # the earlier phases run (its 170 frames of ray casting in the rich
+    # world take minutes); leaving the block terminates the child
+    import multiprocessing
+
+    with multiprocessing.get_context("spawn").Pool(1) as pool:
+        return run_phases(args, C, build, kf, P, pool.apply_async(loop_frames))
+
+
+def loop_frames():
+    """The ``loop_closure`` scenario's raw frames as the simulator makes
+    them (host arrays)."""
+    from loam_livox_tpu_torch.eval import scenarios as S
+
+    cfg, kw = S.scenario_config("loop_closure")
+    sim = S.simulators(cfg, kw)[0]
+    return [sim.frame(i) for i in range(kw["frames"])]
+
+
+def run_phases(args, C, build, kf, P, loop_sim) -> int:
+    import torch
+
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
@@ -552,8 +841,36 @@ def main() -> int:
          launch_k5_surfaces=kf.launch_shape(5, 65536))
     base = load_baseline(args.baseline) if args.baseline else None
 
-    # 3. each kernel against its plain version at the paths' shapes
+    # 3. each kernel against its plain version at the paths' shapes, then
+    # at the scene alignment's
     worst_err = kernel_phase(dev, base)
+    r_align = alignment_kernel(dev)
+    worst_err = max(worst_err, r_align["max_abs_err"])
+    emit("kernel", kernel="knn_fused", search="scene alignment, artifact keyframes 0 / 19",
+         **r_align)
+
+    # the loop gates over the committed unscaled artifact, on the card and
+    # on the CPU: the same pair must close, the scores within 0.02
+    rep = {}
+    for where, device in (("gpu", dev), ("cpu", "cpu")):
+        t0 = time.perf_counter()
+        closer = replay_artifact(C, device)
+        res = closer.result
+        rep[where] = dict(closed=closer.closed, his=res.his_idx if res else None,
+                          cur=res.cur_idx if res else None,
+                          score=res.icp_score if res else None,
+                          payoff_verdict=artifact_payoff(closer) if res else None,
+                          trace=closer.gate_trace, counts=dict(closer.counts),
+                          seconds=time.perf_counter() - t0)
+    ok = (rep["gpu"]["closed"] and rep["cpu"]["closed"]
+          and (rep["gpu"]["his"], rep["gpu"]["cur"]) == (rep["cpu"]["his"], rep["cpu"]["cur"])
+          == (0, 19) and abs(rep["gpu"]["score"] - rep["cpu"]["score"]) < 0.02
+          and rep["gpu"]["score"] < 0.20 and rep["gpu"]["payoff_verdict"]["ok"]
+          and [e["stage"] for e in rep["gpu"]["trace"]]
+          == [e["stage"] for e in rep["cpu"]["trace"]])
+    emit("reference", path="loop_unscaled replay", ok=ok, **rep)
+    if not ok:
+        raise AssertionError("the card's replay of the loop artifact departs from the CPU's")
 
     # 4. the port on the card against the port on the CPU, on small streams
     def small(cfg):
@@ -687,9 +1004,9 @@ def main() -> int:
          top_kernels_self_device_ms_per_frame=top(kernels_ka, "self_device_time_total"),
          top_self_cpu_ms_per_frame=top(ka, "self_cpu_time_total"))
 
-    # 7. the other rows of bench.py (bench.py:129-137) at full width: 30
+    # 7. the other rows of bench.py (bench.py:129-137) at full width: 20
     # raw frames of 10,000 points padded on the card beforehand
-    n_path = 30
+    n_path = 20
     sim, host_frames = simulate(n_path + 12, 10000, 10)
     dev_frames = on_device(host_frames, n_raw, dev)
     accel = {"init_accumulate_frames": 10}
@@ -836,7 +1153,20 @@ def main() -> int:
     if not (acc_v == n_v and err_v < 0.10):
         raise AssertionError(f"velodyne off: accepted {acc_v}/{n_v}, position error {err_v}")
 
-    # 12. the large-scale scenario's CPU-scale variant on the card, under
+    # 12. loop closure at full width: the loop_closure scenario's own
+    # configuration and stream, the service on its worker thread and
+    # stream; the odometry's launches and the loop's counted apart
+    kf.launches = 0
+    lp = loop_path(S, P, kf, dev, loop_sim.get(timeout=600))
+    launches_by_path["loop_closure"] = lp["knn_fused_launches"]
+    launches_by_path["loop_closure_service"] = lp["loop_knn_fused_launches"]
+    emit("path", path="loop_closure", **lp)
+    if not (lp["loop_closed"] and lp["ate_aligned"] < 0.45
+            and lp["loop_knn_fused_launches"] > 0):
+        raise AssertionError(f"loop_closure off: closed {lp['loop_closed']}, "
+                             f"ATE {lp['ate_aligned']}")
+
+    # 13. the large-scale scenario's CPU-scale variant on the card, under
     # its golden (tests/test_scenarios_ci.py:23)
     from loam_livox_tpu_torch.eval.scenarios import run_scenario
 
@@ -859,7 +1189,10 @@ def main() -> int:
         "lanes_library_ms": r_lanes["library_ms"],
         "full_mapping_ms": r_f["ms"], "full_mapping_kernel_ms": r_f["kernel_ms"],
         "full_mapping_bound_ms": r_f["bound_ms"], "full_mapping_plain_ms": r_f["plain_ms"],
-        "full_mapping_library_ms": r_f["library_ms"], "launches_by_path": launches_by_path}]
+        "full_mapping_library_ms": r_f["library_ms"],
+        "alignment_ms": r_align["ms"], "alignment_kernel_ms": r_align["kernel_ms"],
+        "alignment_bound_ms": r_align["bound_ms"], "alignment_plain_ms": r_align["plain_ms"],
+        "alignment_library_ms": r_align["library_ms"], "launches_by_path": launches_by_path}]
     emit("done", seconds=time.perf_counter() - t_start)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,0 +1,40 @@
+"""Which tally the calling thread's host syncs and kernel launches count
+against.
+
+The frame path counts into module-level tallies: the host-sync audit
+(`runtime.pipeline.host_syncs`) and ``ops.knn_fused.launches``.  The
+loop-closure service runs its device work inside ``charged_to(counts)``
+with a dict of its own, on its worker thread or inline on the frame
+thread, so its syncs and launches never move the frame path's audit.
+"""
+from __future__ import annotations
+
+import threading
+from contextlib import contextmanager
+
+_local = threading.local()
+
+
+@contextmanager
+def charged_to(counts: dict):
+    """Count this thread's syncs and launches into ``counts`` inside the
+    block."""
+    prev = getattr(_local, "counts", None)
+    _local.counts = counts
+    try:
+        yield counts
+    finally:
+        _local.counts = prev
+
+
+def charged() -> dict | None:
+    """The dict set by the innermost `charged_to` of this thread, if any."""
+    return getattr(_local, "counts", None)
+
+
+def count(default: dict, key: str) -> None:
+    """Add one to ``key`` of the charged dict, or else of ``default``."""
+    target = charged()
+    if target is None:
+        target = default
+    target[key] = target.get(key, 0) + 1

@@ -11,9 +11,11 @@ buffers and the execution modes.
 The port runs a slice of the configuration space: the Livox front end
 with motion deblur or piecewise windows (the shipped precision and
 realtime profiles) or the Velodyne front end, history or cell
-matching, loop closure off, one device, with sequential, chunked or
-racing dispatch and optional residual subsampling.  `require_supported` raises ``NotImplementedError`` on
-every other path, naming the ``ROADMAP.md`` item that ports it.
+matching, one device, with sequential, chunked or racing dispatch,
+optional residual subsampling, and loop closure (keyframes, scene
+alignment, pose graph; inline or on a worker thread).
+`require_supported` raises ``NotImplementedError`` on every
+other path, naming the ``ROADMAP.md`` item that ports it.
 """
 from __future__ import annotations
 
@@ -321,8 +323,9 @@ def require_supported(cfg: SlamConfig) -> None:
     if c.lidar_type not in ("livox", "velodyne"):
         raise ValueError(f"common/lidar_type={c.lidar_type!r}: the front ends are "
                          "'livox' and 'velodyne'")
-    if cfg.loop_closure.if_enable_loop_closure:
-        refuse("loop closure", 12, "loop closure")
+    lc = cfg.loop_closure
+    if lc.if_dump_keyframe_data or lc.map_alignment_if_dump_matching_result:
+        refuse("loop-closure dumps (keyframe and matching-result files)", 13, "host side")
     if p.mesh_devices > 1:
         refuse(f"parallel/mesh_devices={p.mesh_devices}", 15, "multi-GPU")
     if o.correspondence not in ("auto", "pallas"):

@@ -13,6 +13,16 @@ import numpy as np
 import torch
 
 
+def resolve_device(device=None) -> torch.device:
+    """The card by default; the CPU only when asked for."""
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass device='cpu' to run on the CPU")
+        device = "cuda"
+    return torch.device(device)
+
+
 def to_device(a: np.ndarray, device) -> torch.Tensor:
     """Host array -> tensor on ``device``.  To a card it goes through
     pinned memory without blocking, so the host does not wait for the

@@ -2,16 +2,19 @@
 scenarios.py``) that the port runs, on the synthetic stream.
 
 `scenario_config` returns ``(SlamConfig, runner kwargs)``; `run_scenario`
-drives `OdometryPipeline` over the simulator and scores the trajectory.
-``odometry_only`` and ``largescale_realtime`` are ported;
-``full_mapping`` (cell matching), ``loop_closure`` and
-``mid100_trilidar`` (three-head front end) raise
-``NotImplementedError`` naming the ``ROADMAP.md`` item that ports them.
+drives `OdometryPipeline` over the simulator and scores the trajectory,
+and with loop closure the loop and its payoff.  All five scenarios are
+ported: ``odometry_only``, ``full_mapping`` (cell matching),
+``largescale_realtime``, ``loop_closure`` (keyframes, scene alignment,
+pose graph, in the orientation-rich world) and ``mid100_trilidar``
+(three-head front end).
 """
 from __future__ import annotations
 
 import time
 from typing import Dict
+
+import numpy as np
 
 from ..core.config import SlamConfig, largescale_profile
 
@@ -28,16 +31,9 @@ SMALL_CAPS = {
 SCENARIOS = ("odometry_only", "full_mapping", "largescale_realtime",
              "loop_closure", "mid100_trilidar")
 
-_UNPORTED = {"loop_closure": (12, "loop closure")}
-
-
 def scenario_config(name: str, small: bool = False):
     """(SlamConfig, runner kwargs) of a scenario; ``small=True`` is the
     CPU-scale CI variant (tests/test_scenarios_ci.py)."""
-    if name in _UNPORTED:
-        item, title = _UNPORTED[name]
-        raise NotImplementedError(
-            f"scenario {name!r} is not ported yet: ROADMAP.md queue 1 item {item} ({title})")
     if name == "odometry_only":
         # Mid-40 short sequence, odometry only
         cfg = SlamConfig().replace(
@@ -65,6 +61,23 @@ def scenario_config(name: str, small: bool = False):
               "scene": {"half_extent": 45.0, "half_extent_z": 8.0,
                         "n_pillars": 14, "n_ridges": 24},
               "traj_scale": 4.0}
+    elif name == "loop_closure":
+        # the shipped loop gates unchanged (similarity 0.94 / 0.65, ratios
+        # 0.05 / 0.03, alignment score 0.20); only the time parameters are
+        # scaled to a 17 s run: cell revisit 50 frames, keyframes 30 / 10.
+        # Deblur off, 1 cm noise, an orientation-rich 56 m world, and a
+        # trajectory whose axes and yaw return to the start at 10 s.
+        cfg = SlamConfig().replace(
+            common={"if_motion_deblur": 0, "piecewise_number": 1,
+                    "threshold_cell_revisit": 50},
+            mapping={"init_accumulate_frames": 10},
+            loop_closure={"if_enable_loop_closure": 1, "scans_of_each_keyframe": 30,
+                          "scans_between_two_keyframe": 10, "minimum_keyframe_differen": 5})
+        kw = {"frames": 170, "points": 10000, "noise": 0.01, "scene_kind": "rich",
+              "scene": {"half_extent": 28.0, "half_extent_z": 5.0, "n_rot_boxes": 28,
+                        "n_rocks": 48, "n_ridges": 14},
+              "traj": {"lin_hz": np.array([0.05, 0.05, 0.05]), "yaw_hz": 0.05,
+                       "pitch_hz": 0.05}}
     else:
         raise KeyError(name)
     if small:
@@ -74,23 +87,39 @@ def scenario_config(name: str, small: bool = False):
             optimization={"icp_maximum_iteration": 5, "full_iterations": 3},
         )
         kw = dict(kw, points=3072, frames=min(kw["frames"], 24))
+        if name == "loop_closure":
+            # keyframes that complete within 40 frames, and admission
+            # ratios that a CPU-scale point budget can pass: the machinery
+            # runs, the shipped gates do not close a loop here; the default
+            # room instead of the rich world
+            cfg = cfg.replace(loop_closure={
+                "scans_of_each_keyframe": 12, "scans_between_two_keyframe": 6,
+                "minimum_keyframe_differen": 2, "avail_ratio_plane": 0.005,
+                "avail_ratio_line": 0.0})
+            kw = dict(kw, frames=40, noise=0.005)
+            kw.pop("scene")
+            kw.pop("scene_kind")
     return cfg, kw
 
 
 def simulators(cfg: SlamConfig, kw: Dict):
     """One simulator a head (``kw['sensors']``, default 1), seeded 0, 1,
-    ...: each with its own scene from that seed, all on one trajectory
-    whose standstill ramp covers the init-accumulation window."""
-    import numpy as np
-
+    ...: each with its own scene from that seed (``scene_kind`` "rich":
+    the orientation-rich world, else a room), all on one trajectory
+    (``traj`` overrides its fields) whose standstill ramp covers the
+    init-accumulation window."""
     from ..io.simulator import ConvexScene, LivoxSimulator, SimConfig, Trajectory
 
+    make_scene = (ConvexScene.random_rich_world if kw.get("scene_kind") == "rich"
+               else ConvexScene.random_room)
     sims = []
     for s in range(kw.get("sensors", 1)):
         rng = np.random.default_rng(s)
-        scene = ConvexScene.random_room(rng, **kw["scene"]) if "scene" in kw else None
+        scene = make_scene(rng, **kw["scene"]) if "scene" in kw else None
         traj = Trajectory(ramp_t0=0.1 * cfg.mapping.init_accumulate_frames + 0.2)
         traj.lin_amp = traj.lin_amp * kw.get("traj_scale", 1.0)
+        for attr, val in kw.get("traj", {}).items():
+            setattr(traj, attr, val)
         sims.append(LivoxSimulator(SimConfig(points_per_frame=kw["points"], seed=s,
                                              noise_std=kw.get("noise", 0.005)),
                                    scene=scene, traj=traj))
@@ -102,8 +131,6 @@ def multi_head_frame(pipe, parts) -> None:
     intensity, t0)``) through the multi-LiDAR front end, then each merged
     piece through the source voxel filter (at the merged capacities) and
     one odometry step."""
-    import numpy as np
-
     from ..core.types import to_device
     from ..frontend.multi import extract_multi_lidar
     from ..ops.voxel import voxel_downsample
@@ -131,12 +158,12 @@ def multi_head_frame(pipe, parts) -> None:
 def run_scenario(name: str, frames: int | None = None, small: bool = False,
                  overrides: Dict | None = None, device=None) -> Dict:
     """Run a scenario on the simulator; returns frames/s, aligned and raw
-    ATE and the accepted trajectory rows.  On the card unless ``device``
-    says otherwise."""
-    import numpy as np
-
+    ATE, the accepted trajectory rows, whether a loop closed and, when
+    one did, its payoff (`eval.loop_payoff.score_loop_payoff`).  On the
+    card unless ``device`` says otherwise."""
     from ..runtime.pipeline import OdometryPipeline
     from .ate import ate_rmse
+    from .loop_payoff import score_loop_payoff
 
     cfg, kw = scenario_config(name, small=small)
     if overrides:
@@ -154,6 +181,7 @@ def run_scenario(name: str, frames: int | None = None, small: bool = False,
     wall = time.perf_counter() - t0
     est = pipe.trajectory.positions_array()
     gt = np.stack([sims[0].gt_pose_at(t)[1] for t in pipe.trajectory.times])
+    closer = pipe.loop_closer
     return {
         "scenario": name,
         "frames": n,
@@ -162,4 +190,7 @@ def run_scenario(name: str, frames: int | None = None, small: bool = False,
         "ate_raw": ate_rmse(est, gt, align=False),
         "accepted": int(sum(pipe.trajectory.accepted)),
         "rows": len(est),
+        "loop_closed": bool(closer is not None and closer.closed),
+        "keyframes": len(closer.keyframes) if closer is not None else 0,
+        **score_loop_payoff(closer, pipe.trajectory.times, sims[0].gt_pose_at),
     }

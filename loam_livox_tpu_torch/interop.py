@@ -12,18 +12,27 @@ Python and numpy values (this module imports nothing of JAX).
   weights.  The JAX rng key has no counterpart (the draws cannot
   match): the port's generator starts from seed 0, as in a new state.
   A JAX cell map of one slot (its placeholder when nothing reads the
-  maps) becomes ``None``, the port's placeholder.
+  maps) becomes ``None``, the port's placeholder; so do the full-cloud
+  map ``cell_full.*`` and ``last_touched`` of a run without loop closure.
+* `loop_state_from_npz` reads the loop service's state as the JAX
+  package's ``runtime/checkpoint.save_loop_state`` writes it (one
+  ``.npz``: ``kf{i}_*`` keyframe records with descriptors and era
+  snapshots, ``wait{i}_*``, ``acc{i}_keys``, ``result_*`` and a JSON
+  ``meta_json``), with numpy alone.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+import json
+from typing import Any, Dict, List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
 from .core.config import SlamConfig, from_dict
 from .core.types import PointBatch
+from .loop.keyframe import KeyframeDescriptor
 from .map.cell_map import CellMap
+from .runtime.loop_service import KeyframeRecord, LoopClosureResult, _Accumulator, settle
 from .runtime.odometry import OdometryState
 
 #: the array fields of a cell map, as the JAX ``CellMap`` names them
@@ -62,6 +71,7 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         return (cell_map_from_numpy(fields, prefix, device)
                 if f"{prefix}.keys" in fields else None)
 
+    cell_full = cells("cell_full")
     return OdometryState(
         q_w=t("q_w"), t_w=t("t_w"),
         frame_count=int(fields["frame_count"]),
@@ -78,4 +88,64 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         map_corners=batch("map_corners"),
         map_surface=batch("map_surface"),
         rng=torch.Generator(device=device).manual_seed(0),
+        cell_full=cell_full,
+        last_touched=(t("last_touched", torch.bool) if cell_full is not None else None),
     )
+
+
+class LoopState(NamedTuple):
+    """The loop service's state as `loop_state_from_npz` reads it."""
+    keyframes: List[KeyframeRecord]
+    waiting: List[KeyframeRecord]      # completed, not yet analysed
+    updating: List[_Accumulator]       # open accumulators
+    closed: bool
+    dropped_keyframes: int
+    result: Optional[LoopClosureResult]
+
+
+def loop_state_from_npz(path: str, device) -> LoopState:
+    """The keyframe records (keys, poses, descriptors with the gates'
+    scalars settled on the host, era snapshots), the waiting records,
+    the accumulators and the result of a JAX ``save_loop_state`` file.
+    Tensors go to ``device``; snapshots stay host arrays, as the service
+    keeps them."""
+    z = np.load(path)
+    meta = json.loads(bytes(z["meta_json"]).decode())
+
+    def tensor(name, dtype):
+        return torch.as_tensor(np.asarray(z[name]), dtype=dtype).to(device)
+
+    def record(prefix: str) -> KeyframeRecord:
+        desc = None
+        if f"{prefix}_d_img_line" in z:
+            desc = settle(KeyframeDescriptor(**{
+                f: (tensor(f"{prefix}_d_{f}", torch.float32) if f.startswith(("img", "center"))
+                    else np.asarray(z[f"{prefix}_d_{f}"]))
+                for f in KeyframeDescriptor._fields}))
+
+        def snap(s):
+            key = f"{prefix}_{s}"
+            return np.asarray(z[key], np.float32) if key in z else None
+
+        return KeyframeRecord(
+            keys=tensor(f"{prefix}_keys", torch.int32), q=tensor(f"{prefix}_q", torch.float32),
+            t=tensor(f"{prefix}_t", torch.float32), ending_frame_idx=int(z[f"{prefix}_end"]),
+            descriptor=desc, snap_line=snap("snap_line"), snap_plane=snap("snap_plane"),
+            snap_full=snap("snap_full"))
+
+    updating = [_Accumulator(frame_keys=[tensor(f"acc{i}_keys", torch.int32)],
+                             frames=int(acc["frames"]))
+                for i, acc in enumerate(meta["updating"])] or [_Accumulator()]
+    result = None
+    if meta["result"] is not None:
+        r = meta["result"]
+        result = LoopClosureResult(
+            accepted=bool(r["accepted"]), his_idx=int(r["his_idx"]), cur_idx=int(r["cur_idx"]),
+            icp_score=float(r["icp_score"]),
+            q_opt=np.asarray(z["result_q_opt"]) if "result_q_opt" in z else None,
+            t_opt=np.asarray(z["result_t_opt"]) if "result_t_opt" in z else None)
+    return LoopState(
+        keyframes=[record(f"kf{i}") for i in range(int(meta["n_keyframes"]))],
+        waiting=[record(f"wait{i}") for i in range(int(meta["n_waiting"]))],
+        updating=updating, closed=bool(meta["closed"]),
+        dropped_keyframes=int(meta["dropped_keyframes"]), result=result)

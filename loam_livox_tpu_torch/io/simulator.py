@@ -141,6 +141,69 @@ class ConvexScene:
         refl = rng.uniform(0.5, 1.5, size=len(parts))
         return ConvexScene.from_parts(parts, refl)
 
+    @staticmethod
+    def rotated_box_planes(rng, center, size):
+        """Box at ``center`` with edge lengths ``size`` in a uniformly
+        random orientation (QR of a Gaussian)."""
+        Q, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        if np.linalg.det(Q) < 0:
+            Q[:, 0] *= -1
+        n = np.vstack([np.eye(3), -np.eye(3)]) @ Q.T
+        half = np.asarray(size) / 2
+        return n, np.concatenate([half, half]) + n @ np.asarray(center, np.float64)
+
+    @staticmethod
+    def rock_planes(rng, center, radius, n_faces=10):
+        """A convex "rock": ``n_faces`` half-spaces with random normals at
+        0.7-1.0 of ``radius`` from the centre, each face its own
+        orientation."""
+        n = rng.normal(size=(n_faces, 3))
+        n /= np.linalg.norm(n, axis=1, keepdims=True)
+        return n, radius * rng.uniform(0.7, 1.0, n_faces) + n @ np.asarray(center, np.float64)
+
+    @staticmethod
+    def random_rich_world(rng: np.random.Generator, half_extent: float = 14.0,
+                          half_extent_z: float = 3.0, n_rot_boxes: int = 14,
+                          n_rocks: int = 22, n_ridges: int = 10) -> "ConvexScene":
+        """Walls, randomly rotated boxes, faceted rocks and ridges: enough
+        distinct plane orientations a keyframe for the shipped 5 %
+        nonzero-bin gate of the loop-closure descriptors.  Draws from
+        ``rng`` in the JAX package's order, so one seed gives its world."""
+        e, ez, w = half_extent, half_extent_z, 0.5
+        walls = [
+            ([e, -e - w, -ez - w], [e + w, e + w, ez + w]),
+            ([-e - w, -e - w, -ez - w], [-e, e + w, ez + w]),
+            ([-e - w, e, -ez - w], [e + w, e + w, ez + w]),
+            ([-e - w, -e - w, -ez - w], [e + w, -e, ez + w]),
+            ([-e - w, -e - w, ez], [e + w, e + w, ez + w]),
+            ([-e - w, -e - w, -ez - w], [e + w, e + w, -ez]),
+        ]
+        parts = [ConvexScene.box_planes(lo, hi) for lo, hi in walls]
+
+        def clear_center(radius):
+            # a clearance bubble around the trajectory's region
+            while True:
+                c = rng.uniform(-0.85 * e, 0.85 * e, size=3)
+                if np.linalg.norm(c[:2]) > radius + 3.5:
+                    return c
+
+        for _ in range(n_rot_boxes):
+            c = clear_center(1.5)
+            c[2] = rng.uniform(-0.5 * ez, 0.3 * ez)
+            parts.append(ConvexScene.rotated_box_planes(rng, c, rng.uniform(0.8, 2.6, size=3)))
+        for _ in range(n_rocks):
+            c = clear_center(1.8)
+            c[2] = rng.uniform(-0.7 * ez, 0.1 * ez)
+            parts.append(ConvexScene.rock_planes(rng, c, rng.uniform(0.8, 1.8), n_faces=10))
+        for i in range(n_ridges):
+            x = rng.uniform(0.5 * e, 0.95 * e)
+            y = rng.uniform(-0.6 * e, 0.6 * e)
+            parts.append(ConvexScene.wedge_planes(
+                (x, y), -ez, ez, rng.uniform(1.0, 2.5), rng.uniform(10.0, 20.0),
+                rng.uniform(-25.0, 25.0), horizontal=bool(i % 2)))
+        refl = rng.uniform(0.5, 1.5, size=len(parts))
+        return ConvexScene.from_parts(parts, refl)
+
     def raycast(self, origins: np.ndarray, dirs: np.ndarray):
         """First-hit distances (N,) and object ids (N,); inf on a miss."""
         denom = np.einsum("nk,bpk->nbp", dirs, self.normals)

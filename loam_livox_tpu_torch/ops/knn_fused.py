@@ -25,6 +25,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..core import accounting
 from . import build
 from .knn import BIG, knn
 
@@ -33,7 +34,8 @@ MAX_K = 8
 MAX_LANES = 65535   # gridDim.y
 
 #: kernel launches since the last reset (read and reset by callers that
-#: check the main path went through the kernel)
+#: check the main path went through the kernel); launches inside
+#: `core.accounting.charged_to` count into that dict's "knn_fused" instead
 launches = 0
 
 
@@ -210,5 +212,9 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
             out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"knn_fused kernel launch failed: CUDA error {err}")
-        launches += 1
+        counts = accounting.charged()
+        if counts is None:
+            launches += 1
+        else:
+            counts["knn_fused"] = counts.get("knn_fused", 0) + 1
     return (out_d, out_i) if lane_axis else (out_d[0], out_i[0])

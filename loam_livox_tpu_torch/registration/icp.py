@@ -34,7 +34,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..core import se3
+from ..core import accounting, se3
 from ..core.config import SlamConfig
 from ..core.types import PointBatch, to_device
 from ..ops.knn_fused import build_ref_operand, knn_fused
@@ -46,7 +46,8 @@ from .gauss_newton import solve_two_phase
 CORNER_MIN_MAP_NUM = 0
 SURFACE_MIN_MAP_NUM = 50
 
-#: host reads of the early-exit flag since the last reset
+#: host reads of the early-exit flag since the last reset (the loop
+#: service's registrations count into its own tally, `core.accounting`)
 SYNCS = {"icp_exit": 0}
 
 
@@ -128,7 +129,7 @@ def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
         q_last_opt, t_last_opt = q_incre, t_incre
         active = run
         while loops < opt.icp_maximum_iteration:
-            SYNCS["icp_exit"] += 1
+            accounting.count(SYNCS, "icp_exit")
             if not bool(active.any()):
                 break
             qc = res.transform_points_incre(q_incre, t_incre, frame_corners.xyz,

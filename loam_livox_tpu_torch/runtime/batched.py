@@ -56,6 +56,7 @@ def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
         enabled, cfg, rng=state.rng)
 
     out = []
+    touched = None
     for k, frame in enumerate(frames):
         reg = lane(regs, k)
         # a rejected lane freezes at the last committed pose, not at its
@@ -65,5 +66,10 @@ def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
                            t_w=torch.where(rejected, state.t_w, reg.t_w))
         state, reg = commit_frame(state, frame, *inputs[k], reg, cfg,
                                   q_base=q_inits[k], t_base=t_inits[k])
+        if state.last_touched is not None:
+            touched = (state.last_touched if touched is None
+                       else touched | state.last_touched)
         out.append(reg)
-    return state, out, loops
+    # the loop service takes one entry a group: every lane's touched cells
+    # (the JAX package's touched_any), not only the last commit's
+    return state._replace(last_touched=touched), out, loops

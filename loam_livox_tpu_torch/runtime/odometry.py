@@ -12,6 +12,9 @@
   are voxel-filtered again before they enter the history ring
   (:1422-1437), gated on motion and the window size (:1444-1487), and,
   in cell matching mode, the corner and plane cell maps (:1491-1493);
+* with loop closure on, the registered full cloud goes to the world
+  frame with deblur and into the full-cloud cell map, whose cells that
+  took at least 3 points form the keyframes (:1526-1530);
 * the matching buffer (:460-566) is, in history mode
   (``mapping/matching_mode`` 0), the voxel-filtered history window; in
   cell mode (1), the voxel-filtered pools of the cells within the
@@ -20,8 +23,11 @@
 
 The state carries only what the ported paths read.  The feature cell
 maps are ``None`` unless cell matching is on (the JAX package keeps
-1-slot dummies then); the full-cloud cell map and the touched-cell mask
-of loop closure and the bucket grids of the grid engine are not ported.
+1-slot dummies then, and keeps the maps with loop closure on, where
+nothing reads them in history matching); the full-cloud cell map
+``cell_full`` and its touched-cell mask ``last_touched`` are ``None``
+unless loop closure is on.  The bucket grids of the grid engine are not
+ported.
 In place of the JAX rng key the state carries a ``torch.Generator`` on
 the device, which draws the uniforms of residual subsampling
 (``optimization/subsample_residuals``); its draws cannot match JAX's.
@@ -71,6 +77,8 @@ class OdometryState(NamedTuple):
     map_corners: PointBatch         # matching buffer
     map_surface: PointBatch
     rng: torch.Generator            # residual subsampling draws
+    cell_full: CellMap | None = None          # full-cloud cell map (loop closure)
+    last_touched: torch.Tensor | None = None  # (C,) cells this frame gave >= 3 points
 
 
 def init_state(cfg: SlamConfig, device) -> OdometryState:
@@ -79,12 +87,13 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
     w = caps.history_window
     f32 = dict(dtype=torch.float32, device=device)
 
-    def cells():
-        if cfg.mapping.matching_mode != 1:
+    def cells(on: bool):
+        if not on:
             return None
         return empty_cell_map(cfg.mapping.cell_resolution * 0.5, caps.cell_capacity,
                               caps.cell_point_capacity, device)
 
+    loop = bool(cfg.loop_closure.if_enable_loop_closure)
     return OdometryState(
         q_w=se3.quat_identity(device=device),
         t_w=torch.zeros(3, **f32),
@@ -101,11 +110,14 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         last_his_t=torch.zeros(3, **f32),
         last_q_incre=se3.quat_identity(device=device),
         last_t_incre=torch.zeros(3, **f32),
-        cell_corners=cells(),
-        cell_planes=cells(),
+        cell_corners=cells(cfg.mapping.matching_mode == 1),
+        cell_planes=cells(cfg.mapping.matching_mode == 1),
         map_corners=PointBatch.empty(caps.map_corner_capacity, device),
         map_surface=PointBatch.empty(caps.map_surf_capacity, device),
         rng=torch.Generator(device=device).manual_seed(0),
+        cell_full=cells(loop),
+        last_touched=(torch.zeros((caps.cell_capacity,), dtype=torch.bool, device=device)
+                      if loop else None),
     )
 
 
@@ -247,6 +259,19 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     new = state._replace(q_w=reg.q_w, t_w=reg.t_w,
                          frame_count=state.frame_count + 1,
                          last_q_incre=last_q_incre, last_t_incre=last_t_incre)
+    # the full-cloud cell map of loop closure (reference :1526-1530)
+    if state.cell_full is not None:
+        if admit:
+            s = refine_blur(frame.full.time, frame.time_min, frame.time_max, deblur)
+            full_w = frame.full._replace(xyz=res.transform_points_incre(
+                reg.q_incre, reg.t_incre, frame.full.xyz, s, q_base, t_base, deblur))
+            cell_full, touched = append_cloud(state.cell_full, full_w,
+                                              cfg.common.threshold_cell_revisit,
+                                              caps.cell_max_new_per_frame)
+        else:
+            cell_full = skip_frame(state.cell_full)
+            touched = torch.zeros_like(state.last_touched)
+        new = new._replace(cell_full=cell_full, last_touched=touched)
     # The cell maps count every frame (the JAX step appends each frame
     # with an admit-gated mask), so a frame that is not admitted still
     # moves their frame index.

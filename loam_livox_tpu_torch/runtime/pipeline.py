@@ -26,6 +26,14 @@ Three ways to dispatch, as in the JAX package's pipeline:
   more than ``common/maximum_parallel_thread`` are queued, so the guard
   sees motion up to that many groups old.
 
+With ``loop_closure/if_enable_loop_closure`` the full-cloud cell map, a
+touched-cell mask and the pose go to `runtime.loop_service.LoopCloser`
+as they are dispatched, still on the device, in the JAX package's units:
+a raw frame (its last piece's mask), a chunk, or a raced group (the OR
+of its frames' or lanes' masks, slot by slot), each indexed by its first
+raw frame, so keyframes count those units; `flush` waits for the
+service.
+
 The entry points (`OdometryPipeline`, `run_odometry`) run on the card
 unless the caller passes ``device="cpu"``; without a card and without
 that argument they raise.  The trajectory has one row per registered
@@ -51,6 +59,11 @@ Host-sync audit (the input to a CUDA-graph port):
                                             groups drained past the queue    fallback frame) past
                                             depth, for the motion guard      the queue depth
 
+The loop service adds no read on the frame thread in async mode: a
+keyframe's member keys are united on the device, and the worker's reads
+(and, inline, the service's reads on the frame thread) count in
+``LoopCloser.counts``, not here.
+
 Everything else stays on the device: the raw frame and the split table
 go up through pinned memory without blocking, the kNN kernel reads its
 valid-prefix counts from device memory, and the solver's accept/reject
@@ -70,7 +83,7 @@ import numpy as np
 import torch
 
 from ..core.config import SlamConfig, require_supported
-from ..core.types import FeatureFrame, to_device
+from ..core.types import FeatureFrame, resolve_device, to_device
 from ..frontend import livox
 from ..frontend.velodyne import extract_velodyne_features
 from ..io.simulator import LivoxSimulator
@@ -78,6 +91,7 @@ from ..ops.voxel import voxel_downsample
 from ..registration import icp
 from . import odometry
 from .batched import odometry_step_batched
+from .loop_service import LoopCloser
 from .odometry import OdometryState, init_state, odometry_step
 
 #: host reads of drained racing groups since the last reset
@@ -94,16 +108,6 @@ def reset_host_syncs() -> None:
     for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS, SYNCS):
         for key in counts:
             counts[key] = 0
-
-
-def resolve_device(device=None) -> torch.device:
-    """The card by default; the CPU only when asked for."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "no CUDA device: pass device='cpu' to run on the CPU")
-        device = "cuda"
-    return torch.device(device)
 
 
 def source_downsample(frame: FeatureFrame, cfg: SlamConfig) -> FeatureFrame:
@@ -222,6 +226,10 @@ class OdometryPipeline:
         self.raced_groups = 0
         self.raced_loop_iterations = 0    # the batched loops' share
         self.fallback_groups = 0
+        self._frame_idx = 0               # raw frames run
+        self.loop_closer: Optional[LoopCloser] = None
+        if cfg.loop_closure.if_enable_loop_closure:
+            self.loop_closer = LoopCloser(cfg, device=self.device)
 
     def process_raw(self, xyz, intensity, base_time: float, mask=None) -> None:
         """One raw sensor frame: (N, 3) points and (N,) intensities as
@@ -254,12 +262,24 @@ class OdometryPipeline:
                 self._dispatch_chunk()
         else:
             self._run_frame(*frame)
+            self._feed_loop(1)
 
     def _run_frame(self, pts, inten, mask, base_time: float) -> None:
         self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
                                                      base_time, self.cfg)
         self.loop_iterations += sum(r.iterations for r in regs)
         self._pending.append(trajectory_rows(regs, frames))
+
+    def _feed_loop(self, n_frames: int) -> None:
+        """Hand the loop service the state's touched cells and pose, still
+        on the device, as one entry for the ``n_frames`` raw frames just
+        run (the JAX package parks one entry a frame, a chunk or a raced
+        group, indexed by its first frame); then count the frames."""
+        if self.loop_closer is not None and not self.loop_closer.closed:
+            st = self.state
+            self.loop_closer.on_frame(st.cell_full, st.last_touched, st.q_w, st.t_w,
+                                      self._frame_idx)
+        self._frame_idx += n_frames
 
     def process_feature_frame(self, frame: FeatureFrame) -> None:
         """One odometry step on a finished feature frame (a multi-head
@@ -271,9 +291,17 @@ class OdometryPipeline:
         self._pending.append(trajectory_rows([reg], [frame]))
 
     def _dispatch_chunk(self) -> None:
+        """The buffered raw frames back to back; the loop service gets one
+        entry with the OR of their touched masks (the JAX package's chunk
+        scan, runtime/pipeline.py:162-178)."""
         buf, self._buf = self._buf, []
+        touched = None          # stays None without loop closure
         for frame in buf:
             self._run_frame(*frame)
+            mask = self.state.last_touched
+            touched = mask if touched is None else touched | mask
+        self.state = self.state._replace(last_touched=touched)
+        self._feed_loop(len(buf))
 
     def _dispatch_group(self) -> None:
         """The buffered raw frames as one racing group, or sequentially
@@ -284,6 +312,7 @@ class OdometryPipeline:
             self.fallback_groups += 1
             for frame in buf:
                 self._run_frame(*frame)
+                self._feed_loop(1)
             return
         self.raced_groups += 1
         frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg)]
@@ -291,6 +320,7 @@ class OdometryPipeline:
         self.loop_iterations += loops
         self.raced_loop_iterations += loops
         self._pending.append(trajectory_rows(regs, frames))
+        self._feed_loop(len(buf))
 
     def _drain(self, count: int) -> None:
         """Read the oldest ``count`` queued entries on the host (one
@@ -323,6 +353,36 @@ class OdometryPipeline:
             else:
                 self._dispatch_chunk()
         self._drain(len(self._pending))
+        if self.loop_closer is not None:
+            # every queued keyframe processed before the loop output is read
+            self.loop_closer.drain()
+
+    def get_corrected_map(self, stride: int = 2, resolution: float = 0.0) -> np.ndarray:
+        """The corrected global map after an accepted loop closure (the
+        reference's /pc_aft_loop_closure, laser_mapping.hpp:1091-1100);
+        raises if no loop was accepted."""
+        if self.loop_closer is None or self.loop_closer.result is None:
+            raise RuntimeError("no accepted loop closure to refine from")
+        return self.loop_closer.corrected_map(self.state.cell_full, stride=stride,
+                                              resolution=resolution)
+
+    def get_surround_map(self, radius: float | None = None) -> np.ndarray:
+        """The map around the current pose (the reference's surround
+        publisher, `service_pub_surround_pts`, laser_mapping.hpp:1151-1201):
+        the full-cloud cells within ``radius`` when loop closure keeps
+        them, else the surface matching buffer, voxel-filtered at
+        ``surround_pointcloud_resolution``.  Returns (N, 3) float32."""
+        from ..map.cell_map import cells_in_radius, gather_cell_points
+
+        mp = self.cfg.mapping
+        radius = radius or max(mp.maximum_search_range_surface, 100.0)
+        st = self.state
+        if st.cell_full is not None:
+            batch = gather_cell_points(st.cell_full, cells_in_radius(st.cell_full, st.t_w, radius))
+        else:
+            batch = st.map_surface
+        ds = voxel_downsample(batch, mp.surround_pointcloud_resolution)
+        return ds.xyz[ds.mask].cpu().numpy()
 
 
 def run_odometry(cfg: SlamConfig, n_frames: int,

@@ -320,3 +320,209 @@ def test_velodyne_extraction_equals_cpu(cuda, pillar):
         torch.testing.assert_close(c.xyz.cpu(), h.xyz, **tol)
         torch.testing.assert_close(c.time.cpu(), h.time, rtol=1e-6, atol=0)
     assert int(host.surface.mask.sum()) > 100
+
+
+# ------------------------------------------------------------ loop closure --
+
+def plane_line_world(seed, n_planes=8, n_lines=6, pts_per=250):
+    """Points on planes and lines of distinct orientations, ~4 × 4 cells
+    each at 0.5 m (the structured world of tests/test_loop.py)."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for _ in range(n_planes):
+        normal = rng.normal(size=3)
+        normal /= np.linalg.norm(normal)
+        u = np.cross(normal, [1, 0.3, 0.2])
+        u /= np.linalg.norm(u)
+        v = np.cross(normal, u)
+        c = rng.uniform(-6, 6, 3)
+        ab = rng.uniform(-1.1, 1.1, (pts_per, 2))
+        pts.append(c + ab[:, :1] * u + ab[:, 1:] * v + rng.normal(scale=1e-3, size=(pts_per, 3)))
+    for _ in range(n_lines):
+        d = rng.normal(size=3)
+        d /= np.linalg.norm(d)
+        c = rng.uniform(-6, 6, 3)
+        pts.append(c + rng.uniform(-1.2, 1.2, (pts_per, 1)) * d
+                   + rng.normal(scale=2e-3, size=(pts_per, 3)))
+    pts = np.concatenate(pts).astype(np.float32)
+    xyz = np.zeros((4096, 3), np.float32)
+    xyz[:len(pts)] = pts
+    mask = np.zeros(4096, bool)
+    mask[:len(pts)] = True
+    batch = PointBatch(torch.from_numpy(xyz), torch.zeros(4096), torch.from_numpy(mask))
+    return cm.append_cloud(cm.empty_cell_map(0.5, 2048, 64), batch, 10 ** 9, max_new=2048)[0]
+
+
+def map_to(m, device):
+    return m._replace(**{f: getattr(m, f).to(device) for f in cm.CellMap._fields[1:-1]})
+
+
+def test_full_map_insertion_equals_cpu(cuda):
+    """The odometry step's full-cloud cell map and touched mask on the
+    card, bit for bit, over two admitted frames and one that is not
+    (identity rotations, so both devices insert the same world points)."""
+    from loam_livox_tpu_torch.core.types import FeatureFrame
+    from loam_livox_tpu_torch.registration.icp import RegistrationResult
+    from loam_livox_tpu_torch.runtime.odometry import commit_frame, init_state
+
+    cfg = SlamConfig().replace(
+        common={"if_motion_deblur": 0, "threshold_cell_revisit": 1},
+        capacity={"cell_capacity": 2048, "cell_point_capacity": 16,
+                  "map_corner_capacity": 1024, "map_surf_capacity": 4096},
+        loop_closure={"if_enable_loop_closure": 1, "if_loop_service_async": 0})
+    rng = np.random.default_rng(31)
+
+    def batch(n, cap):
+        xyz = np.zeros((cap, 3), np.float32)
+        xyz[:n] = rng.uniform(-8, 8, (n, 3))
+        mask = np.arange(cap) < n
+        return PointBatch(torch.from_numpy(xyz), torch.zeros(cap), torch.from_numpy(mask))
+
+    states = {"cpu": init_state(cfg, "cpu"), "card": init_state(cfg, cuda)}
+    for step, accepted in enumerate((True, True, False)):
+        frame = FeatureFrame(batch(200, 512), batch(900, 2048), batch(6000, 16384),
+                             torch.tensor(0.1 * step), torch.tensor(0.1 * step + 0.1))
+        one = torch.ones(())
+        reg = RegistrationResult(
+            q_w=torch.tensor([1.0, 0, 0, 0]), t_w=torch.tensor([0.3 * step, -0.2, 0.1]),
+            q_incre=torch.tensor([1.0, 0, 0, 0]), t_incre=torch.tensor([0.3, -0.2, 0.1]),
+            accepted=torch.tensor(accepted), enabled=torch.tensor(True), final_cost=one,
+            gate_cost=one, inlier_threshold=one, angular_diff_deg=one, t_diff=one,
+            n_blocks=torch.tensor(100), iterations=3)
+        for key, dev in (("cpu", "cpu"), ("card", cuda)):
+            def to(x, dev=dev):
+                return (type(x)(*(to(y) for y in x)) if isinstance(x, tuple)
+                        else x.to(dev) if isinstance(x, torch.Tensor) else x)
+            fr = to(frame)
+            states[key], _ = commit_frame(states[key], fr, fr.corners, fr.surface, to(reg), cfg)
+        host, card = states["cpu"].cell_full, states["card"].cell_full
+        assert card.frame_idx == host.frame_idx == step + 1
+        for name in cm.CellMap._fields[1:-1]:
+            assert torch.equal(getattr(card, name).cpu(), getattr(host, name)), name
+        touched = states["card"].last_touched.cpu()
+        assert torch.equal(touched, states["cpu"].last_touched)
+        assert bool(touched.any()) == accepted
+    assert int(host.n_cells()) > 500
+
+
+@pytest.mark.parametrize("seed", [1, 2, 3])
+def test_descriptor_and_similarity_equal_cpu(cuda, seed):
+    """On the CPU's cell features the card's descriptor equals the CPU's
+    (counts, centre and ROI range within 1e-5, images within 1e-5: the
+    canonical rotation's 3 × 3 solve runs on the host for both); on its
+    own features the counts agree and the images correlate; the
+    similarity of two images agrees within 1e-4 (cuDNN picks its own
+    algorithm for the 60 × 60 correlation, whose f32 sums over 3,600
+    products then run in another order: 3.1e-5 measured on an H100)."""
+    from loam_livox_tpu_torch.loop import keyframe as kfm
+
+    host = plane_line_world(seed)
+    card = map_to(host, cuda)
+    feats = cm.cell_features(host)
+    real = kfm.cell_features
+    try:
+        kfm.cell_features = lambda m, incremental=True: (
+            feats if m.keys.device.type == "cpu" else cm.CellFeatures(*(x.to(cuda) for x in feats)))
+        dh = kfm.describe_keyframe(host, host.valid())
+        dc = kfm.describe_keyframe(card, card.valid())
+    finally:
+        kfm.cell_features = real
+    for f in kfm.KeyframeDescriptor._fields:
+        a, b = getattr(dc, f).cpu().double(), getattr(dh, f).double()
+        assert (a - b).abs().max() <= 1e-5, f
+    own = kfm.describe_keyframe(card, card.valid())
+    ref = kfm.describe_keyframe(host, host.valid())
+    assert int(own.n_cells) == int(ref.n_cells)
+    for f in ("img_plane", "img_line"):
+        assert float(kfm.max_similarity(getattr(own, f).cpu(), getattr(ref, f))) > 0.98, f
+        s_card = float(kfm.max_similarity(getattr(dc, f), getattr(own, f)))
+        s_host = float(kfm.max_similarity(getattr(dh, f), getattr(own, f).cpu()))
+        assert abs(s_card - s_host) < 1e-4, f
+
+
+def drifted_loop_graph(device, n=12, drift=0.3):
+    from loam_livox_tpu_torch.core import se3
+    from loam_livox_tpu_torch.loop import pose_graph as pg
+
+    ang = 2 * np.pi * np.arange(n) / n
+    q = np.stack([np.cos(ang / 2), 0 * ang, 0 * ang, np.sin(ang / 2)], 1).astype(np.float32)
+    t = (np.stack([np.cos(ang) - 1, np.sin(ang), 0 * ang], 1) * 3).astype(np.float32)
+    est = t + np.linspace(0, drift, n)[:, None] * np.array([1, 0.5, 0.2], np.float32)
+    gq, gt = torch.from_numpy(q).to(device), torch.from_numpy(t).to(device)
+    g = pg.build_odometry_chain(gq, gt, capacity_edges=n)._replace(
+        t=torch.from_numpy(est.astype(np.float32)).to(device))
+    qi = se3.quat_conjugate(gq[-1])
+    return pg.add_loop_edge(g, n - 1, n - 1, 0, se3.quat_multiply(qi, gq[0]),
+                            se3.quat_rotate(qi, gt[0] - gt[-1]))
+
+
+@pytest.mark.parametrize("solver", ["optimize_pose_graph", "optimize_pose_graph_cg",
+                                    "optimize_pose_graph_chain"])
+def test_pose_graph_solve_equals_cpu(cuda, solver):
+    from loam_livox_tpu_torch.loop import pose_graph as pg
+
+    qc, tc, cost = getattr(pg, solver)(drifted_loop_graph(cuda))
+    qh, th, _ = getattr(pg, solver)(drifted_loop_graph("cpu"))
+    torch.testing.assert_close(qc.cpu(), qh, rtol=0, atol=1e-4)
+    torch.testing.assert_close(tc.cpu(), th, rtol=0, atol=1e-4)
+    assert float(cost) < 1e-5
+
+
+def test_kernel_equals_plain_at_scene_alignment_shape(cuda):
+    """The scene alignment's plane search at its finest scale: 8,192
+    queries (keyframe 0's plane snapshot of the unscaled artifact at the
+    0.1 m leaf, the historical side) against 8,192 voxel-sorted rows
+    (keyframe 19's, the current side), within √50 m."""
+    from loam_livox_tpu_torch.interop import loop_state_from_npz
+
+    saved = loop_state_from_npz("scripts/loop_unscaled_state.npz", "cpu")
+
+    def filtered(xyz):
+        pts = torch.from_numpy(xyz).to(cuda)
+        b = PointBatch(pts, torch.zeros(len(xyz), device=cuda),
+                       torch.ones(len(xyz), dtype=torch.bool, device=cuda))
+        return voxel_downsample(b, 0.1, capacity=8192)
+
+    q = filtered(saved.keyframes[0].snap_plane)
+    ref = filtered(saved.keyframes[19].snap_plane)
+    n_q = q.mask.sum(dtype=torch.int32)
+    assert int(n_q) == 8192 and int(ref.mask.sum()) == 8192
+    d, i = kf.knn_fused(q.xyz, ref.xyz, ref.mask, k=5, query_count=n_q,
+                        max_radius=50.0 ** 0.5)
+    dp, ip = knn(q.xyz, ref.xyz, ref.mask, k=5, query_count=n_q, max_radius=50.0 ** 0.5)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+
+
+def test_async_service_on_the_card_equals_inline_cpu(cuda):
+    """The loop service's worker on its own CUDA stream: the same
+    keyframes (keys, descriptor counts, snapshots) as the inline service
+    on the CPU, its launches counted apart from the frame path's."""
+    from loam_livox_tpu_torch.runtime.loop_service import LoopCloser
+
+    host = plane_line_world(5)
+    card = map_to(host, cuda)
+    touched = host.valid()
+    lc = {"if_enable_loop_closure": 1, "scans_of_each_keyframe": 3,
+          "scans_between_two_keyframe": 1, "minimum_keyframe_differen": 4,
+          "avail_ratio_plane": 0.001, "avail_ratio_line": 0.0}
+    svc_h = LoopCloser(SlamConfig().replace(loop_closure={**lc, "if_loop_service_async": 0}),
+                       device="cpu")
+    svc_c = LoopCloser(SlamConfig().replace(loop_closure={**lc, "if_loop_service_async": 1}),
+                       device=cuda)
+    before = kf.launches
+    for i in range(12):
+        ang = 2 * np.pi * i / 12
+        q = torch.tensor([np.cos(ang / 2), 0, 0, np.sin(ang / 2)], dtype=torch.float32)
+        t = torch.tensor([np.cos(ang) - 1, np.sin(ang), 0.0], dtype=torch.float32) * 2 \
+            + 0.25 * i / 12
+        svc_h.on_frame(host, touched, q, t, i)
+        svc_c.on_frame(card, touched.to(cuda), q.to(cuda), t.to(cuda), i)
+    svc_c.drain(timeout=300.0)
+    assert kf.launches == before            # the worker's launches count apart
+    assert svc_c.closed == svc_h.closed and svc_c.counts["knn_fused"] > 0
+    for a, b in zip(svc_c.keyframes, svc_h.keyframes):
+        assert torch.equal(a.keys.cpu(), b.keys)
+        assert a.descriptor.n_cells == b.descriptor.n_cells
+        assert a.snap_full.shape == b.snap_full.shape
+    assert [e["stage"] for e in svc_c.gate_trace] == [e["stage"] for e in svc_h.gate_trace]
+    svc_c.shutdown()

@@ -1,13 +1,15 @@
 """The port's scenario runner (``loam_livox_tpu_torch.eval.scenarios``)
-against the JAX package's: the ported scenarios' configurations field
-for field, the unported one refused by ROADMAP item, and the
-``odometry_only`` CI variant on the CPU under its golden
-(tests/test_scenarios_ci.py:21).  The ``full_mapping`` and
-``mid100_trilidar`` streams are in tests/test_torch_full_mapping.py and
-tests/test_torch_multi.py.
+against the JAX package's: the scenarios' configurations field for
+field, an unported option of the loop scenario refused by ROADMAP
+item, and the ``odometry_only`` CI variant on the CPU under its golden
+(tests/test_scenarios_ci.py:21).  The ``full_mapping``,
+``mid100_trilidar`` and ``loop_closure`` streams are in
+tests/test_torch_full_mapping.py, tests/test_torch_multi.py and
+tests/test_torch_loop_closure.py.
 """
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -20,19 +22,26 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("small", [False, True])
 @pytest.mark.parametrize("name", ["odometry_only", "largescale_realtime", "full_mapping",
-                                  "mid100_trilidar"])
+                                  "mid100_trilidar", "loop_closure"])
 def test_scenario_configs_match_jax(name, small):
     jcfg, jkw = jscenarios.scenario_config(name, small=small)
     tcfg, tkw = tscenarios.scenario_config(name, small=small)
     assert dataclasses.asdict(tcfg) == dataclasses.asdict(jcfg)
+    jtraj, ttraj = jkw.pop("traj", {}), tkw.pop("traj", {})
     assert tkw == jkw
+    assert set(ttraj) == set(jtraj)
+    for key, val in jtraj.items():
+        np.testing.assert_array_equal(ttraj[key], val)
     assert tscenarios.SMALL_CAPS == jscenarios.SMALL_CAPS
 
 
-@pytest.mark.parametrize("name, item", [("loop_closure", 12)])
+@pytest.mark.parametrize("name, item", [("loop_closure", 13)])
 def test_unported_scenarios_raise(name, item):
+    """Every scenario is ported; the loop scenario with the service's
+    keyframe dumps waits for the host side."""
     with pytest.raises(NotImplementedError, match=f"item {item} "):
-        tscenarios.run_scenario(name, small=True, device="cpu")
+        tscenarios.run_scenario(name, small=True, device="cpu",
+                                overrides={"loop_closure": {"if_dump_keyframe_data": 1}})
     assert name in tscenarios.SCENARIOS
 
 
