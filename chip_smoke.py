@@ -8,7 +8,8 @@ Phases, each printing JSON lines; any failure exits nonzero:
 1. card       the GPU's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the paths, from ``csrc/`` (one nvcc
               per source, all started together), with ptxas's registers
-              and spills;
+              and spills; and the native I/O library (host code,
+              ``native/native_io.cpp`` with g++) into the same ``_build/``;
 3. kernel     each kernel against its plain PyTorch version at the
               paths' shapes (corners 512 x 16,384 within sqrt(2) m;
               surfaces 2,048 x 65,536 within sqrt(50) m; full buffers,
@@ -73,9 +74,26 @@ Phases, each printing JSON lines; any failure exits nonzero:
               odometry's and the loop's kernel launches apart, and the
               card's eigh against the host's on the run's own rotations
               (aligned ATE < 0.45 m and the loop closed, or it fails);
-7. scenario   ``run_scenario("largescale_realtime", small=True)`` under
+7. cli        the command line on the card (``python -m
+              loam_livox_tpu_torch.cli.run_odometry``, a child process):
+              40 simulator frames (seed 0, 10,000 points) written as a
+              Livox CustomMsg bag (bz2), replayed at the default
+              (precision) profile with registration after 10 frames, with
+              ``--loop-closure``, ``--follow``, ``--save-poses``,
+              ``--save-map`` and ``--log-dir``: frames/s, registrations/s, aligned ATE (<
+              0.35 m), accepted rows (>= half), host syncs a frame by
+              place (``drain`` and ``log`` included); the follow lines
+              equal the pose file, one ``mapping`` line a raw frame, the
+              plane cell map loads back with cells in it.  Then, in this process, resume on the
+              card: 40 frames straight, saved after 20; `load_pipeline`
+              and the last 20 again, bit-equal (rows and state tensors);
+              the loop
+              artifact's dumps (written by the replays of phase 3) on the
+              card against the CPU's, and the card's service through
+              `save_loop_state` / `load_loop_state` with equal values;
+8. scenario   ``run_scenario("largescale_realtime", small=True)`` under
               its golden (aligned ATE < 1.30 m, >= 12 accepted);
-8. kernels    one line listing every kernel: launches on the main path
+9. kernels    one line listing every kernel: launches on the main path
               (and on each path), its time, the plain version's, the
               bound and the yardstick on the main path's buffer, the
               lane axis's on the racing path's, and its time on the
@@ -91,6 +109,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -412,6 +431,7 @@ AUDIT_FILES = {
     "icp_exit": "loam_livox_tpu_torch/registration/icp.py",
     "admit": "loam_livox_tpu_torch/runtime/odometry.py",
     "drain": "loam_livox_tpu_torch/runtime/pipeline.py",
+    "log": "loam_livox_tpu_torch/runtime/pipeline.py",
 }
 
 
@@ -439,7 +459,10 @@ def sync_check(label, pipe, frames):
     by_file = collections.Counter()
     for line, count in where.items():
         by_file[line.rsplit(":", 1)[0]] += count
-    expected = collections.Counter({AUDIT_FILES[k]: v for k, v in audit.items() if v})
+    expected = collections.Counter()
+    for k, v in audit.items():
+        expected[AUDIT_FILES[k]] += v
+    expected = +expected
     n = len(frames)
     emit("sync_check", path=label, frames=n, counted_per_frame=sum(audit.values()) / n,
          torch_sync_warnings_per_frame=sum(where.values()) / n,
@@ -544,15 +567,17 @@ def artifact_config(C):
         capacity={"cell_capacity": 16384})
 
 
-def replay_artifact(C, device):
+def replay_artifact(C, device, dump_dir=None):
     """The artifact's 20 keyframes one at a time through a fresh
-    `LoopCloser`'s gate scan on ``device``; returns the service."""
+    `LoopCloser`'s gate scan on ``device``, writing its alignment pairs
+    and the loop's files to ``dump_dir``; returns the service."""
     from loam_livox_tpu_torch.core import accounting
     from loam_livox_tpu_torch.interop import loop_state_from_npz
     from loam_livox_tpu_torch.runtime.loop_service import LoopCloser
 
     saved = loop_state_from_npz(ARTIFACT, device)
-    closer = LoopCloser(artifact_config(C), device=device)
+    cfg = artifact_config(C).replace(loop_closure={"map_alignment_if_dump_matching_result": 1})
+    closer = LoopCloser(cfg, device=device, dump_dir=dump_dir)
     with accounting.charged_to(closer.counts):
         for rec in saved.keyframes:
             closer.keyframes.append(rec)
@@ -781,6 +806,258 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
     return out
 
 
+def loop_fps_in_turns(host_frames, dev, card, rounds=2) -> dict:
+    """With ``--baseline``: the ``loop_closure`` path's frames/s, the
+    earlier checkout's package (loaded by `load_baseline`) against this
+    one's, in turns on this card: (baseline, this, this, baseline)
+    ``rounds`` times, after an untimed 20-frame run of each (library
+    loads, allocator growth).  Each package runs the scenario at its own
+    configuration on the same frames, padded on the card beforehand;
+    each run's time ends with a synchronisation after its flush."""
+    import importlib
+
+    import torch
+
+    def run(pkg, frames):
+        S = importlib.import_module(f"{pkg}.eval.scenarios")
+        Pk = importlib.import_module(f"{pkg}.runtime.pipeline")
+        cfg, _ = S.scenario_config("loop_closure")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        pipe = Pk.OdometryPipeline(cfg, device=dev)
+        feed(pipe, frames)
+        pipe.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        closer = pipe.loop_closer
+        row = {"package": pkg, "fps": len(frames) / wall, "wall_s": wall,
+               "accepted": int(sum(pipe.trajectory.accepted)), "loop_closed": closer.closed,
+               "feature_cell_maps": pipe.state.cell_planes is not None}
+        closer.shutdown()
+        return row
+
+    cfg, _ = importlib.import_module("loam_livox_tpu_torch.eval.scenarios").scenario_config(
+        "loop_closure")
+    frames = on_device(host_frames, cfg.capacity.max_raw_points, dev)
+    this, base = "loam_livox_tpu_torch", "baseline_port"
+    for pkg in (base, this):
+        run(pkg, frames[:20])
+    rows = [run(pkg, frames) for _ in range(rounds) for pkg in (base, this, this, base)]
+    fps = {k: [r["fps"] for r in rows if r["package"] == k] for k in (base, this)}
+    return {"frames": len(frames), "runs": rows,
+            "fps_mean": {k: float(np.mean(v)) for k, v in fps.items()},
+            "fps_spread": {k: float(np.ptp(v)) for k, v in fps.items()}, "card": card}
+
+
+def write_bag(path, n_frames, init):
+    """``n_frames`` simulator frames (seed 0, 10,000 points) as a Livox
+    CustomMsg bag in bz2 chunks (reflectivity 0-255, as a driver writes
+    it); returns the simulator for its ground truth."""
+    from loam_livox_tpu_torch.io.rosbag import BagWriter, encode_livox_custommsg
+
+    sim, frames = simulate(n_frames, 10000, init)
+    with BagWriter(path, compression="bz2") as w:
+        for xyz, inten, t0 in frames:
+            w.write("/livox/lidar", "livox_ros_driver/CustomMsg", t0,
+                    encode_livox_custommsg(t0, xyz, np.clip(inten * 255.0, 0, 255)))
+    return sim, frames
+
+
+def cli_phase(C, P, kf, dev, out_dir, card) -> int:
+    """The command line as a user runs it, in a child process on the card:
+    a 40-frame bag through the default (precision) profile with loop
+    closure on (so the state keeps the plane cell map that ``--save-map``
+    writes) and ``--follow``, a pose file, a map and logs.  Returns the kernel's
+    launches in the child, which counts from 0 and prints them in its
+    summary."""
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.io.serialization import load_cell_map_json, load_poses_txt
+
+    n, init = 40, 10
+    d = os.path.join(out_dir, "cli")
+    os.makedirs(d, exist_ok=True)
+    bag = os.path.join(d, "sim.bag")
+    sim, frames = write_bag(bag, n, init)
+    poses, mapf, logs = (os.path.join(d, x) for x in ("poses.txt", "map.json", "logs"))
+    cmd = [sys.executable, "-m", "loam_livox_tpu_torch.cli.run_odometry",
+           "--source", f"bag:{bag}", "--frames", str(n), "--save-poses", poses,
+           "--save-map", mapf, "--log-dir", logs, "--follow", "--quiet", "--loop-closure",
+           "--set", f"mapping/init_accumulate_frames={init}"]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=HERE, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the command line failed:\n{proc.stderr[-3000:]}")
+    out = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    summary, follow = out[-1], out[:-1]
+    est, q = load_poses_txt(poses)
+    # a row's time: its frame's start plus its piece's share of the 0.1 s
+    # frame (the pose file carries no stamps; pieces split the frame by index)
+    per = len(est) // n
+    times = [frames[i // per][2] + 0.1 * (i % per) / per for i in range(len(est))]
+    gt = np.stack([sim.gt_pose_at(t)[1] for t in times])
+    ate = ate_rmse(est, gt)
+    with open(os.path.join(logs, "mapping.log")) as f:
+        mapping_lines = len(f.read().splitlines())
+    cells = load_cell_map_json(mapf, device=dev)
+    follow_ok = (len(follow) == len(est)
+                 and np.allclose([f["t"] for f in follow], est, rtol=0, atol=1e-6)
+                 and np.allclose([f["q"] for f in follow], q, rtol=0, atol=1e-6))
+    syncs = summary["host_syncs"]
+    launches, passes = summary["knn_fused_launches"], summary["icp_loop_passes"]
+    emit("path", path="cli", command=" ".join(cmd[1:]), frames=summary["frames"],
+         rows=summary["steps"], fps=summary["fps"],
+         registrations_per_s=summary["steps"] / summary["wall_s"], wall_s=summary["wall_s"],
+         process_wall_s=wall, ate_aligned=ate, accepted=summary["accepted"],
+         host_syncs_per_frame=sum(syncs.values()) / n,
+         host_syncs={k: v / n for k, v in syncs.items()}, follow_lines=len(follow),
+         follow_equal_pose_file=follow_ok, mapping_lines=mapping_lines,
+         map_cells=int(cells.n_cells()), device=summary["device"], knn_fused_launches=launches,
+         loop_iterations=passes, card=card)
+    if not (summary["frames"] == n and follow_ok and ate < 0.35 and launches == 2 * passes > 0
+            and summary["accepted"] >= summary["steps"] // 2 and mapping_lines == n
+            and int(cells.n_cells()) > 0
+            and summary["device"].startswith("cuda") and syncs["drain"] == n
+            and syncs["log"] == n):
+        raise AssertionError(f"the command line's run is off: ATE {ate}, {summary}, "
+                             f"follow {follow_ok}, mapping lines {mapping_lines}, "
+                             f"map cells {int(cells.n_cells())}")
+    return launches
+
+
+def state_tensors(state) -> dict:
+    """Every field of an odometry state by dotted name (tensors, numbers,
+    the generator's state)."""
+    import torch
+
+    out = {}
+    for name in state._fields:
+        v = getattr(state, name)
+        if hasattr(v, "_fields"):
+            out.update({f"{name}.{f}": getattr(v, f) for f in v._fields})
+        elif isinstance(v, torch.Generator):
+            out[name] = v.get_state()
+        else:
+            out[name] = v
+    return out
+
+
+def resume_phase(C, dev, out_dir, card) -> None:
+    """Resume on the card (precision profile, default capacities): 40
+    frames straight, checkpointed with `save_pipeline` after 20 (which
+    flushes, as the split run must), against a new pipeline from
+    `load_pipeline` fed the last 20: every trajectory row of those 20
+    frames and every state tensor at the end bit-equal."""
+    import torch
+
+    from loam_livox_tpu_torch.runtime.checkpoint import load_pipeline, save_pipeline
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = C.precision_profile().replace(mapping={"init_accumulate_frames": 10})
+    _, frames = simulate(40, 10000, 10)
+    t0 = time.perf_counter()
+    whole = OdometryPipeline(cfg, device=dev)
+    feed(whole, frames[:20])
+    ckpt = os.path.join(out_dir, "resume_ckpt")
+    save_pipeline(whole, ckpt)
+    split_rows = len(whole.trajectory.times)
+    feed(whole, frames[20:])
+    whole.flush()
+    second = load_pipeline(ckpt, cfg, device=dev)
+    feed(second, frames[20:])
+    second.flush()
+    torch.cuda.synchronize()
+    keys = ("times", "positions", "quaternions", "accepted")
+    rows_equal = all(np.array_equal(np.asarray(getattr(second.trajectory, k)),
+                                    np.asarray(getattr(whole.trajectory, k)[split_rows:]))
+                     for k in keys)
+    a, b = state_tensors(second.state), state_tensors(whole.state)
+    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    rows = len(second.trajectory.times)
+    emit("resume", frames=40, split_at=20, rows_after_split=rows, rows_equal=rows_equal,
+         state_fields=len(a), state_fields_differing=differ,
+         accepted=int(sum(whole.trajectory.accepted)), seconds=time.perf_counter() - t0,
+         card=card)
+    if not (rows_equal and not differ and rows == 60 and split_rows == 60):
+        raise AssertionError(f"the resumed run departs from the straight one: {differ}")
+
+
+def loop_files_phase(C, dev, out_dir, card_closer, card) -> None:
+    """The artifact replay's dumps on the card against the CPU's (the same
+    files; keyframe clouds byte-equal; the moved cloud, the loop edge and
+    the optimised poses within 0.05 m and 0.01 of a quaternion, the
+    tolerance of the replayed solve in tests/test_torch_loop_replay.py;
+    the chain's edges within 1e-4), and the card's service through
+    `save_loop_state` / `load_loop_state` with equal values."""
+    import torch
+
+    from loam_livox_tpu_torch.io.serialization import load_g2o, load_pcd, load_poses_txt
+    from loam_livox_tpu_torch.runtime.checkpoint import load_loop_state, save_loop_state
+
+    g, c = (os.path.join(out_dir, f"loop_{w}") for w in ("gpu", "cpu"))
+    names = sorted(os.listdir(g))
+    problems = [] if names == sorted(os.listdir(c)) else ["file lists differ"]
+    pairs = sorted({x.split("_")[0] for x in names if x.endswith("_pair.json")})
+    worst = {"c_pcd_m": 0.0, "chain_edge": 0.0, "loop_edge": 0.0, "poses_opm": 0.0}
+    for i in pairs:
+        for s in ("a", "b"):
+            with open(os.path.join(g, f"{i}_{s}.pcd"), "rb") as f1, \
+                    open(os.path.join(c, f"{i}_{s}.pcd"), "rb") as f2:
+                if f1.read() != f2.read():
+                    problems.append(f"{i}_{s}.pcd differs")
+        a, b = load_pcd(os.path.join(g, f"{i}_c.pcd"))[0], load_pcd(os.path.join(c, f"{i}_c.pcd"))[0]
+        worst["c_pcd_m"] = max(worst["c_pcd_m"], float(np.abs(a - b).max()))
+    (tg, qg, eg), (tc, qc, ec) = (load_g2o(os.path.join(d, "loop.g2o")) for d in (g, c))
+    if not (np.array_equal(tg, tc) and np.array_equal(qg, qc) and len(eg) == len(ec)):
+        problems.append("loop.g2o vertices or edge counts differ")
+    for k, (x, y) in enumerate(zip(eg, ec)):
+        err = max(np.abs(x["t"] - y["t"]).max(), np.abs(x["q_wxyz"] - y["q_wxyz"]).max())
+        key = "loop_edge" if k == len(eg) - 1 else "chain_edge"
+        worst[key] = max(worst[key], float(err))
+    for name in ("poses_ori.txt", "poses_opm.txt"):
+        (t1, q1), (t2, q2) = (load_poses_txt(os.path.join(d, name)) for d in (g, c))
+        if name == "poses_ori.txt" and not (np.array_equal(t1, t2) and np.array_equal(q1, q2)):
+            problems.append("poses_ori.txt differs")
+        if name == "poses_opm.txt":
+            worst["poses_opm"] = float(max(np.abs(t1 - t2).max(), np.abs(q1 - q2).max()))
+    if (worst["c_pcd_m"] >= 0.05 or worst["loop_edge"] >= 0.05 or worst["poses_opm"] >= 0.05
+            or worst["chain_edge"] >= 1e-4):
+        problems.append(f"dumps apart: {worst}")
+
+    path = os.path.join(out_dir, "loop_state_card.npz")
+    save_loop_state(card_closer, path)
+    back = load_loop_state(path, artifact_config(C), device=dev)
+
+    def host(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    def members(keys):
+        k = host(keys)
+        return np.unique(k[k != 2 ** 31 - 1])
+
+    for a, b in zip(back.keyframes, card_closer.keyframes):
+        same = (np.array_equal(members(a.keys), members(b.keys))
+                and np.array_equal(host(a.q), host(b.q)) and np.array_equal(host(a.t), host(b.t))
+                and all(np.array_equal(host(x), host(y)) for x, y in zip(a.descriptor,
+                                                                         b.descriptor))
+                and all(np.array_equal(getattr(a, s), getattr(b, s))
+                        for s in ("snap_line", "snap_plane", "snap_full")))
+        if not same:
+            problems.append(f"keyframe {a.ending_frame_idx} changed through the state file")
+            break
+    r1, r2 = back.result, card_closer.result
+    if not (len(back.keyframes) == len(card_closer.keyframes) == 20 and back.closed
+            and (r1.his_idx, r1.cur_idx, r1.icp_score) == (r2.his_idx, r2.cur_idx, r2.icp_score)
+            and np.array_equal(r1.t_opt, r2.t_opt)):
+        problems.append("the loop state file does not round-trip")
+    back.shutdown()
+    emit("loop_files", pairs=len(pairs), files=names, worst=worst, problems=problems,
+         card_dump_reads=card_closer.counts["dump"], card=card)
+    if problems:
+        raise AssertionError(f"the card's loop files: {problems}")
+
+
 def main() -> int:
     import argparse
 
@@ -788,7 +1065,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="an earlier checkout of the repo: time its knn_fused beside this one's")
+                    help="an earlier checkout of the repo: time its knn_fused and its "
+                    "loop_closure path beside this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -836,9 +1114,15 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
     # 2. build
     t0 = time.perf_counter()
     build.compile_all(["knn_fused"])
-    emit("build", seconds=time.perf_counter() - t0, sources=["knn_fused.cu"],
+    t1 = time.perf_counter()
+    from loam_livox_tpu_torch.io import native
+
+    native_lib = native.build()
+    emit("build", seconds=t1 - t0, sources=["knn_fused.cu"],
          ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
-         launch_k5_surfaces=kf.launch_shape(5, 65536))
+         launch_k5_surfaces=kf.launch_shape(5, 65536),
+         native_io={"library": os.path.relpath(native_lib, HERE),
+                    "seconds": time.perf_counter() - t1})
     base = load_baseline(args.baseline) if args.baseline else None
 
     # 3. each kernel against its plain version at the paths' shapes, then
@@ -851,10 +1135,14 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
 
     # the loop gates over the committed unscaled artifact, on the card and
     # on the CPU: the same pair must close, the scores within 0.02
-    rep = {}
+    rep, closers = {}, {}
+    # the run's files (git-ignored): the loop dumps, the cli bag and logs
+    dump_root = os.path.join(HERE, "loam_livox_tpu_torch", "_build", "chip_smoke")
+    shutil.rmtree(dump_root, ignore_errors=True)
     for where, device in (("gpu", dev), ("cpu", "cpu")):
         t0 = time.perf_counter()
-        closer = replay_artifact(C, device)
+        closer = closers[where] = replay_artifact(C, device, os.path.join(dump_root,
+                                                                          f"loop_{where}"))
         res = closer.result
         rep[where] = dict(closed=closer.closed, his=res.his_idx if res else None,
                           cur=res.cur_idx if res else None,
@@ -1157,7 +1445,8 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
     # configuration and stream, the service on its worker thread and
     # stream; the odometry's launches and the loop's counted apart
     kf.launches = 0
-    lp = loop_path(S, P, kf, dev, loop_sim.get(timeout=600))
+    host_loop = loop_sim.get(timeout=600)
+    lp = loop_path(S, P, kf, dev, host_loop)
     launches_by_path["loop_closure"] = lp["knn_fused_launches"]
     launches_by_path["loop_closure_service"] = lp["loop_knn_fused_launches"]
     emit("path", path="loop_closure", **lp)
@@ -1165,8 +1454,16 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
             and lp["loop_knn_fused_launches"] > 0):
         raise AssertionError(f"loop_closure off: closed {lp['loop_closed']}, "
                              f"ATE {lp['ate_aligned']}")
+    if base is not None:
+        emit("loop_fps_in_turns", **loop_fps_in_turns(host_loop, dev, card))
 
-    # 13. the large-scale scenario's CPU-scale variant on the card, under
+    # 13. the command line on the card, resume on the card, and the loop
+    # artifact's dumps and state file
+    launches_by_path["cli"] = cli_phase(C, P, kf, dev, dump_root, card)
+    resume_phase(C, dev, dump_root, card)
+    loop_files_phase(C, dev, dump_root, closers["gpu"], card)
+
+    # 14. the large-scale scenario's CPU-scale variant on the card, under
     # its golden (tests/test_scenarios_ci.py:23)
     from loam_livox_tpu_torch.eval.scenarios import run_scenario
 
@@ -1193,7 +1490,7 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
         "alignment_ms": r_align["ms"], "alignment_kernel_ms": r_align["kernel_ms"],
         "alignment_bound_ms": r_align["bound_ms"], "alignment_plain_ms": r_align["plain_ms"],
         "alignment_library_ms": r_align["library_ms"], "launches_by_path": launches_by_path}]
-    emit("done", seconds=time.perf_counter() - t_start)
+    emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

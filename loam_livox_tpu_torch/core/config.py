@@ -323,13 +323,8 @@ def require_supported(cfg: SlamConfig) -> None:
     if c.lidar_type not in ("livox", "velodyne"):
         raise ValueError(f"common/lidar_type={c.lidar_type!r}: the front ends are "
                          "'livox' and 'velodyne'")
-    lc = cfg.loop_closure
-    if lc.if_dump_keyframe_data or lc.map_alignment_if_dump_matching_result:
-        refuse("loop-closure dumps (keyframe and matching-result files)", 13, "host side")
     if p.mesh_devices > 1:
         refuse(f"parallel/mesh_devices={p.mesh_devices}", 15, "multi-GPU")
     if o.correspondence not in ("auto", "pallas"):
         refuse(f"optimization/correspondence={o.correspondence!r}", 14,
                "other correspondence engines")
-    if c.if_save_to_pcd_files or c.if_verbose_screen_printf == 0:
-        refuse("pcd dumps and screen diagnostics", 13, "host side")

@@ -101,6 +101,7 @@ class LoopState(NamedTuple):
     closed: bool
     dropped_keyframes: int
     result: Optional[LoopClosureResult]
+    pair_idx: int = 0                  # scene-alignment dumps written
 
 
 def loop_state_from_npz(path: str, device) -> LoopState:
@@ -148,4 +149,5 @@ def loop_state_from_npz(path: str, device) -> LoopState:
         keyframes=[record(f"kf{i}") for i in range(int(meta["n_keyframes"]))],
         waiting=[record(f"wait{i}") for i in range(int(meta["n_waiting"]))],
         updating=updating, closed=bool(meta["closed"]),
-        dropped_keyframes=int(meta["dropped_keyframes"]), result=result)
+        dropped_keyframes=int(meta["dropped_keyframes"]), result=result,
+        pair_idx=int(meta.get("pair_idx", 0)))

@@ -13,7 +13,11 @@ and pose-file formats of ``io/serialization`` (not ported).
 """
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+import glob
+import json
+import os
+import re
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,10 +72,56 @@ def rebuild_corrected_map(clouds: Sequence[np.ndarray],
     return _merge_downsample(out, resolution)
 
 
-def refine_mapping(path: str, out_pcd: str | None = None, stride: int = 1,
+def _keyframe_cloud_from_json(path: str) -> np.ndarray:
+    """World-frame points of one dumped keyframe: the Pt_vec arrays of
+    its cells (reference schema, cell_map_keyframe.hpp:107-162)."""
+    with open(path) as f:
+        cells = json.load(f)
+    parts = [np.asarray(c["Pt_vec"], np.float32).reshape(-1, 3)
+             for c in cells if c.get("Pt_vec")]
+    if not parts:
+        return np.zeros((0, 3), np.float32)
+    return np.concatenate(parts)
+
+
+def refine_mapping(path: str, out_pcd: Optional[str] = None, stride: int = 1,
                    resolution: float = 0.0) -> np.ndarray:
-    """The offline rebuild from a dump directory (reference
-    ceres_pose_graph_3d.hpp:502-583)."""
-    raise NotImplementedError(
-        "refine_mapping (the offline rebuild from dump files) is not ported yet: "
-        "ROADMAP.md queue 1 item 13 (host side)")
+    """The corrected map rebuilt from a dump directory of
+    ``keyframe_<frame>.json`` files and ``poses_ori.txt`` /
+    ``poses_opm.txt`` (the reference's `refine_mapping` resume path,
+    ceres_pose_graph_3d.hpp:502-583).  Returns the points; also writes
+    ``out_pcd`` if given."""
+    from ..io.serialization import load_poses_txt, save_pcd
+
+    t_ori, q_ori = load_poses_txt(os.path.join(path, "poses_ori.txt"))
+    t_opt, q_opt = load_poses_txt(os.path.join(path, "poses_opm.txt"))
+
+    def frame_no(p):
+        m = re.search(r"keyframe_(\d+)\.json$", p)
+        return int(m.group(1)) if m else -1
+
+    files = sorted(glob.glob(os.path.join(path, "keyframe_*.json")), key=frame_no)
+    if not files:
+        raise FileNotFoundError(f"no keyframe_*.json dumps in {path}")
+    clouds = [_keyframe_cloud_from_json(p) for p in files]
+    refined = rebuild_corrected_map(clouds, (t_ori, q_ori), (t_opt, q_opt),
+                                    stride=stride, resolution=resolution)
+    if out_pcd:
+        save_pcd(out_pcd, refined)
+    return refined
+
+
+if __name__ == "__main__":
+    #   python -m loam_livox_tpu_torch.loop.map_refine <dump_dir> \
+    #       [--out refined.pcd] [--resolution 0.2] [--stride 1]
+    import argparse
+
+    p = argparse.ArgumentParser(description="Rebuild the loop-corrected global map from disk dumps")
+    p.add_argument("path", help="dump dir: keyframe_*.json + poses_{ori,opm}.txt")
+    p.add_argument("--out", default="refined_map.pcd")
+    p.add_argument("--resolution", type=float, default=0.0,
+                   help="voxel leaf for the merged map (0 = keep all points)")
+    p.add_argument("--stride", type=int, default=1)
+    a = p.parse_args()
+    pts = refine_mapping(a.path, out_pcd=a.out, stride=a.stride, resolution=a.resolution)
+    print(f"refined map: {len(pts)} points -> {a.out}")

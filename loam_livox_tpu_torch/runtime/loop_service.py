@@ -39,9 +39,24 @@ Behaviour, as in the JAX package:
   ahead, < the threshold accepts, in between skips 6 (:1048-1108);
 * on accept: the odometry chain of the keyframe poses plus one loop
   edge, solved, and the service ends (one-shot ``if_end``, :1110-1147).
+
+With a dump directory (``dump_dir``) the service writes what the JAX
+package's does, where it runs (the worker thread, or inline):
+``keyframe_<frame>.json`` per keyframe in the reference's cell-map schema
+(``loop_closure/if_dump_keyframe_data``, reference :972-977), per scene
+alignment ``{i}_a/b/c.pcd`` and ``{i}_pair.json``
+(``map_alignment_if_dump_matching_result``, scene_alignment.hpp:356-379),
+and on an accepted loop ``loop.g2o``, ``poses_ori.txt`` and
+``poses_opm.txt`` (reference :1080-1087), which `loop.map_refine.
+refine_mapping` rebuilds the corrected map from.  Each dump reads the
+device once, counted as ``dump`` in ``LoopCloser.counts``.  With
+``common/if_verbose_screen_printf`` 0 (the reference's inverted flag) the
+gate trace is echoed to the screen.
 """
 from __future__ import annotations
 
+import json
+import os
 import threading
 import weakref
 from dataclasses import dataclass, field
@@ -53,6 +68,7 @@ import torch
 from ..core import accounting, se3
 from ..core.config import SlamConfig, require_supported
 from ..core.types import PointBatch, resolve_device
+from ..io.serialization import cell_map_to_json, save_g2o, save_pcd, save_poses_txt
 from ..loop.keyframe import KeyframeDescriptor, describe_keyframe, max_similarity
 from ..loop.map_refine import rebuild_corrected_map, refine_points
 from ..loop.pose_graph import add_loop_edge, build_odometry_chain, optimize_pose_graph
@@ -128,10 +144,6 @@ def _host_points(batch: PointBatch) -> np.ndarray:
 class LoopCloser:
     def __init__(self, cfg: SlamConfig, device=None, dump_dir: Optional[str] = None):
         require_supported(cfg)
-        if dump_dir is not None:
-            raise NotImplementedError(
-                "the loop service's dump directory is not ported yet: ROADMAP.md queue 1 "
-                "item 13 (host side)")
         self.cfg = cfg
         self.lc = cfg.loop_closure
         self.device = resolve_device(device)
@@ -146,7 +158,11 @@ class LoopCloser:
         self.gate_trace: List[dict] = []
         #: the service's host reads and kernel launches, by place
         self.counts = {"descriptor": 0, "snapshot": 0, "gate": 0, "align_exit": 0,
-                       "icp_exit": 0, "result": 0, "knn_fused": 0}
+                       "icp_exit": 0, "result": 0, "dump": 0, "knn_fused": 0}
+        self.dump_dir = dump_dir
+        self._pair_idx = 0                      # scene-alignment dumps written
+        # the reference's inverted screen flag: 0 echoes (tools_logger.hpp:51-80)
+        self._screen = cfg.common.if_verbose_screen_printf == 0
         self._incremental = bool(cfg.common.if_update_mean_and_cov_incrementally)
         # the 6×6 and (6N)² solves and the correlations stay full f32
         torch.backends.cuda.matmul.allow_tf32 = False
@@ -228,6 +244,12 @@ class LoopCloser:
 
     def _run(self, rec: KeyframeRecord, m: CellMap, event) -> None:
         try:
+            if m is None:
+                # restored from a checkpoint without the live map
+                # (`runtime.checkpoint.load_loop_state`)
+                with self._lock:
+                    self.dropped_keyframes += 1
+                return
             if self._stream is None:
                 with accounting.charged_to(self.counts):
                     self.process_keyframe(rec, m)
@@ -294,6 +316,8 @@ class LoopCloser:
                                                             incremental=self._incremental))
         rec.snap_full = _host_points(gather_cell_points(m, member))
         self.keyframes.append(rec)
+        if self.lc.if_dump_keyframe_data and self.dump_dir:
+            self._dump_keyframe(rec, m, member)
         if self.closed or not self.lc.if_enable_loop_closure:
             return
         self._scan_for_loop()
@@ -301,8 +325,10 @@ class LoopCloser:
     def _trace(self, his: int, stage: str, **vals) -> None:
         """One candidate's gate record (the reference prints these values
         during the scan, laser_mapping.hpp:1002-1057)."""
-        self.gate_trace.append({"cur": len(self.keyframes) - 1, "his": his, "stage": stage,
-                                **vals})
+        entry = {"cur": len(self.keyframes) - 1, "his": his, "stage": stage, **vals}
+        self.gate_trace.append(entry)
+        if self._screen:
+            print(f"[loop] {entry}", flush=True)
 
     def _scan_for_loop(self) -> None:
         lc = self.lc
@@ -362,10 +388,13 @@ class LoopCloser:
 
         # the starting translation is zero, not the centre difference
         # (`loop.scene_alignment.align_keyframes`)
-        return align_keyframes(batch(last.snap_line), batch(last.snap_plane),
-                               batch(his.snap_line), batch(his.snap_plane),
-                               last.descriptor.center, his.descriptor.center, self.cfg,
-                               init_t=torch.zeros(3, device=self.device))
+        res = align_keyframes(batch(last.snap_line), batch(last.snap_plane),
+                              batch(his.snap_line), batch(his.snap_plane),
+                              last.descriptor.center, his.descriptor.center, self.cfg,
+                              init_t=torch.zeros(3, device=self.device))
+        if self.lc.map_alignment_if_dump_matching_result and self.dump_dir:
+            self._dump_matching_pair(last, his, res)
+        return res
 
     def _accept_loop(self, his_idx: int, cur_idx: int, align) -> None:
         qs = torch.stack([k.q.to(self.device) for k in self.keyframes]).to(torch.float32)
@@ -388,6 +417,59 @@ class LoopCloser:
         self.result = LoopClosureResult(accepted=True, his_idx=his_idx, cur_idx=cur_idx,
                                         icp_score=score, q_opt=q_opt, t_opt=t_opt)
         self.closed = True   # one-shot (reference if_end, :1110)
+        if self.dump_dir:
+            self._dump_artifacts(g, qs, ts)
+
+    # ---- dumps (module doc) ------------------------------------------------
+    def _dump_keyframe(self, rec: KeyframeRecord, m: CellMap, member: torch.Tensor) -> None:
+        """The keyframe's member cells in the reference's JSON schema
+        (reference laser_mapping.hpp:972-977)."""
+        os.makedirs(self.dump_dir, exist_ok=True)
+        self.counts["dump"] += 1
+        cells = cell_map_to_json(m, member)
+        with open(os.path.join(self.dump_dir, f"keyframe_{rec.ending_frame_idx}.json"), "w") as f:
+            json.dump(cells, f)
+
+    def _dump_matching_pair(self, last: KeyframeRecord, his: KeyframeRecord, res) -> None:
+        """One scene alignment (reference scene_alignment.hpp:356-379): the
+        two keyframes' line and plane snapshots, the historical one moved
+        by the solved pose, as PCDs, and the pose and score as JSON."""
+        os.makedirs(self.dump_dir, exist_ok=True)
+        i = self._pair_idx
+        self._pair_idx += 1
+        self.counts["dump"] += 1
+        host = torch.cat([res.q.reshape(4), res.t.reshape(3),
+                          res.inlier_threshold.reshape(1).to(torch.float32)]).cpu()
+        q, t = host[:4], host[4:7]
+        a = np.concatenate([last.snap_line, last.snap_plane], axis=0)
+        b = np.concatenate([his.snap_line, his.snap_plane], axis=0)
+        c = b @ se3.quat_to_matrix(q).numpy().T + t.numpy()
+        save_pcd(os.path.join(self.dump_dir, f"{i}_a.pcd"), a)
+        save_pcd(os.path.join(self.dump_dir, f"{i}_b.pcd"), b)
+        save_pcd(os.path.join(self.dump_dir, f"{i}_c.pcd"), c)
+        with open(os.path.join(self.dump_dir, f"{i}_pair.json"), "w") as f:
+            json.dump({"q_wxyz": q.numpy().tolist(), "t": t.numpy().tolist(),
+                       "inlier_threshold": float(host[7])}, f)
+
+    def _dump_artifacts(self, g, qs: torch.Tensor, ts: torch.Tensor) -> None:
+        """``loop.g2o`` (the graph's edges and the original keyframe poses)
+        and ``poses_ori.txt`` / ``poses_opm.txt`` in the reference's
+        formats (laser_mapping.hpp:1080-1087)."""
+        os.makedirs(self.dump_dir, exist_ok=True)
+        self.counts["dump"] += 1
+        parts = (g.edge_mask, g.edge_i, g.edge_j, g.rel_t, g.rel_q, qs, ts)
+        host = torch.cat([p.reshape(-1).to(torch.float64) for p in parts]).cpu().numpy()
+        e, n = g.edge_mask.shape[0], qs.shape[0]
+        cols = np.cumsum([0, e, e, e, 3 * e, 4 * e, 4 * n, 3 * n])
+        mask, ei, ej, rel_t, rel_q, q_ori, t_ori = (host[a:b] for a, b in zip(cols[:-1], cols[1:]))
+        rel_t, rel_q = rel_t.reshape(e, 3).astype(np.float32), rel_q.reshape(e, 4).astype(np.float32)
+        q_ori, t_ori = q_ori.reshape(n, 4).astype(np.float32), t_ori.reshape(n, 3).astype(np.float32)
+        edges = [{"id_begin": int(ei[k]), "id_end": int(ej[k]), "t": rel_t[k], "q_wxyz": rel_q[k]}
+                 for k in np.nonzero(mask)[0]]
+        save_g2o(os.path.join(self.dump_dir, "loop.g2o"), t_ori, q_ori, edges)
+        save_poses_txt(os.path.join(self.dump_dir, "poses_ori.txt"), t_ori, q_ori)
+        save_poses_txt(os.path.join(self.dump_dir, "poses_opm.txt"),
+                       self.result.t_opt, self.result.q_opt)
 
     # ---- map refinement (reference Mapping_refine,
     # ceres_pose_graph_3d.hpp:437-500) -----------------------------------

@@ -21,12 +21,14 @@
   search ranges of the pose and inside its field of view.  It is
   rebuilt in full on every 4th frame and appended to in between.
 
-The state carries only what the ported paths read.  The feature cell
-maps are ``None`` unless cell matching is on (the JAX package keeps
-1-slot dummies then, and keeps the maps with loop closure on, where
-nothing reads them in history matching); the full-cloud cell map
-``cell_full`` and its touched-cell mask ``last_touched`` are ``None``
-unless loop closure is on.  The bucket grids of the grid engine are not
+The state carries only what the ported paths read or write out.  The
+feature cell maps are kept where the JAX package keeps them
+(``_need_cell_maps``, ``loam_livox_tpu/runtime/odometry.py:106-110``):
+with cell matching, which reads them, or with loop closure, where the
+plane map is what the command line's ``--save-map`` writes; elsewhere
+they are ``None`` (the JAX package keeps 1-slot dummies).  The
+full-cloud cell map ``cell_full`` and its touched-cell mask
+``last_touched`` are ``None`` unless loop closure is on.  The bucket grids of the grid engine are not
 ported.
 In place of the JAX rng key the state carries a ``torch.Generator`` on
 the device, which draws the uniforms of residual subsampling
@@ -72,7 +74,7 @@ class OdometryState(NamedTuple):
     last_his_t: torch.Tensor
     last_q_incre: torch.Tensor      # last accepted increment
     last_t_incre: torch.Tensor
-    cell_corners: CellMap | None    # feature cell maps (cell matching mode)
+    cell_corners: CellMap | None    # feature cell maps (cell matching or loop closure)
     cell_planes: CellMap | None
     map_corners: PointBatch         # matching buffer
     map_surface: PointBatch
@@ -110,8 +112,8 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         last_his_t=torch.zeros(3, **f32),
         last_q_incre=se3.quat_identity(device=device),
         last_t_incre=torch.zeros(3, **f32),
-        cell_corners=cells(cfg.mapping.matching_mode == 1),
-        cell_planes=cells(cfg.mapping.matching_mode == 1),
+        cell_corners=cells(cfg.mapping.matching_mode == 1 or loop),
+        cell_planes=cells(cfg.mapping.matching_mode == 1 or loop),
         map_corners=PointBatch.empty(caps.map_corner_capacity, device),
         map_surface=PointBatch.empty(caps.map_surf_capacity, device),
         rng=torch.Generator(device=device).manual_seed(0),

@@ -41,6 +41,21 @@ piece, stamped with the piece's first point time.  Its rows stay on
 the device until the host reads them: at `flush` in one transfer, or
 group by group in the racing queue.
 
+Logs, as in the JAX package (``runtime/pipeline.py:590-647``): with a
+``log_dir`` (or ``common/if_verbose_screen_printf`` 0, the reference's
+inverted flag, which echoes to the screen) each dispatch unit (a raw
+frame, a chunk, a raced group, a fallen-back frame) writes a
+``mapping`` line of its last registration (cost, inlier threshold,
+blocks, iterations, rotation and translation steps, accepted), two
+``pcd_log`` lines of its last pose and a ``timer`` line; with
+``common/if_save_to_pcd_files`` each raw frame given as host arrays on
+the sequential path is written to ``<log_dir>/pcd/aft_mapp_<frame>.pcd``,
+its raw points moved by the frame's endpoint pose on the host (not
+deblurred).  These need the rows on the host as each unit is
+dispatched, so logging, pcd files and ``eager_drain`` (the command
+line's ``--follow``) read the queue after every raw frame, down to the
+racing queue depth.
+
 Host-sync audit (the input to a CUDA-graph port):
 
     where                                   what                             how often
@@ -57,7 +72,12 @@ Host-sync audit (the input to a CUDA-graph port):
                                             and rebuild/append
     runtime/pipeline.py _drain              .cpu() of the rows of the        1 a racing group (or
                                             groups drained past the queue    fallback frame) past
-                                            depth, for the motion guard      the queue depth
+                                            depth, for the motion guard      the queue depth; with
+                                                                             logs or eager_drain,
+                                                                             1 a raw frame
+    runtime/pipeline.py _log_unit           .cpu() of the unit's last        1 a logged dispatch
+                                            registration's scalars for the   unit, only with logs
+                                            ``mapping`` line
 
 The loop service adds no read on the frame thread in async mode: a
 keyframe's member keys are united on the device, and the worker's reads
@@ -74,14 +94,16 @@ report, by source line.  (Writing a Python scalar into a CUDA tensor,
 """
 from __future__ import annotations
 
+import os
 import time as _time
 from collections import deque
 from dataclasses import dataclass, field
-from typing import List, Optional
+from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from ..core import se3
 from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, resolve_device, to_device
 from ..frontend import livox
@@ -89,13 +111,15 @@ from ..frontend.velodyne import extract_velodyne_features
 from ..io.simulator import LivoxSimulator
 from ..ops.voxel import voxel_downsample
 from ..registration import icp
+from ..utils import logging as L
 from . import odometry
 from .batched import odometry_step_batched
 from .loop_service import LoopCloser
 from .odometry import OdometryState, init_state, odometry_step
 
-#: host reads of drained racing groups since the last reset
-SYNCS = {"drain": 0}
+#: host reads of drained trajectory rows and of logged registrations
+#: since the last reset
+SYNCS = {"drain": 0, "log": 0}
 
 
 def host_syncs() -> dict:
@@ -175,6 +199,18 @@ def trajectory_rows(regs, frames) -> torch.Tensor:
         for r, f in zip(regs, frames)])
 
 
+class _Unit(NamedTuple):
+    """One dispatch unit's rows waiting on the device, with what its logs
+    read: the unit's first raw frame, its last registration (with logs
+    on; None for a `process_feature_frame` step, which logs nothing) and
+    the raw points of a sequential frame given as host arrays when pcd
+    files are on."""
+    rows: torch.Tensor
+    frame_idx: int
+    reg: Optional[icp.RegistrationResult]
+    raw: Optional[np.ndarray]
+
+
 @dataclass
 class TrajectoryRecord:
     times: List[float] = field(default_factory=list)
@@ -189,10 +225,18 @@ class TrajectoryRecord:
 class OdometryPipeline:
     """Livox front end + odometry over raw frames (module doc)."""
 
-    def __init__(self, cfg: SlamConfig, device=None):
+    def __init__(self, cfg: SlamConfig, device=None, log_dir: Optional[str] = None):
         require_supported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.logger = L.FileLogger(log_dir, screen=cfg.common.if_verbose_screen_printf == 0)
+        self.timer = L.SpanTimer()
+        self._pcd_dir = None
+        if cfg.common.if_save_to_pcd_files:
+            self._pcd_dir = os.path.join(log_dir or ".", "pcd")
+            os.makedirs(self._pcd_dir, exist_ok=True)
+        #: read the rows after every raw frame (the command line's --follow)
+        self.eager_drain = False
         par = cfg.parallel
         self.frame_batch = max(1, int(par.frame_batch))
         self.dispatch_chunk = max(1, int(par.dispatch_chunk))
@@ -218,7 +262,7 @@ class OdometryPipeline:
         self.trajectory = TrajectoryRecord()
         self.iterations: List[int] = []   # ICP iterations of each trajectory row
         self._buf: list = []              # raw frames waiting for their chunk or group
-        self._pending: deque = deque()    # device rows not yet on the host
+        self._pending: deque = deque()    # _Unit rows not yet on the host
         self._last_motion = 0.0           # racing guard: last observed step (m)
         #: ICP loop passes run (each launches the kNN kernel twice): a
         #: piece's iterations, or one batched loop for a racing group
@@ -238,6 +282,8 @@ class OdometryPipeline:
         device, as bench.py hands the JAX pipeline device arrays)."""
         n = self.cfg.capacity.max_raw_points
         dev = self.device
+        self.timer.tic(L.SPAN_FRAME)
+        raw = None
         if mask is not None and isinstance(xyz, torch.Tensor) and xyz.shape == (n, 3):
             pts, inten, mask = (torch.as_tensor(a, device=dev)
                                 for a in (xyz, intensity, mask))
@@ -249,26 +295,40 @@ class OdometryPipeline:
             pts[:m] = xyz[:m]
             inten[:m] = intensity[:m]
             valid[:m] = True
+            if self._pcd_dir is not None:
+                raw = pts[:m]
             pts, inten, mask = (to_device(a, dev) for a in (pts, inten, valid))
         frame = (pts, inten, mask, float(base_time))
         if self.frame_batch > 1:
             self._buf.append(frame)
             if len(self._buf) == self.frame_batch:
                 self._dispatch_group()
-            self._drain(len(self._pending) - self.queue_depth)
         elif self.dispatch_chunk > 1:
             self._buf.append(frame)
             if len(self._buf) == self.dispatch_chunk:
                 self._dispatch_chunk()
         else:
-            self._run_frame(*frame)
+            self._pending.append(self._run_frame(*frame)._replace(raw=raw))
             self._feed_loop(1)
+        if self.frame_batch > 1 or self._eager():
+            self._drain(len(self._pending) - self.queue_depth)
 
-    def _run_frame(self, pts, inten, mask, base_time: float) -> None:
+    def _eager(self) -> bool:
+        """Whether the rows are read after every raw frame (module doc)."""
+        return self.eager_drain or self.logger.enabled() or self._pcd_dir is not None
+
+    def _run_frame(self, pts, inten, mask, base_time: float) -> _Unit:
+        """One raw frame through the front end and the odometry; returns
+        its unit, not yet queued."""
         self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
                                                      base_time, self.cfg)
         self.loop_iterations += sum(r.iterations for r in regs)
-        self._pending.append(trajectory_rows(regs, frames))
+        return self._unit(trajectory_rows(regs, frames), regs[-1])
+
+    def _unit(self, rows: torch.Tensor, last_reg) -> _Unit:
+        """A unit dispatched at the current raw frame; it keeps its last
+        registration only when the logs will read it."""
+        return _Unit(rows, self._frame_idx, last_reg if self.logger.enabled() else None, None)
 
     def _feed_loop(self, n_frames: int) -> None:
         """Hand the loop service the state's touched cells and pose, still
@@ -288,7 +348,7 @@ class OdometryPipeline:
         that `process_raw` is filling."""
         self.state, reg = odometry_step(self.state, frame, self.cfg)
         self.loop_iterations += reg.iterations
-        self._pending.append(trajectory_rows([reg], [frame]))
+        self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
 
     def _dispatch_chunk(self) -> None:
         """The buffered raw frames back to back; the loop service gets one
@@ -296,11 +356,13 @@ class OdometryPipeline:
         scan, runtime/pipeline.py:162-178)."""
         buf, self._buf = self._buf, []
         touched = None          # stays None without loop closure
+        units = []
         for frame in buf:
-            self._run_frame(*frame)
+            units.append(self._run_frame(*frame))
             mask = self.state.last_touched
             touched = mask if touched is None else touched | mask
         self.state = self.state._replace(last_touched=touched)
+        self._pending.append(self._unit(torch.cat([u.rows for u in units]), units[-1].reg))
         self._feed_loop(len(buf))
 
     def _dispatch_group(self) -> None:
@@ -311,7 +373,7 @@ class OdometryPipeline:
         if guard > 0 and self._last_motion > guard:
             self.fallback_groups += 1
             for frame in buf:
-                self._run_frame(*frame)
+                self._pending.append(self._run_frame(*frame))
                 self._feed_loop(1)
             return
         self.raced_groups += 1
@@ -319,7 +381,7 @@ class OdometryPipeline:
         self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg)
         self.loop_iterations += loops
         self.raced_loop_iterations += loops
-        self._pending.append(trajectory_rows(regs, frames))
+        self._pending.append(self._unit(trajectory_rows(regs, frames), regs[-1]))
         self._feed_loop(len(buf))
 
     def _drain(self, count: int) -> None:
@@ -327,13 +389,13 @@ class OdometryPipeline:
         transfer) into the trajectory, and observe their motion."""
         if count <= 0:
             return
-        entries = [self._pending.popleft() for _ in range(count)]
+        units = [self._pending.popleft() for _ in range(count)]
         SYNCS["drain"] += 1
-        host = torch.cat(entries).cpu().numpy()
+        host = torch.cat([u.rows for u in units]).cpu().numpy()
         start = 0
-        for entry in entries:
-            rows = host[start:start + len(entry)]
-            start += len(entry)
+        for unit in units:
+            rows = host[start:start + len(unit.rows)]
+            start += len(unit.rows)
             prev = self.trajectory.positions[-1] if self.trajectory.positions else rows[0, 1:4]
             steps = np.diff(np.vstack([prev[None], rows[:, 1:4]]), axis=0)
             self._last_motion = float(np.linalg.norm(steps, axis=1).max())
@@ -343,6 +405,36 @@ class OdometryPipeline:
                 self.trajectory.quaternions.append(row[4:8].copy())
                 self.trajectory.accepted.append(bool(row[8]))
                 self.iterations.append(int(row[9]))
+            if unit.reg is not None and self.logger.enabled():
+                self._log_unit(unit, rows[-1])
+            if unit.raw is not None and self._pcd_dir is not None:
+                # the registered raw frame (reference laser_mapping.hpp:1608-1611),
+                # moved on the host by the endpoint pose, not deblurred
+                from ..io.serialization import save_pcd
+
+                q, t = rows[-1, 4:8], rows[-1, 1:4]
+                R = se3.quat_to_matrix(torch.from_numpy(q.copy())).numpy()
+                save_pcd(os.path.join(self._pcd_dir, f"aft_mapp_{unit.frame_idx}.pcd"),
+                         unit.raw @ R.T + t)
+
+    def _log_unit(self, unit: _Unit, last_row: np.ndarray) -> None:
+        """The unit's ``mapping``, ``pcd_log`` and ``timer`` lines (the
+        reference's logs, point_cloud_registration.hpp:534-557,
+        laser_mapping.hpp:1506-1512): one read of its last registration."""
+        reg = unit.reg
+        SYNCS["log"] += 1
+        vals = torch.stack([torch.as_tensor(v, device=reg.t_w.device).reshape(-1)[-1]
+                            .to(torch.float64) for v in (
+                                reg.final_cost, reg.inlier_threshold, reg.n_blocks,
+                                reg.iterations, reg.angular_diff_deg, reg.t_diff,
+                                reg.accepted)]).cpu().numpy()
+        self.logger.printf(
+            "mapping", "frame %d: cost=%.6f inlier_thr=%.6f blocks=%d iters=%d "
+            "dR=%.3fdeg dT=%.3fm accepted=%d", unit.frame_idx, vals[0], vals[1], int(vals[2]),
+            int(vals[3]), vals[4], vals[5], int(bool(vals[6])))
+        self.logger.printf("pcd_log", "Curr_Q = %f,%f,%f,%f", *last_row[4:8])
+        self.logger.printf("pcd_log", "Curr_T = %f,%f,%f", *last_row[1:4])
+        self.logger.write("timer", f"{L.SPAN_FRAME}: {self.timer.toc(L.SPAN_FRAME):.3f} ms")
 
     def flush(self) -> None:
         """Dispatch a partial chunk or group, then copy every pending row

@@ -124,3 +124,47 @@ def test_cell_mode_stream_fills_the_maps(jax_stream):
     assert last["map_surface.mask"].sum() > 100
     flags = [(bool(reg.enabled), bool(reg.accepted)) for *_, reg in steps]
     assert flags.count((True, True)) >= 4 and (True, False) in flags, flags
+
+
+# ------------------------------------------------------ racing stream --
+
+def test_racing_cell_mode_stream_matches_jax():
+    """Racing dispatch in cell matching mode: the JAX pipeline and the
+    port's over one stream, 3 raw frames a group, motion guard off.
+    Whole frames as lanes (motion deblur on, one piece a frame): lanes of
+    pieces are weakly constrained (tests/test_torch_racing.py says why).
+    Every lane registers against the state's cell-gathered matching
+    buffer and inserts its cells in commit order in both packages
+    (``runtime/batched.py``).  Aligned ATE within 0.05 m of each other
+    and under the 0.35 m golden, accepted rows within 3, as in the
+    other stream tests."""
+    from loam_livox_tpu.eval.ate import ate_rmse
+    from loam_livox_tpu.io.simulator import LivoxSimulator, SimConfig, Trajectory
+    from loam_livox_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
+
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = jax_config().replace(
+        optimization={"icp_maximum_iteration": 5},
+        parallel={"frame_batch": 3, "batch_motion_guard_t": 0.0})
+    n_frames = 12
+
+    def run(pipe):
+        sim = LivoxSimulator(SimConfig(points_per_frame=10000, seed=0),
+                             traj=Trajectory(ramp_t0=0.1 * INIT + 0.2))
+        for i in range(n_frames):
+            pipe.process_raw(*sim.frame(i))
+        pipe.flush()
+        est = pipe.trajectory.positions_array()
+        gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
+        return ate_rmse(est, gt), int(sum(pipe.trajectory.accepted)), est
+
+    ate_j, acc_j, est_j = run(JaxPipeline(cfg))
+    port = OdometryPipeline(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    ate_t, acc_t, est_t = run(port)
+    assert est_t.shape == est_j.shape == (n_frames, 3) and np.all(np.isfinite(est_t))
+    assert port.raced_groups == n_frames // 3 and port.fallback_groups == 0
+    assert port.state.cell_planes.n_cells() > 50
+    assert abs(ate_t - ate_j) < 0.05, (ate_t, ate_j)
+    assert abs(acc_t - acc_j) <= 3, (acc_t, acc_j)
+    assert ate_t < 0.35 and acc_t >= n_frames // 2, (ate_t, acc_t)

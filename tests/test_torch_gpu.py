@@ -526,3 +526,50 @@ def test_async_service_on_the_card_equals_inline_cpu(cuda):
         assert a.snap_full.shape == b.snap_full.shape
     assert [e["stage"] for e in svc_c.gate_trace] == [e["stage"] for e in svc_h.gate_trace]
     svc_c.shutdown()
+
+
+@pytest.mark.parametrize("parallel", [{"dispatch_chunk": 4}, {"frame_batch": 2}],
+                         ids=["chunked", "racing"])
+def test_loop_entries_under_dispatch_equal_cpu(cuda, parallel):
+    """The loop service's entries under chunked and racing dispatch (the
+    two modes tests/test_torch_loop_dispatch.py runs on the CPU), on the
+    card against the CPU: each entry's frame index and touched mask
+    equal, the keyframes' member keys equal, and the poses close.
+
+    Where the devices part: the run's first Gauss-Newton system has the
+    same mask on both, residuals within 1e-7 and Jacobians within 1e-5
+    relative (elementwise rounding), and H, g within 1e-5 relative of
+    the CPU's and of the CPU's sum of the card's own inputs (summation
+    order); a lane or row out of place would move them by O(1).  Over
+    simulator seeds 0-5 (`scripts/torch_dispatch_rounding.py`, PERF.md
+    §6) these read at most 1.4e-8, 2.1e-6 and 7.8e-7, and the
+    iteration-capped ICP carries them into the poses: racing up to
+    2.9e-4 m, chunked up to 1.5e-5 m and 0.27 m on seed 4, where the
+    CPU alone, one thread against eight, parts by 0.41 m.  This test
+    runs seed 2 (8 frames of 6,000 points, registration from frame 4,
+    keyframes of 2 entries every entry, small so that keyframes
+    complete; the service on its worker and stream on the card, inline
+    on the CPU): poses within 1e-5 up to and including the first
+    registered group (read 2.0e-6 m), and racing's later group within
+    5e-4 (read 1.5e-4 m; above every seed's reading)."""
+    from loam_livox_tpu_torch.registration import gauss_newton as GN
+    from scripts.torch_dispatch_rounding import INIT, rel, run
+
+    card, card_kf, (r_c, J_c, m_c, H_c, g_c, delta) = run(cuda, parallel, seed=2)
+    host, host_kf, (r_h, J_h, m_h, H_h, g_h, _) = run("cpu", parallel, seed=2)
+    n_entries = 2 if "dispatch_chunk" in parallel else 4
+    assert [e[0] for e in card] == [e[0] for e in host] and len(card) == n_entries
+    for (_, t_c, _), (_, t_h, _) in zip(card, host):
+        assert torch.equal(t_c, t_h)
+    assert len(card_kf) == len(host_kf) > 0
+    for a, b in zip(card_kf, host_kf):
+        assert torch.equal(a, b)
+
+    H_o, g_o = GN.system_from_rJ(r_c, J_c, m_c, delta)   # the card's inputs, summed here
+    assert torch.equal(m_c, m_h) and r_c.shape == r_h.shape and J_c.shape == J_h.shape
+    assert rel(r_c, r_h) < 1e-7 and rel(J_c, J_h) < 1e-5
+    assert max(rel(H_c, H_h), rel(g_c, g_h), rel(H_c, H_o), rel(g_c, g_o)) < 1e-5
+    first_registered = min(f for f, _, _ in card if f >= INIT)
+    for f, (_, _, p_c), (_, _, p_h) in zip([e[0] for e in card], card, host):
+        tol = 1e-5 if f <= first_registered else 5e-4
+        torch.testing.assert_close(p_c, p_h, rtol=0, atol=tol)

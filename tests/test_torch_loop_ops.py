@@ -281,11 +281,12 @@ def test_pose_graph_construction_and_residuals_match_jax():
                                np.array(jpg.edge_residuals(jg, jg.q, jg.t)), rtol=0, atol=1e-5)
 
 
-def test_unported_loop_pieces_raise():
+def test_unported_loop_pieces_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="item 15 "):
         tpg.optimize_pose_graph_sharded(port_graph(drifted_loop()))
-    with pytest.raises(NotImplementedError, match="item 13 "):
-        tref.refine_mapping("somewhere")
+    # the offline rebuild is ported (item 13): a directory without dumps raises
+    with pytest.raises(FileNotFoundError):
+        tref.refine_mapping(str(tmp_path))
 
 
 # ------------------------------------------------------ map refinement --

@@ -12,6 +12,15 @@ gate trace must match ``scripts/loop_unscaled_trace.json`` within 0.02,
 and the replayed pose-graph solve must pass `payoff_verdict` against the
 recorded keyframe ground truth.  The JAX package's own replay
 (tests/test_loop_unscaled_guard.py) stays; this is the port's.
+
+The replay writes a dump directory (``map_alignment_if_dump_matching_result``
+on): per scene alignment ``{i}_a/b/c.pcd`` and ``{i}_pair.json``, and on
+the accepted loop ``loop.g2o``, ``poses_ori.txt`` and ``poses_opm.txt``.
+The JAX package's service writes its own from the same keyframes and the
+port's alignment results (read back from the pair files, so no second
+scene alignment runs): the keyframe clouds and the original poses are
+byte-equal, the moved cloud within 1e-4 m, the g2o graph's edges within
+1e-5, the optimised poses within 1e-3 (each package's solve).
 """
 import dataclasses
 import importlib.util
@@ -49,9 +58,15 @@ def recorded(name):
 
 
 @pytest.fixture(scope="module")
-def replay():
+def dump_dir(tmp_path_factory):
+    return str(tmp_path_factory.mktemp("port_dump"))
+
+
+@pytest.fixture(scope="module")
+def replay(dump_dir):
     saved = loop_state_from_npz(STATE, "cpu")
-    closer = LoopCloser(run_config(), device="cpu")
+    cfg = run_config().replace(loop_closure={"map_alignment_if_dump_matching_result": 1})
+    closer = LoopCloser(cfg, device="cpu", dump_dir=dump_dir)
     closed_at = None
     for i, rec in enumerate(saved.keyframes):
         closer.keyframes.append(rec)
@@ -144,3 +159,92 @@ def test_loop_path_imports_no_jax():
                          capture_output=True, text=True, timeout=300)
     assert out.returncode == 0, out.stderr[-2000:]
     assert out.stdout.strip().endswith("ok")
+
+
+# --------------------------------------------------------------- dumps --
+
+@pytest.fixture(scope="module")
+def jax_dump(replay, dump_dir, tmp_path_factory):
+    """The JAX package's service writes its dumps from the artifact's
+    keyframes and the port's alignment results."""
+    import jax.numpy as jnp
+
+    from loam_livox_tpu.runtime.checkpoint import load_loop_state as jload_loop
+    from loam_livox_tpu.runtime.loop_service import LoopCloser as JCloser
+
+    spec = importlib.util.spec_from_file_location(
+        "loop_unscaled", os.path.join(SCRIPTS, "loop_unscaled.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    jcfg = mod.make_cfg().replace(loop_closure={"if_loop_service_async": 0})
+    keyframes = jload_loop(STATE, jcfg).keyframes
+    out = str(tmp_path_factory.mktemp("jax_dump"))
+    jsvc = JCloser(jcfg, dump_dir=out)
+    _, closer, _ = replay
+    icp = [e for e in closer.gate_trace if e["stage"] == "icp"]
+
+    class Align:
+        def __init__(self, i):
+            with open(os.path.join(dump_dir, f"{i}_pair.json")) as f:
+                d = json.load(f)
+            self.q = jnp.asarray(d["q_wxyz"], jnp.float32)
+            self.t = jnp.asarray(d["t"], jnp.float32)
+            self.inlier_threshold = jnp.float32(d["inlier_threshold"])
+
+    for i, e in enumerate(icp):
+        jsvc._dump_matching_pair(keyframes[e["cur"]], keyframes[e["his"]], Align(i))
+    jsvc.keyframes = list(keyframes)
+    res = closer.result
+    jsvc._accept_loop(res.his_idx, res.cur_idx, Align(len(icp) - 1))
+    return out, len(icp)
+
+
+def test_dump_writes_the_reference_artifacts(replay, dump_dir):
+    _, closer, _ = replay
+    names = set(os.listdir(dump_dir))
+    n_pairs = sum(e["stage"] == "icp" for e in closer.gate_trace)
+    assert n_pairs >= 1 and closer.counts["dump"] == n_pairs + 1
+    assert {"loop.g2o", "poses_ori.txt", "poses_opm.txt"} <= names
+    assert {f"{i}_{s}" for i in range(n_pairs) for s in ("a.pcd", "b.pcd", "c.pcd", "pair.json")} \
+        <= names
+    from loam_livox_tpu_torch.io.serialization import load_g2o, load_poses_txt
+
+    t, q, edges = load_g2o(os.path.join(dump_dir, "loop.g2o"))
+    assert len(t) == 20 and len(edges) == 20       # the chain and the loop edge
+    assert (edges[-1]["id_begin"], edges[-1]["id_end"]) == (19, 0)
+    t_opt, _ = load_poses_txt(os.path.join(dump_dir, "poses_opm.txt"))
+    np.testing.assert_allclose(t_opt, closer.result.t_opt, rtol=0, atol=1e-5)
+
+
+def test_dumps_match_jax(dump_dir, jax_dump):
+    from loam_livox_tpu_torch.io.serialization import load_g2o, load_pcd, load_poses_txt
+
+    jdir, n_pairs = jax_dump
+    for i in range(n_pairs):
+        for s in ("a", "b"):
+            with open(os.path.join(dump_dir, f"{i}_{s}.pcd"), "rb") as f, \
+                    open(os.path.join(jdir, f"{i}_{s}.pcd"), "rb") as g:
+                assert f.read() == g.read(), (i, s)
+        a, _ = load_pcd(os.path.join(dump_dir, f"{i}_c.pcd"))
+        b, _ = load_pcd(os.path.join(jdir, f"{i}_c.pcd"))
+        assert a.shape == b.shape and len(a) > 1000
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-4)
+        assert recorded_json(dump_dir, f"{i}_pair.json") == recorded_json(jdir, f"{i}_pair.json")
+    with open(os.path.join(dump_dir, "poses_ori.txt")) as f, \
+            open(os.path.join(jdir, "poses_ori.txt")) as g:
+        assert f.read() == g.read()
+    (t1, q1, e1), (t2, q2, e2) = (load_g2o(os.path.join(d, "loop.g2o")) for d in (dump_dir, jdir))
+    np.testing.assert_array_equal(t1, t2)
+    np.testing.assert_array_equal(q1, q2)
+    assert [(e["id_begin"], e["id_end"]) for e in e1] == [(e["id_begin"], e["id_end"]) for e in e2]
+    for a, b in zip(e1, e2):
+        np.testing.assert_allclose(a["t"], b["t"], rtol=0, atol=1e-5)
+        np.testing.assert_allclose(a["q_wxyz"], b["q_wxyz"], rtol=0, atol=1e-5)
+    (ta, qa), (tb, qb) = (load_poses_txt(os.path.join(d, "poses_opm.txt")) for d in (dump_dir, jdir))
+    np.testing.assert_allclose(ta, tb, rtol=0, atol=1e-3)
+    np.testing.assert_allclose(qa, qb, rtol=0, atol=1e-3)
+
+
+def recorded_json(d, name):
+    with open(os.path.join(d, name)) as f:
+        return json.load(f)

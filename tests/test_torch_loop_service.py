@@ -10,8 +10,11 @@ numbers within 0.02 (the scene alignment recomputes an ICP); the same
 closing pair, and optimised poses within 1e-3; the corrected keyframe
 cloud within 1e-3 m.  The similarity gate rejects two different worlds,
 and in async mode a stalled worker drops the oldest waiting keyframes.
-A pipeline's loop path runs on the card unless asked, and the dumps
-that item 13 ports are refused.
+The closing services write dump directories: the keyframe JSONs match
+the JAX package's (cells as in tests/test_torch_serialization.py), and
+`refine_mapping` rebuilds the JAX package's points from either
+package's directory.  A pipeline's loop path runs on the card unless
+asked; the dumps are accepted and several devices are refused (item 15).
 """
 import time as _time
 
@@ -80,9 +83,13 @@ def test_keyframe_cadence_matches_jax(world):
 
 
 @pytest.fixture(scope="module")
-def closed_pair(world):
-    jcfg, tcfg = configs()
-    jsvc, tsvc = JCloser(jcfg), TCloser(tcfg, device="cpu")
+def closed_pair(world, tmp_path_factory):
+    """Both services over 12 frames of a closing circle, each writing its
+    dump directory (keyframe JSONs, alignment pairs, the loop's g2o and
+    pose files)."""
+    jcfg, tcfg = configs(if_dump_keyframe_data=1, map_alignment_if_dump_matching_result=1)
+    jdir, tdir = (str(tmp_path_factory.mktemp(n)) for n in ("jax_dump", "port_dump"))
+    jsvc, tsvc = JCloser(jcfg, dump_dir=jdir), TCloser(tcfg, device="cpu", dump_dir=tdir)
     feed(jsvc, tsvc, world, 12, circle=12)
     return jsvc, tsvc
 
@@ -199,11 +206,12 @@ def test_loop_paths_refused_and_on_the_card_by_default(monkeypatch):
     from loam_livox_tpu_torch import OdometryPipeline
 
     _, tcfg = configs()
-    with pytest.raises(NotImplementedError, match="item 13 "):
-        TCloser(tcfg, device="cpu", dump_dir="out")
+    # the dump directory and the dump switches are ported (item 13)
+    assert TCloser(tcfg, device="cpu", dump_dir="out").dump_dir == "out"
     for over in ({"if_dump_keyframe_data": 1}, {"map_alignment_if_dump_matching_result": 1}):
-        with pytest.raises(NotImplementedError, match="item 13 "):
-            OdometryPipeline(tcfg.replace(loop_closure=over), device="cpu")
+        OdometryPipeline(tcfg.replace(loop_closure=over), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 15 "):
+        OdometryPipeline(tcfg.replace(parallel={"mesh_devices": 2}), device="cpu")
     pipe = OdometryPipeline(tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="no accepted loop closure"):
         pipe.get_corrected_map()
@@ -213,3 +221,56 @@ def test_loop_paths_refused_and_on_the_card_by_default(monkeypatch):
         OdometryPipeline(tcfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         TCloser(tcfg)
+
+
+# --------------------------------------------------------------- dumps --
+
+def test_keyframe_dumps_match_jax(closed_pair):
+    """One ``keyframe_<frame>.json`` a keyframe in the reference's cell
+    schema, the member cells of the keyframe: the same files, cells and
+    pools as the JAX package's, the statistics within the tolerances of
+    tests/test_torch_serialization.py."""
+    import glob
+    import json
+    import os
+
+    from test_torch_serialization import assert_cells_match
+
+    jsvc, tsvc = closed_pair
+    names = sorted(os.path.basename(p)
+                   for p in glob.glob(os.path.join(tsvc.dump_dir, "keyframe_*.json")))
+    assert names == sorted(os.path.basename(p)
+                           for p in glob.glob(os.path.join(jsvc.dump_dir, "keyframe_*.json")))
+    assert len(names) == len(tsvc.keyframes)
+    for name in names:
+        with open(os.path.join(tsvc.dump_dir, name)) as f, \
+                open(os.path.join(jsvc.dump_dir, name)) as g:
+            assert_cells_match(json.load(f), json.load(g))
+    # a keyframe's file holds its member cells
+    rec = tsvc.keyframes[0]
+    with open(os.path.join(tsvc.dump_dir, f"keyframe_{rec.ending_frame_idx}.json")) as f:
+        assert len(json.load(f)) == len(key_set(rec.keys))
+    assert tsvc.counts["dump"] >= len(names) + 2
+
+
+@pytest.mark.parametrize("source", ["port", "jax"])
+def test_refine_mapping_matches_jax(closed_pair, source):
+    """The offline rebuild (`loop.map_refine.refine_mapping`) of one dump
+    directory, written by either package, gives the JAX package's points
+    (host numpy on the same files: within 1e-5 m), written as a PCD."""
+    import os
+
+    from loam_livox_tpu.loop.map_refine import refine_mapping as jrefine
+
+    from loam_livox_tpu_torch.io.serialization import load_pcd
+    from loam_livox_tpu_torch.loop.map_refine import refine_mapping as trefine
+
+    jsvc, tsvc = closed_pair
+    d = tsvc.dump_dir if source == "port" else jsvc.dump_dir
+    out = os.path.join(d, "refined.pcd")
+    for stride, res in ((1, 0.0), (2, 0.2)):
+        got = trefine(d, out_pcd=out, stride=stride, resolution=res)
+        want = jrefine(d, stride=stride, resolution=res)
+        assert got.shape == want.shape and len(got) > 100
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+        np.testing.assert_array_equal(load_pcd(out)[0], got)

@@ -13,10 +13,10 @@ equal.  The stream has frames that are not admitted (a 2-frame history
 window with a 0.3 m admission step, so the standstill frames after the
 second are not admitted: the full map then only moves its frame index
 and the mask is all False) and revisits (cell revisit threshold 3
-frames, so a cell seen again after 3 frames restarts).  The JAX package
-also keeps its feature cell maps with loop closure on; nothing reads
-them in history matching, so the port keeps ``None`` there and the
-poses and buffers still agree.
+frames, so a cell seen again after 3 frames restarts).  Both packages
+also keep the feature cell maps with loop closure on (nothing reads them
+in history matching; the command line's ``--save-map`` writes the plane
+map): directory keys, counts and frame index equal as well.
 
 Capacities: ``SMALL_CAPS`` with 10,000 points a frame, matching buffers
 cut to 1,024 / 4,096 points, 2,048 cells of 16 points.
@@ -64,7 +64,7 @@ def state_fields(st) -> dict:
         if name in ("map_corners", "map_surface"):
             for f in ("xyz", "time", "mask"):
                 out[f"{name}.{f}"] = np.array(getattr(v, f))
-        elif name == "cell_full":
+        elif name in ("cell_full", "cell_corners", "cell_planes"):
             for f in CELL_MAP_ARRAYS + ("cell_size", "frame_idx"):
                 out[f"{name}.{f}"] = np.array(getattr(v, f))
         elif isinstance(v, jnp.ndarray):
@@ -95,7 +95,7 @@ def test_teacher_forced_full_map_matches_jax(jax_stream, monkeypatch, t):
     cfg, steps = jax_stream
     before, fr, after, jreg = steps[t]
     state = state_from_numpy(before, "cpu")
-    assert state.cell_corners is None and state.cell_full is not None
+    assert state.cell_corners is not None and state.cell_full is not None
     new, reg = tstep(state, to_port_frame(fr), config_from_dict(dataclasses.asdict(cfg)))
 
     assert bool(reg.accepted) == bool(jreg.accepted)
@@ -113,6 +113,12 @@ def test_teacher_forced_full_map_matches_jax(jax_stream, monkeypatch, t):
         np.testing.assert_allclose(getattr(cells, f).numpy(), after[f"cell_full.{f}"],
                                    rtol=1e-4, atol=1e-3, err_msg=f)
     np.testing.assert_array_equal(new.last_touched.numpy(), after["last_touched"])
+    for name in ("cell_corners", "cell_planes"):
+        fm = getattr(new, name)
+        assert fm.frame_idx == int(after[f"{name}.frame_idx"]) == t + 1
+        for f in ("keys", "count"):
+            np.testing.assert_array_equal(getattr(fm, f).numpy(), after[f"{name}.{f}"],
+                                          err_msg=f"{name}.{f}")
     if not admitted(before, after):
         assert not new.last_touched.any()
         for f in ("keys", "count", "pts"):

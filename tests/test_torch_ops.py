@@ -67,16 +67,18 @@ def test_config_yaml_loads_unchanged(name):
 
 
 @pytest.mark.parametrize("override, item", [
-    ({"loop_closure": {"if_enable_loop_closure": 1, "if_dump_keyframe_data": 1}}, 13),
+    ({"loop_closure": {"if_enable_loop_closure": 1, "if_dump_keyframe_data": 1},
+      "optimization": {"correspondence": "dense"}}, 14),
     ({"parallel": {"mesh_devices": 8}}, 15),
     ({"optimization": {"correspondence": "dense"}}, 14),
     ({"optimization": {"correspondence": "grid"}}, 14),
-    ({"common": {"if_save_to_pcd_files": 1}}, 13),
-    ({"common": {"if_verbose_screen_printf": 0}}, 13),
+    ({"common": {"if_save_to_pcd_files": 1}, "parallel": {"mesh_devices": 2}}, 15),
+    ({"common": {"if_verbose_screen_printf": 0}, "optimization": {"correspondence": "grid"}},
+     14),
     # an unported item on top of a ported path
-    ({"parallel": {"dispatch_chunk": 4},
+    ({"parallel": {"dispatch_chunk": 4, "mesh_devices": 4},
       "loop_closure": {"if_enable_loop_closure": 1, "map_alignment_if_dump_matching_result": 1}},
-     13),
+     15),
     ({"parallel": {"frame_batch": 3, "mesh_devices": 4}}, 15),
 ])
 def test_unported_paths_raise(override, item):
@@ -101,11 +103,17 @@ def test_unported_paths_raise(override, item):
     {"parallel": {"dispatch_chunk": 4}, "loop_closure": {"if_enable_loop_closure": 1}},
     {"common": {"if_motion_deblur": 0}, "parallel": {"frame_batch": 3},
      "loop_closure": {"if_enable_loop_closure": 1}},
+    {"loop_closure": {"if_enable_loop_closure": 1, "if_dump_keyframe_data": 1}},
+    {"common": {"if_save_to_pcd_files": 1}},
+    {"common": {"if_verbose_screen_printf": 0}},
+    {"parallel": {"dispatch_chunk": 4},
+     "loop_closure": {"if_enable_loop_closure": 1, "map_alignment_if_dump_matching_result": 1}},
 ])
 def test_shipped_profile_paths_are_accepted(override):
     """Queue 1 items 9 (piecewise windows, racing, chunked dispatch,
     residual subsampling), 10 (cell matching), 11 (the Velodyne front
-    end) and 12 (loop closure) are ported."""
+    end), 12 (loop closure) and 13 (the host side: loop dumps, pcd files,
+    screen diagnostics) are ported."""
     tcfg.require_supported(tcfg.SlamConfig().replace(**override))
 
 

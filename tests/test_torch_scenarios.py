@@ -35,13 +35,13 @@ def test_scenario_configs_match_jax(name, small):
     assert tscenarios.SMALL_CAPS == jscenarios.SMALL_CAPS
 
 
-@pytest.mark.parametrize("name, item", [("loop_closure", 13)])
+@pytest.mark.parametrize("name, item", [("loop_closure", 15)])
 def test_unported_scenarios_raise(name, item):
-    """Every scenario is ported; the loop scenario with the service's
-    keyframe dumps waits for the host side."""
+    """Every scenario is ported; the loop scenario over several devices
+    waits for multi-GPU."""
     with pytest.raises(NotImplementedError, match=f"item {item} "):
         tscenarios.run_scenario(name, small=True, device="cpu",
-                                overrides={"loop_closure": {"if_dump_keyframe_data": 1}})
+                                overrides={"parallel": {"mesh_devices": 2}})
     assert name in tscenarios.SCENARIOS
 
 

@@ -127,3 +127,60 @@ def test_velodyne_stream_matches_jax():
     assert est_t.shape == truth.shape and acc_t == acc_j and all(acc_t)
     np.testing.assert_allclose(est_t, est_j, rtol=0, atol=0.05)
     np.testing.assert_allclose(est_t, truth, rtol=0, atol=0.05)
+
+
+
+def run_racing(group, monkeypatch, n=8):
+    """``n`` sweeps (the first still, then 3 cm and 2 cm a sweep along x
+    and y) through the racing pipeline (``parallel/frame_batch`` =
+    ``group``, motion guard off); the Velodyne front end is spied on and
+    the Livox extractor refuses.  Returns (pipeline, front-end calls,
+    truth, positions, accept flags)."""
+    from loam_livox_tpu_torch.frontend import livox as tlivox
+    from loam_livox_tpu_torch.runtime import pipeline as tpipe
+
+    calls = []
+    real = tpipe.extract_velodyne_features
+
+    def spy(*args, **kw):
+        calls.append(1)
+        return real(*args, **kw)
+
+    def refuse(*args, **kw):
+        raise AssertionError("a Velodyne sweep reached the Livox extractor")
+
+    monkeypatch.setattr(tpipe, "extract_velodyne_features", spy)
+    monkeypatch.setattr(tlivox, "extract_frame", refuse)
+    monkeypatch.setattr(tlivox, "extract_point_info", refuse)
+    cfg = stream_config().replace(parallel={"frame_batch": group, "batch_motion_guard_t": 0.0})
+    pipe = OdometryPipeline(config_from_dict(dataclasses.asdict(cfg)), device="cpu")
+    truth = np.array([[0.03 * max(i - 1, 0), 0.02 * max(i - 1, 0), 0.0] for i in range(n)])
+    for i, o in enumerate(truth):
+        pts = vlp16_sweep(origin=o)
+        pipe.process_raw(pts, np.zeros(len(pts), np.float32), 0.1 * i)
+    pipe.flush()
+    return pipe, calls, truth, pipe.trajectory.positions_array(), list(pipe.trajectory.accepted)
+
+
+@pytest.mark.parametrize("group", [2, 3])
+def test_racing_sweeps_run_the_velodyne_front_end(monkeypatch, group):
+    """Racing dispatch of Velodyne sweeps: every sweep goes through the
+    Velodyne front end, one lane a sweep, and none reaches the Livox
+    extractor.  The port keeps this on purpose: the JAX package's
+    batched program runs the Livox extractor there (its
+    ``runtime/pipeline.py:203-225``), an oversight, since the reference
+    has no pieces on this path (laser_feature_extractor.hpp:827-864)."""
+    pipe, calls, truth, est, acc = run_racing(group, monkeypatch)
+    assert len(calls) == len(truth) and pipe.raced_groups == -(-len(truth) // group)
+    assert pipe.fallback_groups == 0 and est.shape == truth.shape and all(acc)
+    assert np.all(np.isfinite(est))
+
+
+def test_racing_sweeps_track_the_trajectory(monkeypatch):
+    """Two sweeps a group track the known trajectory within the
+    sequential run's tolerance (0.05 m; measured 0.016 m).  Three a
+    group lag more (up to 0.072 m at 3.6 cm a sweep: the lanes' ICP
+    stops after one or two passes from their coasted starts), noted in
+    ROADMAP.md §3."""
+    pipe, calls, truth, est, acc = run_racing(2, monkeypatch)
+    np.testing.assert_allclose(est, truth, rtol=0, atol=0.05)
