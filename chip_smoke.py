@@ -45,7 +45,12 @@ Phases, each printing JSON lines; any failure exits nonzero:
               just before and read just after, and ``knn_fused`` must
               have launched exactly twice per ICP iteration.  Then the
               kernel on the buffer and queries the main path ended on,
-              torch's sync-debug count against the host-sync audit
+              and at a shard's input (the buffer split evenly into the
+              fewest ranks whose second shard holds valid rows: that
+              shard, a nonzero base, against the plain version, and
+              the shards' searches merged as product mode merges its
+              ranks, bit-equal to the whole buffer's), torch's
+              sync-debug count against the host-sync audit
               (``sync_check``), and a torch.profiler breakdown;
 6. path       the other rows of bench.py (bench.py:129-137) through
               ``process_raw`` at full width, 20 raw frames of 10,000
@@ -57,7 +62,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
               pass: a piece's iterations, a raced group's batched loop),
               raced and fallen-back groups, host syncs a frame by place;
               ``sync_check`` on the precision and racing paths, and the
-              lane-axis kernel on the racing path's own buffer.  Then, at
+              lane-axis kernel on the racing path's own buffer.  The
+              main path's configuration with the ``grid`` engine (40
+              frames) and the ``dense`` engine (20 frames), which never
+              launch ``knn_fused``; product mode on an NCCL group of one
+              rank (``product``: the main path's first 20 frames, rows
+              bit-equal to the main run's), and `eval.scaling.measure_scaling` at
+              that one rank (``scaling``: the sharded kNN and sum against
+              the plain ones at 4,096 x 65,536).  Then, at
               full width, the ``full_mapping`` scenario (60 frames of
               10,000 points, cell matching, 8,192 cells x 32 points; ATE
               < 0.40 m, >= 30 accepted; ``sync_check``; the kernel on its
@@ -76,7 +88,7 @@ Phases, each printing JSON lines; any failure exits nonzero:
               (aligned ATE < 0.45 m and the loop closed, or it fails);
 7. cli        the command line on the card (``python -m
               loam_livox_tpu_torch.cli.run_odometry``, a child process):
-              40 simulator frames (seed 0, 10,000 points) written as a
+              24 simulator frames (seed 0, 10,000 points) written as a
               Livox CustomMsg bag (bz2), replayed at the default
               (precision) profile with registration after 10 frames, with
               ``--loop-closure``, ``--follow``, ``--save-poses``,
@@ -85,8 +97,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
               place (``drain`` and ``log`` included); the follow lines
               equal the pose file, one ``mapping`` line a raw frame, the
               plane cell map loads back with cells in it.  Then, in this process, resume on the
-              card: 40 frames straight, saved after 20; `load_pipeline`
-              and the last 20 again, bit-equal (rows and state tensors);
+              card: 12 frames straight (registration after 4), saved
+              after 8; `load_pipeline` and the last 4 again, bit-equal
+              (rows and state tensors);
               the loop
               artifact's dumps (written by the replays of phase 3) on the
               card against the CPU's, and the card's service through
@@ -97,7 +110,8 @@ Phases, each printing JSON lines; any failure exits nonzero:
               (and on each path), its time, the plain version's, the
               bound and the yardstick on the main path's buffer, the
               lane axis's on the racing path's, and its time on the
-              ``full_mapping`` buffer and at the scene alignment's input.
+              ``full_mapping`` buffer, at the scene alignment's input
+              and at the shard's input.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is
@@ -536,9 +550,11 @@ def run_velodyne(cfg, frames, truth, device):
     return pipe, ate_rmse(est, truth), int(sum(pipe.trajectory.accepted))
 
 
-def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, **extra):
+def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, kernel=True,
+              **extra):
     """Emit a ``path`` line; fail unless the kernel launched twice per
-    ICP loop pass."""
+    ICP loop pass (with ``kernel`` false, the ``grid`` and ``dense``
+    engines: never, over a run that made loop passes)."""
     rows = len(pipe.trajectory.times)
     emit("path", path=label, frames=n_frames, rows=rows, fps=n_frames / wall,
          registrations_per_s=rows / wall, wall_s=wall, ate_aligned=ate, accepted=accepted,
@@ -548,9 +564,123 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, **ext
          host_syncs={k: v / n_frames for k, v in syncs.items()},
          map_corner_fill=int(pipe.state.map_corners.mask.sum()),
          map_surface_fill=int(pipe.state.map_surface.mask.sum()), **extra)
-    if launches != 2 * pipe.loop_iterations or launches <= 0:
+    expected = 2 * pipe.loop_iterations if kernel else 0
+    if launches != expected or pipe.loop_iterations <= 0:
         raise AssertionError(f"{label}: knn_fused launched {launches} times for "
                              f"{pipe.loop_iterations} ICP loop passes")
+
+
+def shard_input(q, ref, mask, n_q, radius):
+    """The kernel at a shard's input: the buffer split evenly into the
+    fewest ranks (a power of two) whose second shard holds the tail of
+    the valid prefix, and that shard (a nonzero base) against the plain
+    version; then every shard searched on its own, the indices moved by
+    their bases and merged by (distance, index) as
+    `parallel.sharded.knn_sharded` merges the ranks' candidates, against
+    the whole buffer's search, bit for bit."""
+    import torch
+
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+    from loam_livox_tpu_torch.ops.knn import finish
+    from loam_livox_tpu_torch.parallel.sharded import merge_candidates
+
+    m, fill = ref.shape[0], int(mask.sum())
+    world = 2
+    while m // world >= fill:
+        world *= 2
+    rows = m // world
+    out = compare_kernel(q, ref[rows:2 * rows], mask[rows:2 * rows], n_q, radius, reps=50)
+    ds, idx = [], []
+    for r in range(world):
+        d, i = kf.knn_fused(q, ref[r * rows:(r + 1) * rows], mask[r * rows:(r + 1) * rows],
+                            k=5, query_count=n_q, max_radius=radius)
+        ds.append(d)
+        idx.append(i + r * rows)
+    d, i = merge_candidates(torch.cat(ds, -1), torch.cat(idx, -1), 5)
+    d, i = finish(d, i.to(torch.int64), None)
+    d0, i0 = kf.knn_fused(q, ref, mask, k=5, query_count=n_q, max_radius=radius)
+    merged_equal = bool(torch.equal(d, d0) and torch.equal(i, i0))
+    out.update(world=world, shard=1, base=rows, shard_rows=rows,
+               shard_valid=int(mask[rows:2 * rows].sum()), merged_equal_unsharded=merged_equal)
+    if not merged_equal:
+        raise AssertionError("the merged shards' search departs from the whole buffer's")
+    return out
+
+
+def engine_path(label, cfg, sim, frames, n, dev, kf, P):
+    """The main path's configuration with another correspondence engine:
+    a warm-up over the first 12 frames, then ``n`` frames counted.  The
+    ``grid`` and ``dense`` engines never launch ``knn_fused``."""
+    import torch
+
+    run_stream(cfg, sim, frames[:12], dev)
+    torch.cuda.synchronize()
+    kf.launches = 0
+    P.reset_host_syncs()
+    t0 = time.perf_counter()
+    pipe, ate, accepted = run_stream(cfg, sim, frames[:n], dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    st = pipe.state
+    extra = {}
+    if st.grid_surface is not None:
+        extra = dict(grid_surface_buckets=int((st.grid_surface.keys != 2 ** 31 - 1).sum()),
+                     grid_surface_slots=int(st.grid_surface.slot_mask.sum()))
+    path_line(label, pipe, n, wall, ate, accepted, kf.launches, P.host_syncs(), kernel=False,
+              correspondence=cfg.optimization.correspondence, **extra)
+    if not (ate < 0.35 and accepted >= n // 2):
+        raise AssertionError(f"{label} path off: ATE {ate}, accepted {accepted}/{n}")
+    return kf.launches
+
+
+def product_phase(cfg, sim, frames, n, dev, kf, P, main_rows, store_dir) -> int:
+    """Product mode on one card: an NCCL group of one rank (a communicator
+    takes a card once), the main path's frames through `OdometryPipeline`
+    with the mesh (the state kept as the rank's slices and gathered for
+    each step, the kNN through `parallel.sharded.knn_sharded`), held bit
+    for bit to the plain single-device run's rows (``main_rows``: times,
+    positions, quaternions, accept flags)."""
+    import torch
+    import torch.distributed as dist
+
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+
+    os.makedirs(store_dir, exist_ok=True)
+    dist.init_process_group("nccl", store=dist.FileStore(os.path.join(store_dir, "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        torch.cuda.synchronize()
+        kf.launches = 0
+        P.reset_host_syncs()
+        t0 = time.perf_counter()
+        pipe = P.OdometryPipeline(cfg, device=dev, mesh=mesh)
+        feed(pipe, frames[:n])
+        pipe.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        tr = pipe.trajectory
+        rows = {"times": np.asarray(tr.times), "positions": tr.positions_array(),
+                "quaternions": np.asarray(tr.quaternions), "accepted": np.asarray(tr.accepted)}
+        equal = {k: bool(np.array_equal(rows[k], main_rows[k])) for k in rows}
+        gt = np.stack([sim.gt_pose_at(t)[1] for t in tr.times])
+        path_line("product", pipe, n, wall, ate_rmse(rows["positions"], gt),
+                  int(rows["accepted"].sum()), kf.launches, P.host_syncs(),
+                  mesh_backend=mesh.backend, mesh_size=mesh.size, rows_equal_plain=equal,
+                  sliced_fields=sum(a is not None for a in pipe._axes))
+        if not all(equal.values()):
+            raise AssertionError(f"product mode departs from the plain run: {equal}")
+        launches = kf.launches
+        # the sharded search and normal-equation sum at one rank against
+        # the plain ones (eval/scaling.py): the product mode's overhead
+        from loam_livox_tpu_torch.eval.scaling import measure_scaling
+
+        emit("scaling", **measure_scaling(mesh, device=dev, reps=20))
+        return launches
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
 
 
 ARTIFACT = os.path.join(HERE, "scripts", "loop_unscaled_state.npz")
@@ -865,7 +995,7 @@ def write_bag(path, n_frames, init):
 
 def cli_phase(C, P, kf, dev, out_dir, card) -> int:
     """The command line as a user runs it, in a child process on the card:
-    a 40-frame bag through the default (precision) profile with loop
+    a 24-frame bag through the default (precision) profile with loop
     closure on (so the state keeps the plane cell map that ``--save-map``
     writes) and ``--follow``, a pose file, a map and logs.  Returns the kernel's
     launches in the child, which counts from 0 and prints them in its
@@ -873,7 +1003,7 @@ def cli_phase(C, P, kf, dev, out_dir, card) -> int:
     from loam_livox_tpu_torch.eval.ate import ate_rmse
     from loam_livox_tpu_torch.io.serialization import load_cell_map_json, load_poses_txt
 
-    n, init = 40, 10
+    n, init = 24, 10
     d = os.path.join(out_dir, "cli")
     os.makedirs(d, exist_ok=True)
     bag = os.path.join(d, "sim.bag")
@@ -943,28 +1073,29 @@ def state_tensors(state) -> dict:
 
 
 def resume_phase(C, dev, out_dir, card) -> None:
-    """Resume on the card (precision profile, default capacities): 40
-    frames straight, checkpointed with `save_pipeline` after 20 (which
-    flushes, as the split run must), against a new pipeline from
-    `load_pipeline` fed the last 20: every trajectory row of those 20
-    frames and every state tensor at the end bit-equal."""
+    """Resume on the card (precision profile, default capacities,
+    registration after 4 frames): 12 frames straight, checkpointed with
+    `save_pipeline` after 8 (which flushes, as the split run must),
+    against a new pipeline from `load_pipeline` fed the last 4: every
+    trajectory row of those 4 frames and every state tensor at the end
+    bit-equal."""
     import torch
 
     from loam_livox_tpu_torch.runtime.checkpoint import load_pipeline, save_pipeline
     from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
 
-    cfg = C.precision_profile().replace(mapping={"init_accumulate_frames": 10})
-    _, frames = simulate(40, 10000, 10)
+    cfg = C.precision_profile().replace(mapping={"init_accumulate_frames": 4})
+    _, frames = simulate(12, 10000, 4)
     t0 = time.perf_counter()
     whole = OdometryPipeline(cfg, device=dev)
-    feed(whole, frames[:20])
+    feed(whole, frames[:8])
     ckpt = os.path.join(out_dir, "resume_ckpt")
     save_pipeline(whole, ckpt)
     split_rows = len(whole.trajectory.times)
-    feed(whole, frames[20:])
+    feed(whole, frames[8:])
     whole.flush()
     second = load_pipeline(ckpt, cfg, device=dev)
-    feed(second, frames[20:])
+    feed(second, frames[8:])
     second.flush()
     torch.cuda.synchronize()
     keys = ("times", "positions", "quaternions", "accepted")
@@ -975,11 +1106,11 @@ def resume_phase(C, dev, out_dir, card) -> None:
     differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
                                    else a[k] == b[k])]
     rows = len(second.trajectory.times)
-    emit("resume", frames=40, split_at=20, rows_after_split=rows, rows_equal=rows_equal,
+    emit("resume", frames=12, split_at=8, rows_after_split=rows, rows_equal=rows_equal,
          state_fields=len(a), state_fields_differing=differ,
          accepted=int(sum(whole.trajectory.accepted)), seconds=time.perf_counter() - t0,
          card=card)
-    if not (rows_equal and not differ and rows == 60 and split_rows == 60):
+    if not (rows_equal and not differ and rows == 12 and split_rows == 24):
         raise AssertionError(f"the resumed run departs from the straight one: {differ}")
 
 
@@ -1220,6 +1351,7 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
     cfg = C.SlamConfig().replace(mapping={"init_accumulate_frames": 10})
     n = 40
     sim, frames = simulate(n + 5, 10000, 10)
+    sim_main, frames_main = sim, frames
     run_stream(cfg, sim, frames[:12], dev)          # warm-up: first registrations
     torch.cuda.synchronize()
     kf.launches = 0
@@ -1242,6 +1374,9 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
     if not (ate < 0.35 and accepted >= n // 2):
         raise AssertionError(f"main path off: ATE {ate}, accepted {accepted}/{n}")
     launches_by_path = {"main": launches}
+    tr = pipe.trajectory
+    main_rows = {"times": np.asarray(tr.times), "positions": tr.positions_array(),
+                 "quaternions": np.asarray(tr.quaternions), "accepted": np.asarray(tr.accepted)}
 
     # 6. the kernel line, timed on the buffer and queries the main path ended on
     from loam_livox_tpu_torch.core import se3
@@ -1254,6 +1389,12 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
                        reps=50)
     worst_err = max(worst_err, r["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer", **r)
+    # the kernel at a shard's input: a slice of the same buffer with a
+    # nonzero base, and the shards merged as product mode merges its ranks
+    r_shard = shard_input(qs, st.map_surface.xyz, st.map_surface.mask, n_qs, 50.0 ** 0.5)
+    worst_err = max(worst_err, r_shard["max_abs_err"])
+    emit("kernel", kernel="knn_fused", search="surfaces, a shard of the main-path buffer",
+         **r_shard)
 
     # torch's own count of synchronising calls over three more frames of
     # the same run (a cross-check of the audit in runtime/pipeline.py)
@@ -1361,6 +1502,18 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
     worst_err = max(worst_err, r_lanes["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, racing-path buffer, 9 lanes",
          **r_lanes)
+
+    # the other correspondence engines at the main path's configuration
+    # (grid: 40 frames, dense: 20), and product mode on one card
+    main_cfg = C.SlamConfig().replace(mapping={"init_accumulate_frames": 10})
+    for label, n_e in (("grid", n), ("dense", 20)):
+        cfg_e = main_cfg.replace(optimization={"correspondence": label})
+        launches_by_path[label] = engine_path(label, cfg_e, sim_main, frames_main, n_e, dev,
+                                              kf, P)
+    n_prod = 20
+    launches_by_path["product"] = product_phase(
+        main_cfg, sim_main, frames_main, n_prod, dev, kf, P,
+        {k: v[:n_prod] for k, v in main_rows.items()}, os.path.join(dump_root, "product"))
 
     # 9. cell matching at full width: the full_mapping scenario's own
     # configuration and stream (60 frames of 10,000 points, registration
@@ -1489,7 +1642,10 @@ def run_phases(args, C, build, kf, P, loop_sim) -> int:
         "full_mapping_library_ms": r_f["library_ms"],
         "alignment_ms": r_align["ms"], "alignment_kernel_ms": r_align["kernel_ms"],
         "alignment_bound_ms": r_align["bound_ms"], "alignment_plain_ms": r_align["plain_ms"],
-        "alignment_library_ms": r_align["library_ms"], "launches_by_path": launches_by_path}]
+        "alignment_library_ms": r_align["library_ms"],
+        "shard_ms": r_shard["ms"], "shard_kernel_ms": r_shard["kernel_ms"],
+        "shard_bound_ms": r_shard["bound_ms"], "shard_plain_ms": r_shard["plain_ms"],
+        "shard_library_ms": r_shard["library_ms"], "launches_by_path": launches_by_path}]
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -14,8 +14,15 @@ Data sources:
 
 The flags, their defaults and ``--set`` are the JAX command line's, plus
 ``--device`` (default ``cuda``; ``cpu`` runs the plain versions of the
-kernels on the CPU).  ``--mesh N`` with N > 1 is refused (multi-GPU is
-not ported).  ``--follow`` prints one JSON line a trajectory row as the
+kernels on the CPU).  ``--mesh N`` with N > 1 runs the product mode
+(`runtime.pipeline`, `parallel`) over N ranks, one process a device,
+under a launcher that sets the group's environment (NCCL on the cards,
+gloo with ``--device cpu``); rank 0 prints and writes the outputs:
+
+    torchrun --nproc-per-node 2 -m loam_livox_tpu_torch.cli.run_odometry \
+        --mesh 2 --device cpu --source sim --frames 20
+
+``--follow`` prints one JSON line a trajectory row as the
 rows reach the host, which then happens after every raw frame (one
 ``drain`` read a frame).  The last line is a JSON summary: the JAX
 command line's keys, and the device, the host reads of device values by
@@ -60,7 +67,8 @@ def parse_args(argv=None):
     p.add_argument("--save-map", default=None,
                    help="write the plane cell map as reference-format JSON")
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="parallel/mesh_devices (more than one device is not ported)")
+                   help="parallel/mesh_devices: N > 1 runs the product mode over the N "
+                        "ranks of a launcher such as torchrun")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--quiet", action="store_true")
     p.add_argument("--follow", action="store_true",
@@ -154,9 +162,21 @@ def main(argv=None):
     from ..ops import knn_fused
     from ..runtime import pipeline as P
 
+    mesh = own_group = None
+    if cfg.parallel.mesh_devices > 1:
+        import torch.distributed as dist
+
+        from ..parallel.mesh import initialize_multihost
+
+        own_group = not dist.is_initialized()     # else the caller's group
+        mesh = initialize_multihost(backend="gloo" if args.device == "cpu" else None)
+    lead = mesh is None or mesh.rank == 0
+    if not lead:
+        args.follow, args.quiet = False, True
+        args.save_poses = args.log_dir = None
     P.reset_host_syncs()
     knn_fused.launches = 0
-    pipe = P.OdometryPipeline(cfg, device=args.device, log_dir=args.log_dir)
+    pipe = P.OdometryPipeline(cfg, device=args.device, log_dir=args.log_dir, mesh=mesh)
     pipe.eager_drain = args.follow
     followed = 0
 
@@ -199,10 +219,18 @@ def main(argv=None):
     if args.save_map:
         from ..runtime.checkpoint import export_reference_map
 
-        export_reference_map(pipe.state, args.save_map)
+        state = pipe.state          # every rank takes part in the gather
+        if lead:
+            export_reference_map(state, args.save_map)
     pipe.logger.close()
     if pipe.loop_closer is not None:
         pipe.loop_closer.shutdown()
+    if own_group:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    if not lead:
+        return 0
 
     summary = {
         "frames": n,

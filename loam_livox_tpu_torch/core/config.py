@@ -8,14 +8,16 @@ mirror the reference's ROS parameters (``common/``,
 ``loop_closure/``); ``capacity`` and ``parallel`` size the padded
 buffers and the execution modes.
 
-The port runs a slice of the configuration space: the Livox front end
-with motion deblur or piecewise windows (the shipped precision and
-realtime profiles) or the Velodyne front end, history or cell
-matching, one device, with sequential, chunked or racing dispatch,
-optional residual subsampling, and loop closure (keyframes, scene
-alignment, pose graph; inline or on a worker thread).
-`require_supported` raises ``NotImplementedError`` on every
-other path, naming the ``ROADMAP.md`` item that ports it.
+The port runs the whole configuration space of the JAX package: the
+Livox front end with motion deblur or piecewise windows (the shipped
+precision and realtime profiles) or the Velodyne front end, history or
+cell matching, the kernel, grid or dense correspondence engine, one
+device or product mode over a process group, with sequential, chunked
+or racing dispatch, optional residual subsampling, and loop closure
+(keyframes, scene alignment, pose graph; inline or on a worker thread).
+``capacity.auto_schedule`` is accepted and ignored (the port runs at
+the configured capacities).  `require_supported` raises ``ValueError``
+on a front end or engine name that none of these is.
 """
 from __future__ import annotations
 
@@ -310,21 +312,14 @@ def largescale_profile() -> SlamConfig:
 
 
 def require_supported(cfg: SlamConfig) -> None:
-    """Raise ``NotImplementedError`` on any configuration path outside
-    the ported slice, naming the ROADMAP.md queue-1 item that ports it."""
+    """Raise ``ValueError`` on a configuration that names no path of the
+    port: a front end other than ``livox`` and ``velodyne``, or a
+    correspondence engine other than ``auto``, ``pallas``, ``dense`` and
+    ``grid``.  Every configuration of the JAX package is accepted."""
     c, o = cfg.common, cfg.optimization
-    p = cfg.parallel
-
-    def refuse(what: str, item: int, title: str):
-        raise NotImplementedError(
-            f"{what} is not ported yet: ROADMAP.md queue 1 item {item} "
-            f"({title})")
-
     if c.lidar_type not in ("livox", "velodyne"):
         raise ValueError(f"common/lidar_type={c.lidar_type!r}: the front ends are "
                          "'livox' and 'velodyne'")
-    if p.mesh_devices > 1:
-        refuse(f"parallel/mesh_devices={p.mesh_devices}", 15, "multi-GPU")
-    if o.correspondence not in ("auto", "pallas"):
-        refuse(f"optimization/correspondence={o.correspondence!r}", 14,
-               "other correspondence engines")
+    if o.correspondence not in ("auto", "pallas", "dense", "grid"):
+        raise ValueError(f"optimization/correspondence={o.correspondence!r}: the engines "
+                         "are 'auto', 'pallas', 'dense' and 'grid'")

@@ -14,6 +14,10 @@ Python and numpy values (this module imports nothing of JAX).
   A JAX cell map of one slot (its placeholder when nothing reads the
   maps) becomes ``None``, the port's placeholder; so do the full-cloud
   map ``cell_full.*`` and ``last_touched`` of a run without loop closure.
+  The bucket grids come across when the fields hold them
+  (``grid_corners.keys``, ``.pts``, ``.src_idx``, ``.slot_mask``,
+  ``.bucket_size``); give them for a ``grid`` run only, since the port
+  keeps ``None`` under the other engines.
 * `loop_state_from_npz` reads the loop service's state as the JAX
   package's ``runtime/checkpoint.save_loop_state`` writes it (one
   ``.npz``: ``kf{i}_*`` keyframe records with descriptors and era
@@ -32,6 +36,7 @@ from .core.config import SlamConfig, from_dict
 from .core.types import PointBatch
 from .loop.keyframe import KeyframeDescriptor
 from .map.cell_map import CellMap
+from .ops.bucket_grid import BucketGrid
 from .runtime.loop_service import KeyframeRecord, LoopClosureResult, _Accumulator, settle
 from .runtime.odometry import OdometryState
 
@@ -71,6 +76,14 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         return (cell_map_from_numpy(fields, prefix, device)
                 if f"{prefix}.keys" in fields else None)
 
+    def grid(prefix):
+        if f"{prefix}.keys" not in fields:
+            return None
+        return BucketGrid(bucket_size=float(np.asarray(fields[f"{prefix}.bucket_size"])),
+                          keys=t(f"{prefix}.keys", torch.int32), pts=t(f"{prefix}.pts"),
+                          src_idx=t(f"{prefix}.src_idx", torch.int32),
+                          slot_mask=t(f"{prefix}.slot_mask", torch.bool))
+
     cell_full = cells("cell_full")
     return OdometryState(
         q_w=t("q_w"), t_w=t("t_w"),
@@ -90,6 +103,8 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         rng=torch.Generator(device=device).manual_seed(0),
         cell_full=cell_full,
         last_touched=(t("last_touched", torch.bool) if cell_full is not None else None),
+        grid_corners=grid("grid_corners"),
+        grid_surface=grid("grid_surface"),
     )
 
 

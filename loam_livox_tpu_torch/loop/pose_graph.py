@@ -18,7 +18,10 @@ read).  Three solvers, as in the JAX package:
 * `optimize_pose_graph_cg`: per-edge (6, 12) Jacobians
   (``vmap(jacfwd)``) and matrix-free Jacobi-preconditioned CG;
 * `optimize_pose_graph_chain`: block-Thomas over the odometry chain and
-  a Woodbury update for the loop edges, exact and O(N) an iteration.
+  a Woodbury update for the loop edges, exact and O(N) an iteration;
+
+and `optimize_pose_graph_sharded`, the CG solve with the edges split
+over a product mesh's ranks.
 
 Linear solves go through ``solve_ex`` / ``inv_ex``, which do not read an
 error flag on the host.
@@ -286,12 +289,57 @@ def optimize_pose_graph_chain(g: PoseGraph, iterations: int = 10):
     return q, t, cost
 
 
-def optimize_pose_graph_sharded(g: PoseGraph, mesh=None, iterations: int = 25,
-                                cg_iterations: int = 50, axis: str = "shard"):
-    """The edge-sharded CG solve over a device mesh: multi-GPU work."""
-    raise NotImplementedError(
-        "optimize_pose_graph_sharded is not ported yet: ROADMAP.md queue 1 item 15 "
-        "(multi-GPU)")
+def optimize_pose_graph_sharded(g: PoseGraph, mesh, iterations: int = 25,
+                                cg_iterations: int = 50):
+    """`optimize_pose_graph_cg` with the edge set split over a product
+    mesh's ranks (`parallel.mesh.Mesh`): each rank holds E/size edges
+    and their Jacobian blocks and builds partial gradients, diagonals,
+    Hessian-vector products and costs; the node-space results are summed
+    over the group (one (N, 6) vector a CG step).  Poses replicate.  The
+    edge count must divide by the world size (pad with masked edges).
+    Equal to `optimize_pose_graph_cg` up to the order of the sums."""
+    import torch.distributed as dist
+
+    from ..parallel.sharded import shard_rows
+
+    def psum(x):
+        dist.all_reduce(x)
+        return x
+
+    rows = shard_rows(g.edge_i.shape[0], mesh)
+    gl = g._replace(node_mask=torch.ones_like(g.node_mask), edge_i=g.edge_i[rows],
+                    edge_j=g.edge_j[rows], rel_q=g.rel_q[rows], rel_t=g.rel_t[rows],
+                    weight_t=g.weight_t[rows], weight_r=g.weight_r[rows],
+                    edge_mask=g.edge_mask[rows])
+    n = g.q.shape[0]
+
+    def cost(q, t):
+        r = edge_residuals(gl, q, t)
+        return 0.5 * psum((r * r).sum())
+
+    q, t, lam = g.q, g.t, torch.full((), 1e-4, device=g.q.device)
+    cost0 = cost(q, t)
+    for _ in range(iterations):
+        r = edge_residuals(gl, q, t)
+        Ja, Jb = edge_jacobians(gl, q, t)
+        grad, diag = _assemble_b_diag(gl, Ja, Jb, r, n)
+        grad, diag = psum(grad), psum(diag)
+        b = _gauge_project(-grad)
+        damp = lam * diag + 1e-9
+
+        def matvec(x, Ja=Ja, Jb=Jb, damp=damp):
+            x = _gauge_project(x)
+            return _gauge_project(psum(_hvp(gl, Ja, Jb, x)) + damp * x) + _node0(x)
+
+        pre = _gauge_project(diag + damp) + _node0(torch.ones_like(diag))
+        d = _gauge_project(_cg(matvec, b, cg_iterations, lambda x, pre=pre: x / pre))
+        q_new, t_new = _apply_delta(q, t, d)
+        cost_new = cost(q_new, t_new)
+        accept = cost_new < cost0
+        q, t = torch.where(accept, q_new, q), torch.where(accept, t_new, t)
+        lam = torch.where(accept, lam * 0.3, lam * 5.0)
+        cost0 = torch.minimum(cost_new, cost0)
+    return q, t, cost0
 
 
 def build_odometry_chain(qs: torch.Tensor, ts: torch.Tensor, weight_t: float = 1.0,

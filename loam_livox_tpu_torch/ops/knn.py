@@ -82,3 +82,30 @@ def knn(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
         out_d[:n_q, :kk] = d_s[:, :kk]
         out_i[:n_q, :kk] = i_s[:, :kk]
     return finish(out_d, out_i, max_radius)
+
+
+def knn_dense(query_xyz: torch.Tensor, ref_xyz: torch.Tensor, ref_mask: torch.Tensor,
+              k: int = 5, query_tile: int = 1024):
+    """The ``dense`` correspondence engine: what the JAX package's dense
+    engine computes off the TPU (``loam_livox_tpu/ops/knn.py:119``,
+    exact top-k).  Distances are the expanded ``‖q‖² + ‖r‖² − 2⟨q, r⟩``
+    (masked references ``+ BIG``), floored at 0; the k smallest per
+    query, ties to the lower index; no radius gate, no query count.
+    Queries are taken ``query_tile`` rows at a time, each a (tile, M)
+    block; (L, Q, 3) queries are searched lane by lane."""
+    if query_xyz.dim() == 3:
+        out = [knn_dense(q, ref_xyz, ref_mask, k, query_tile) for q in query_xyz]
+        return torch.stack([d for d, _ in out]), torch.stack([i for _, i in out])
+    ref = ref_xyz.float()
+
+    def sq3(x):
+        return (x[..., 0] * x[..., 0] + x[..., 1] * x[..., 1]) + x[..., 2] * x[..., 2]
+
+    ref2 = sq3(ref) + torch.where(ref_mask, 0.0, BIG)
+    ds, idxs = [], []
+    for q in query_xyz.float().split(max(1, query_tile)):
+        d = (sq3(q)[:, None] + ref2[None, :]) - 2.0 * (q @ ref.T)
+        d_s, i_s = torch.sort(d, dim=1, stable=True)
+        ds.append(torch.clamp(d_s[:, :k], min=0.0))
+        idxs.append(i_s[:, :k].to(torch.int32))
+    return torch.cat(ds), torch.cat(idxs)

@@ -23,6 +23,15 @@ every lane has converged, and a lane that has converged (or never ran)
 is frozen: its increment, cost and block count stop changing.
 `register_frame` is the one-lane case.
 
+The correspondence engine follows ``optimization/correspondence``:
+``auto`` and ``pallas`` search with the hand-written kernel
+(`ops.knn_fused`); ``grid`` with the bucket grids over the matching
+buffer (`ops.bucket_grid`), when the state carries them; ``dense`` (and
+``grid`` without grids) with `ops.knn.knn_dense`, which ranks as the JAX
+package's dense engine does.  Under a product mesh
+(`parallel.mesh.active_mesh`) the kernel's search runs sharded over the
+ranks (`parallel.sharded.knn_sharded`), bit for bit the same result.
+
 The outer loop exits early, so the host reads whether any lane is
 still active once per iteration: at most ``icp_maximum_iteration`` + 1
 device syncs a registration (`SYNCS` counts them).
@@ -37,8 +46,11 @@ import torch
 from ..core import accounting, se3
 from ..core.config import SlamConfig
 from ..core.types import PointBatch, to_device
+from ..ops.bucket_grid import BucketGrid, grid_knn
+from ..ops.knn import knn_dense
 from ..ops.knn_fused import build_ref_operand, knn_fused
 from ..ops.masked import random_keep_mask
+from ..parallel import mesh
 from . import residuals as res
 from .gauss_newton import solve_two_phase
 
@@ -77,16 +89,51 @@ def refine_blur(time, tmin, tmax, deblur: bool):
     return torch.clamp(s, 0.0, 1.0)
 
 
+def resolve_correspondence_engine(opt, grids: bool) -> str:
+    """``pallas`` (the kernel) for ``auto`` and ``pallas``; ``grid`` when
+    asked and the grids are there; else ``dense`` (as the JAX search
+    block falls through, ``loam_livox_tpu/registration/icp.py:178-210``)."""
+    if opt.correspondence in ("auto", "pallas"):
+        return "pallas"
+    return "grid" if opt.correspondence == "grid" and grids else "dense"
+
+
+def _searcher(engine: str, ref: PointBatch, grid: BucketGrid | None, k: int,
+              radius: float, query_tile: int):
+    """``search(queries, counts)`` over one matching buffer: its kernel
+    operand (or the rank's shard of it) is built once a registration."""
+    if engine == "grid":
+        return lambda q, counts: grid_knn(q, grid, k=k)
+    if engine == "dense":
+        return lambda q, counts: knn_dense(q, ref.xyz, ref.mask, k=k, query_tile=query_tile)
+    group = mesh.active_mesh()
+    if group is not None and ref.capacity % group.size == 0:
+        # the layout shards the buffer's point axis when it divides
+        from ..parallel.sharded import knn_sharded, shard_rows
+
+        rows = shard_rows(ref.capacity, group)
+        ref_op = build_ref_operand(ref.xyz[rows], ref.mask[rows])
+        return lambda q, counts: knn_sharded(q, ref.xyz, ref.mask, group, k=k,
+                                             query_count=counts, max_radius=radius,
+                                             ref_op=ref_op)
+    ref_op = build_ref_operand(ref.xyz, ref.mask)
+    return lambda q, counts: knn_fused(q, ref.xyz, ref.mask, k=k, ref_op=ref_op,
+                                       query_count=counts, max_radius=radius)
+
+
 def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
                     map_corners: PointBatch, map_surface: PointBatch,
                     q_last, t_last, time_min, time_max, enabled,
                     cfg: SlamConfig, q_incre_init=None, t_incre_init=None,
-                    rng: torch.Generator | None = None):
+                    rng: torch.Generator | None = None,
+                    grid_corners: BucketGrid | None = None,
+                    grid_surface: BucketGrid | None = None):
     """Register L feature frames (every tensor with a leading lane axis:
     frames (L, N, ...), start poses (L, 4) / (L, 3), times (L,)) against
     one matching buffer.  ``enabled`` holds one host bool a lane; a lane
     that is not enabled (init window) keeps its start pose.  ``rng``
-    draws the uniforms of residual subsampling, when that is on.
+    draws the uniforms of residual subsampling, when that is on.  The
+    bucket grids over the buffer serve the ``grid`` engine.
 
     Returns ``(result, loops)``: the result with a lane axis on every
     field (``iterations`` an (L,) tensor) and the number of loop passes,
@@ -119,13 +166,16 @@ def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
         # kernel's reference operands once.  The query sets are voxel
         # filter outputs (valid prefixes), so their counts bound the
         # query tiles; the radii are the correspondence gates.
-        ref_c = build_ref_operand(map_corners.xyz, map_corners.mask)
-        ref_s = build_ref_operand(map_surface.xyz, map_surface.mask)
+        engine = resolve_correspondence_engine(
+            opt, grid_corners is not None and grid_surface is not None)
+        tile = cfg.capacity.knn_query_tile
+        search_c = _searcher(engine, map_corners, grid_corners, opt.line_search_num,
+                             float(opt.maximum_dis_line_for_match) ** 0.5, tile)
+        search_s = _searcher(engine, map_surface, grid_surface, opt.plane_search_num,
+                             float(opt.maximum_dis_plane_for_match) ** 0.5, tile)
         n_qc = frame_corners.mask.sum(dim=-1, dtype=torch.int32)
         n_qs = frame_surface.mask.sum(dim=-1, dtype=torch.int32)
         no_queries = torch.zeros((), dtype=torch.int32, device=dev)
-        radius_c = float(opt.maximum_dis_line_for_match) ** 0.5
-        radius_s = float(opt.maximum_dis_plane_for_match) ** 0.5
         q_last_opt, t_last_opt = q_incre, t_incre
         active = run
         while loops < opt.icp_maximum_iteration:
@@ -137,14 +187,8 @@ def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
             qs = res.transform_points_incre(q_incre, t_incre, frame_surface.xyz,
                                             s_surf, q_last, t_last, deblur)
             # a frozen lane's results are discarded: give it no queries
-            cd, ci = knn_fused(qc, map_corners.xyz, map_corners.mask,
-                               k=opt.line_search_num, ref_op=ref_c,
-                               query_count=torch.where(active, n_qc, no_queries),
-                               max_radius=radius_c)
-            sd, si = knn_fused(qs, map_surface.xyz, map_surface.mask,
-                               k=opt.plane_search_num, ref_op=ref_s,
-                               query_count=torch.where(active, n_qs, no_queries),
-                               max_radius=radius_s)
+            cd, ci = search_c(qc, torch.where(active, n_qc, no_queries))
+            sd, si = search_s(qs, torch.where(active, n_qs, no_queries))
             line_tgt = res.build_line_targets(cd, ci, map_corners.xyz,
                                               frame_corners.mask,
                                               opt.maximum_dis_line_for_match)
@@ -234,8 +278,9 @@ def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
                    map_corners: PointBatch, map_surface: PointBatch,
                    q_last, t_last, time_min, time_max, enabled: bool,
                    cfg: SlamConfig, q_incre_init=None,
-                   t_incre_init=None, rng: torch.Generator | None = None
-                   ) -> RegistrationResult:
+                   t_incre_init=None, rng: torch.Generator | None = None,
+                   grid_corners: BucketGrid | None = None,
+                   grid_surface: BucketGrid | None = None) -> RegistrationResult:
     """Register one feature frame against the matching buffer: the
     one-lane case of `register_frames`, with ``iterations`` a host int.
     With ``enabled`` false (init window) the frame keeps the previous
@@ -249,6 +294,7 @@ def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
     result, loops = register_frames(
         batch(frame_corners), batch(frame_surface), map_corners, map_surface,
         one(q_last), one(t_last), one(time_min), one(time_max), [enabled], cfg,
-        q_incre_init=one(q_incre_init), t_incre_init=one(t_incre_init), rng=rng)
+        q_incre_init=one(q_incre_init), t_incre_init=one(t_incre_init), rng=rng,
+        grid_corners=grid_corners, grid_surface=grid_surface)
     # one lane runs exactly as many iterations as the loop made passes
     return lane(result, 0)._replace(iterations=loops)

@@ -53,7 +53,8 @@ def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
         stack_batches([c for c, _ in inputs]), stack_batches([s for _, s in inputs]),
         state.map_corners, state.map_surface, torch.stack(q_inits), torch.stack(t_inits),
         torch.stack([f.time_min for f in frames]), torch.stack([f.time_max for f in frames]),
-        enabled, cfg, rng=state.rng)
+        enabled, cfg, rng=state.rng, grid_corners=state.grid_corners,
+        grid_surface=state.grid_surface)
 
     out = []
     touched = None

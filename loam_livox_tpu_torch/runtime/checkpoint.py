@@ -39,6 +39,7 @@ from ..core.config import SlamConfig
 from ..core.types import PointBatch, resolve_device
 from ..map.cell_map import EMPTY_KEY, CellMap
 from .loop_service import LoopCloser
+from ..ops.bucket_grid import BucketGrid
 from .odometry import OdometryState, init_state
 
 # ---- the odometry state ------------------------------------------------------
@@ -52,7 +53,7 @@ def _pack(value):
         return value.detach().cpu()
     if isinstance(value, torch.Generator):
         return {"generator": value.get_state(), "device": value.device.type}
-    if isinstance(value, (PointBatch, CellMap)):
+    if isinstance(value, (PointBatch, CellMap, BucketGrid)):
         return {f: _pack(getattr(value, f)) for f in value._fields}
     raise TypeError(f"cannot checkpoint a {type(value).__name__}")
 
@@ -68,7 +69,7 @@ def _unpack(saved, ref, name: str, device):
     if ref is None or saved is None:
         if (ref is None) != (saved is None):
             raise ValueError(f"checkpoint field {name}: {'no' if saved is None else 'a'} "
-                             "cell map where the config has "
+                             "cell map or bucket grid where the config has "
                              f"{'none' if ref is None else 'one'}")
         return None
     if isinstance(ref, torch.Generator):
@@ -80,7 +81,7 @@ def _unpack(saved, ref, name: str, device):
             # start from the seed of a new state (load_state warns)
             gen.manual_seed(0)
         return gen
-    if isinstance(ref, (PointBatch, CellMap)):
+    if isinstance(ref, (PointBatch, CellMap, BucketGrid)):
         return type(ref)(**{f: _unpack(saved[f], getattr(ref, f), f"{name}.{f}", device)
                             for f in ref._fields})
     if isinstance(ref, torch.Tensor):
@@ -218,19 +219,29 @@ def save_pipeline(pipe, directory: str) -> None:
     """Checkpoint an `OdometryPipeline`: flush (which dispatches a partial
     chunk or group and drains the loop worker), then the odometry state
     (``odometry``, the port's format) and, with loop closure, the loop
-    service (``loop_state.npz``, the shared format)."""
-    os.makedirs(directory, exist_ok=True)
+    service (``loop_state.npz``, the shared format).  In product mode
+    every rank calls it: the state is gathered from the ranks' slices
+    (`parallel.layout.gather_state`), rank 0 writes, and every rank
+    returns once the files are there."""
     pipe.flush()
-    save_state(pipe.state, os.path.join(directory, "odometry"))
-    if pipe.loop_closer is not None:
-        save_loop_state(pipe.loop_closer, os.path.join(directory, "loop_state.npz"))
+    state = pipe.state
+    if pipe.mesh is None or pipe.mesh.rank == 0:
+        os.makedirs(directory, exist_ok=True)
+        save_state(state, os.path.join(directory, "odometry"))
+        if pipe.loop_closer is not None:
+            save_loop_state(pipe.loop_closer, os.path.join(directory, "loop_state.npz"))
+    if pipe.mesh is not None:
+        import torch.distributed as dist
+
+        dist.barrier()          # every rank returns once the files are written
 
 
-def load_pipeline(directory: str, cfg: SlamConfig, device=None):
-    """A new pipeline resumed from a directory written by `save_pipeline`."""
+def load_pipeline(directory: str, cfg: SlamConfig, device=None, mesh=None):
+    """A new pipeline resumed from a directory written by `save_pipeline`;
+    in product mode every rank loads the file and keeps its slices."""
     from .pipeline import OdometryPipeline
 
-    pipe = OdometryPipeline(cfg, device=device)
+    pipe = OdometryPipeline(cfg, device=device, mesh=mesh)
     pipe.state = load_state(os.path.join(directory, "odometry"), cfg, pipe.device)
     loop_path = os.path.join(directory, "loop_state.npz")
     if pipe.loop_closer is not None and os.path.exists(loop_path):

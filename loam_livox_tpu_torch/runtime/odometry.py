@@ -28,8 +28,12 @@ with cell matching, which reads them, or with loop closure, where the
 plane map is what the command line's ``--save-map`` writes; elsewhere
 they are ``None`` (the JAX package keeps 1-slot dummies).  The
 full-cloud cell map ``cell_full`` and its touched-cell mask
-``last_touched`` are ``None`` unless loop closure is on.  The bucket grids of the grid engine are not
-ported.
+``last_touched`` are ``None`` unless loop closure is on.  The bucket
+grids over the matching buffer (``grid_corners`` / ``grid_surface``,
+`ops.bucket_grid`) are built at init and at every full rebuild under
+the ``grid`` correspondence engine, and are ``None`` under every other;
+a grid has no append, so appends between rebuilds are off under
+``grid`` (``loam_livox_tpu/runtime/odometry.py:393-396``).
 In place of the JAX rng key the state carries a ``torch.Generator`` on
 the device, which draws the uniforms of residual subsampling
 (``optimization/subsample_residuals``); its draws cannot match JAX's.
@@ -52,6 +56,7 @@ from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, PointBatch
 from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius,
                             empty_cell_map, gather_cell_points, skip_frame)
+from ..ops.bucket_grid import BucketGrid, build_bucket_grid
 from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
 from ..registration.icp import RegistrationResult, refine_blur, register_frame
@@ -81,6 +86,20 @@ class OdometryState(NamedTuple):
     rng: torch.Generator            # residual subsampling draws
     cell_full: CellMap | None = None          # full-cloud cell map (loop closure)
     last_touched: torch.Tensor | None = None  # (C,) cells this frame gave >= 3 points
+    grid_corners: BucketGrid | None = None    # bucket grids over the buffer (grid engine)
+    grid_surface: BucketGrid | None = None
+
+
+def build_grids(map_corners: PointBatch, map_surface: PointBatch, cfg: SlamConfig):
+    """The bucket grids over the matching buffer under the ``grid``
+    engine, else ``(None, None)``."""
+    if cfg.optimization.correspondence != "grid":
+        return None, None
+    opt, caps = cfg.optimization, cfg.capacity
+    return (build_bucket_grid(map_corners.xyz, map_corners.mask, opt.corner_bucket_size,
+                              caps.corner_bucket_count, caps.corner_bucket_cap),
+            build_bucket_grid(map_surface.xyz, map_surface.mask, opt.surf_bucket_size,
+                              caps.surf_bucket_count, caps.surf_bucket_cap))
 
 
 def init_state(cfg: SlamConfig, device) -> OdometryState:
@@ -96,6 +115,9 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
                               caps.cell_point_capacity, device)
 
     loop = bool(cfg.loop_closure.if_enable_loop_closure)
+    map_corners = PointBatch.empty(caps.map_corner_capacity, device)
+    map_surface = PointBatch.empty(caps.map_surf_capacity, device)
+    grid_corners, grid_surface = build_grids(map_corners, map_surface, cfg)
     return OdometryState(
         q_w=se3.quat_identity(device=device),
         t_w=torch.zeros(3, **f32),
@@ -114,12 +136,14 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         last_t_incre=torch.zeros(3, **f32),
         cell_corners=cells(cfg.mapping.matching_mode == 1 or loop),
         cell_planes=cells(cfg.mapping.matching_mode == 1 or loop),
-        map_corners=PointBatch.empty(caps.map_corner_capacity, device),
-        map_surface=PointBatch.empty(caps.map_surf_capacity, device),
+        map_corners=map_corners,
+        map_surface=map_surface,
         rng=torch.Generator(device=device).manual_seed(0),
         cell_full=cells(loop),
         last_touched=(torch.zeros((caps.cell_capacity,), dtype=torch.bool, device=device)
                       if loop else None),
+        grid_corners=grid_corners,
+        grid_surface=grid_surface,
     )
 
 
@@ -183,9 +207,16 @@ def rebuild_interval(cfg: SlamConfig) -> int:
     interval = int(caps.matching_rebuild_interval)
     if interval == 0:
         interval = max(1, round(cfg.mapping.maximum_pointcloud_delay_time / 0.1))
-        if caps.matching_append_mode:
+        if append_mode(cfg):
             interval = max(interval, 4)
     return max(interval, 1)
+
+
+def append_mode(cfg: SlamConfig) -> bool:
+    """Appends between full rebuilds: on with ``matching_append_mode``,
+    except under the ``grid`` engine (a grid has no append)."""
+    return (bool(cfg.capacity.matching_append_mode)
+            and cfg.optimization.correspondence != "grid")
 
 
 def input_downsample(frame: FeatureFrame, cfg: SlamConfig):
@@ -209,7 +240,7 @@ def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
         state.q_w, state.t_w, frame.time_min, frame.time_max,
         state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
         q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
-        rng=state.rng)
+        rng=state.rng, grid_corners=state.grid_corners, grid_surface=state.grid_surface)
     return commit_frame(state, frame, corner_in, surf_in, reg, cfg)
 
 
@@ -310,9 +341,10 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     interval = rebuild_interval(cfg)
     if interval == 1 or state.frame_count % interval == 0:
         map_c, map_s = rebuild_matching_buffer(new, cfg)
-    elif caps.matching_append_mode:
-        map_c = append_to_buffer(state.map_corners, corner_w)
-        map_s = append_to_buffer(state.map_surface, surf_w)
-    else:
-        return new, reg
-    return new._replace(map_corners=map_c, map_surface=map_s), reg
+        grid_c, grid_s = build_grids(map_c, map_s, cfg)
+        return new._replace(map_corners=map_c, map_surface=map_s,
+                            grid_corners=grid_c, grid_surface=grid_s), reg
+    if append_mode(cfg):
+        return new._replace(map_corners=append_to_buffer(state.map_corners, corner_w),
+                            map_surface=append_to_buffer(state.map_surface, surf_w)), reg
+    return new, reg

@@ -34,6 +34,16 @@ of its frames' or lanes' masks, slot by slot), each indexed by its first
 raw frame, so keyframes count those units; `flush` waits for the
 service.
 
+Product mode (``parallel/mesh_devices`` N > 1, or a `parallel.mesh.Mesh`
+given): one process a device, N ranks of a `torch.distributed` group,
+each fed the same raw frames.  The state is kept sharded
+(`parallel.layout`): each rank holds its slices of the point, cell and
+bucket axes, and the step reads the state gathered from the slices.
+The registration's kNN over the matching buffer runs sharded
+(`parallel.sharded.knn_sharded`, bit for bit the unsharded search), and
+the small per-frame solve runs whole on every rank, as the JAX package
+pins it replicated; so the trajectory is the 1-rank run's.
+
 The entry points (`OdometryPipeline`, `run_odometry`) run on the card
 unless the caller passes ``device="cpu"``; without a card and without
 that argument they raise.  The trajectory has one row per registered
@@ -110,6 +120,8 @@ from ..frontend import livox
 from ..frontend.velodyne import extract_velodyne_features
 from ..io.simulator import LivoxSimulator
 from ..ops.voxel import voxel_downsample
+from ..parallel.layout import gather_state, shard_state
+from ..parallel.mesh import Mesh, make_mesh, mesh_device, set_active_mesh
 from ..registration import icp
 from ..utils import logging as L
 from . import odometry
@@ -225,10 +237,22 @@ class TrajectoryRecord:
 class OdometryPipeline:
     """Livox front end + odometry over raw frames (module doc)."""
 
-    def __init__(self, cfg: SlamConfig, device=None, log_dir: Optional[str] = None):
+    def __init__(self, cfg: SlamConfig, device=None, log_dir: Optional[str] = None,
+                 mesh: Optional[Mesh] = None):
         require_supported(cfg)
         self.cfg = cfg
+        n_mesh = int(cfg.parallel.mesh_devices)
+        if mesh is None and n_mesh > 1:
+            mesh = make_mesh(n_mesh)
+        elif mesh is not None and n_mesh > 1 and mesh.size != n_mesh:
+            raise ValueError(f"parallel/mesh_devices={n_mesh} but the mesh has "
+                             f"{mesh.size} ranks")
+        #: the product mesh (module doc), or None
+        self.mesh = mesh
+        self._axes = None
         self.device = resolve_device(device)
+        if mesh is not None:
+            self.device = mesh_device(mesh, self.device)
         self.logger = L.FileLogger(log_dir, screen=cfg.common.if_verbose_screen_printf == 0)
         self.timer = L.SpanTimer()
         self._pcd_dir = None
@@ -258,7 +282,7 @@ class OdometryPipeline:
         # LM steps and the acceptance gates.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.state: OdometryState = init_state(cfg, self.device)
+        self.state = init_state(cfg, self.device)
         self.trajectory = TrajectoryRecord()
         self.iterations: List[int] = []   # ICP iterations of each trajectory row
         self._buf: list = []              # raw frames waiting for their chunk or group
@@ -275,11 +299,34 @@ class OdometryPipeline:
         if cfg.loop_closure.if_enable_loop_closure:
             self.loop_closer = LoopCloser(cfg, device=self.device)
 
+    @property
+    def state(self) -> OdometryState:
+        """The odometry state; in product mode gathered from the ranks'
+        slices (a collective: every rank reads it at the same point)."""
+        if self.mesh is None:
+            return self._state
+        return gather_state(self._state, self._axes, self.mesh)
+
+    @state.setter
+    def state(self, state: OdometryState) -> None:
+        if self.mesh is None:
+            self._state = state
+        else:
+            self._state, self._axes = shard_state(state, self.mesh)
+
+    def _activate(self) -> None:
+        """Register this pipeline's mesh and numerics flags for the
+        registration code (several pipelines may take turns in one
+        process)."""
+        det = self.cfg.parallel.deterministic
+        set_active_mesh(self.mesh, None if det < 0 else bool(det))
+
     def process_raw(self, xyz, intensity, base_time: float, mask=None) -> None:
         """One raw sensor frame: (N, 3) points and (N,) intensities as
         host arrays, padded here to ``capacity.max_raw_points``; or, with
         ``mask``, tensors already padded to that size (on the pipeline's
         device, as bench.py hands the JAX pipeline device arrays)."""
+        self._activate()
         n = self.cfg.capacity.max_raw_points
         dev = self.device
         self.timer.tic(L.SPAN_FRAME)
@@ -346,6 +393,7 @@ class OdometryPipeline:
         piece, `frontend.multi`); its trajectory row waits on the device
         like a raw frame's.  Frames given here bypass any chunk or group
         that `process_raw` is filling."""
+        self._activate()
         self.state, reg = odometry_step(self.state, frame, self.cfg)
         self.loop_iterations += reg.iterations
         self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
@@ -439,6 +487,7 @@ class OdometryPipeline:
     def flush(self) -> None:
         """Dispatch a partial chunk or group, then copy every pending row
         to the host (one transfer)."""
+        self._activate()
         if self._buf:
             if self.frame_batch > 1:
                 self._dispatch_group()
@@ -478,9 +527,10 @@ class OdometryPipeline:
 
 
 def run_odometry(cfg: SlamConfig, n_frames: int,
-                 sim: Optional[LivoxSimulator] = None, device=None):
+                 sim: Optional[LivoxSimulator] = None, device=None,
+                 mesh: Optional[Mesh] = None):
     """Simulate and process ``n_frames``; returns (pipeline, sim, wall_s)."""
-    pipe = OdometryPipeline(cfg, device=device)
+    pipe = OdometryPipeline(cfg, device=device, mesh=mesh)
     sim = sim or LivoxSimulator()
     t0 = _time.perf_counter()
     for i in range(n_frames):

@@ -228,6 +228,9 @@ SPLIT_CASES = {
     "sequential": dict(optimization={"icp_maximum_iteration": 3, "full_iterations": 3,
                                      "subsample_residuals": 200}),
     "chunked": dict(parallel={"dispatch_chunk": 3}),
+    # the bucket grids of the grid engine go through the checkpoint
+    "grid": dict(optimization={"correspondence": "grid"},
+                 capacity={"corner_bucket_count": 512, "surf_bucket_count": 1024}),
     "loop_closure": dict(loop_closure={"if_enable_loop_closure": 1, "if_loop_service_async": 0,
                                        "scans_of_each_keyframe": 4,
                                        "scans_between_two_keyframe": 2}),

@@ -134,8 +134,13 @@ def test_follow_streams_pose_lines(capsys):
     assert summary["host_syncs"]["drain"] == 3 and summary["host_syncs"]["log"] == 0
 
 
-def test_mesh_refused():
-    with pytest.raises(NotImplementedError, match="item 15 "):
+def test_mesh_refused(monkeypatch):
+    """``--mesh 2`` runs product mode (queue 1 item 15) under a launcher
+    (tests/test_torch_parallel_mode.py runs it on 2 ranks); outside one
+    it is refused with what it needs."""
+    for var in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(var, raising=False)
+    with pytest.raises(RuntimeError, match="under a launcher"):
         tcli.main(["--frames", "1", "--quiet", "--mesh", "2", "--device", "cpu"] + SMALL)
 
 

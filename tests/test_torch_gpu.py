@@ -573,3 +573,89 @@ def test_loop_entries_under_dispatch_equal_cpu(cuda, parallel):
     for f, (_, _, p_c), (_, _, p_h) in zip([e[0] for e in card], card, host):
         tol = 1e-5 if f <= first_registered else 5e-4
         torch.testing.assert_close(p_c, p_h, rtol=0, atol=tol)
+
+
+# ------------------------------------------- grid engine, shards, product --
+
+def test_grid_engine_card_equals_cpu(cuda):
+    """The bucket grid and its search are sorts, gathers and rounded
+    elementwise ops: the card's directory and neighbours equal the CPU's
+    bit for bit."""
+    from loam_livox_tpu_torch.ops import bucket_grid as bg
+
+    rng = np.random.default_rng(11)
+    ref, mask = voxel_map(rng, 16384, 12.0, 0.4, 0.6)
+    q = (ref[rng.integers(0, 9000, 2048)] + rng.normal(0, 0.3, (2048, 3))).astype(np.float32)
+    out = {}
+    for dev in ("cpu", cuda):
+        g = bg.build_bucket_grid(torch.from_numpy(ref).to(dev), torch.from_numpy(mask).to(dev),
+                                 1.0, 16384, 16)
+        out[str(dev)] = (g, bg.grid_knn(torch.from_numpy(q).to(dev), g, k=5))
+    (gc, (dc, ic)), (gg, (dg, ig)) = out["cpu"], out[str(cuda)]
+    for f in ("keys", "pts", "src_idx", "slot_mask"):
+        assert torch.equal(getattr(gg, f).cpu(), getattr(gc, f)), f
+    assert torch.equal(dg.cpu(), dc) and torch.equal(ig.cpu(), ic)
+    assert (dc < 1e29).any()
+
+
+def test_shard_input_equals_plain_and_merges(cuda):
+    """The kernel on a shard of a buffer (a nonzero base) equals its plain
+    version, and the shards' searches merged by (distance, index) equal
+    the whole buffer's search."""
+    from loam_livox_tpu_torch.ops.knn import finish
+    from loam_livox_tpu_torch.parallel.sharded import merge_candidates
+
+    rng = np.random.default_rng(12)
+    ref, mask = voxel_map(rng, 65536, 12.0, 0.4, 0.05)
+    q = (ref[rng.integers(0, 3000, 2048)] + rng.normal(0, 0.3, (2048, 3))).astype(np.float32)
+    q, ref, mask = (torch.from_numpy(a).to(cuda) for a in (q, ref, mask))
+    world, radius = 32, 50.0 ** 0.5
+    rows = 65536 // world
+    n_q = torch.tensor(2000, device=cuda)
+    ds, idx = [], []
+    for r in range(world):
+        sl = slice(r * rows, (r + 1) * rows)
+        d, i = kf.knn_fused(q, ref[sl], mask[sl], k=5, query_count=n_q, max_radius=radius)
+        dp, ip = knn(q, ref[sl], mask[sl], k=5, query_count=2000, max_radius=radius)
+        assert torch.equal(d, dp) and torch.equal(i, ip), r
+        ds.append(d)
+        idx.append(i + r * rows)
+    assert int(mask[rows:2 * rows].sum()) > 0
+    d, i = merge_candidates(torch.cat(ds, -1), torch.cat(idx, -1), 5)
+    d, i = finish(d, i.long(), None)
+    d0, i0 = kf.knn_fused(q, ref, mask, k=5, query_count=n_q, max_radius=radius)
+    assert torch.equal(d, d0) and torch.equal(i, i0)
+
+
+def test_product_mode_on_one_card_equals_plain(cuda, tmp_path):
+    """Product mode on an NCCL group of one rank runs the plain pipeline's
+    trajectory bit for bit (small capacities, 10 frames)."""
+    import torch.distributed as dist
+
+    from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig
+    from loam_livox_tpu_torch.parallel.mesh import make_mesh
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = SlamConfig().replace(
+        capacity={"max_raw_points": 16384, "map_corner_capacity": 1024,
+                  "map_surf_capacity": 4096},
+        mapping={"init_accumulate_frames": 4})
+    sim = LivoxSimulator(SimConfig(points_per_frame=10000, seed=1))
+    frames = [sim.frame(i) for i in range(10)]
+
+    def run(mesh):
+        pipe = OdometryPipeline(cfg, device=cuda, mesh=mesh)
+        for f in frames:
+            pipe.process_raw(*f)
+        pipe.flush()
+        return pipe.trajectory
+
+    plain = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        product = run(make_mesh(1))
+    finally:
+        dist.destroy_process_group()
+    assert np.array_equal(product.positions_array(), plain.positions_array())
+    assert product.accepted == plain.accepted and sum(plain.accepted) > 0

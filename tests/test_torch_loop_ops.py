@@ -282,8 +282,25 @@ def test_pose_graph_construction_and_residuals_match_jax():
 
 
 def test_unported_loop_pieces_raise(tmp_path):
-    with pytest.raises(NotImplementedError, match="item 15 "):
-        tpg.optimize_pose_graph_sharded(port_graph(drifted_loop()))
+    """The edge-sharded pose graph (item 15) is ported: on a group of one
+    rank it is the CG solve up to the order of its sums
+    (tests/test_torch_parallel.py runs 2 ranks against the JAX package)."""
+    import torch.distributed as dist
+
+    from loam_livox_tpu_torch.parallel.mesh import make_mesh
+
+    g = port_graph(drifted_loop())
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        sq, st, sc = tpg.optimize_pose_graph_sharded(g, make_mesh(1), iterations=20,
+                                                     cg_iterations=60)
+    finally:
+        dist.destroy_process_group()
+    cq, ct, _ = tpg.optimize_pose_graph_cg(g, iterations=20, cg_iterations=60)
+    np.testing.assert_allclose(sq.numpy(), cq.numpy(), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(st.numpy(), ct.numpy(), rtol=0, atol=1e-5)
+    assert float(sc) < 1e-5
     # the offline rebuild is ported (item 13): a directory without dumps raises
     with pytest.raises(FileNotFoundError):
         tref.refine_mapping(str(tmp_path))

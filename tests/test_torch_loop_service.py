@@ -22,6 +22,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.distributed as dist
 
 from loam_livox_tpu.core.config import SlamConfig as JConfig
 from loam_livox_tpu.core.types import PointBatch as JBatch
@@ -30,6 +31,7 @@ from loam_livox_tpu.runtime.loop_service import LoopCloser as JCloser
 
 from loam_livox_tpu_torch.core.config import SlamConfig as TConfig
 from loam_livox_tpu_torch.map.cell_map import EMPTY_KEY
+from loam_livox_tpu_torch.parallel.mesh import make_mesh
 from loam_livox_tpu_torch.runtime import loop_service as tls
 from loam_livox_tpu_torch.runtime.loop_service import KeyframeRecord, LoopCloser as TCloser
 from test_loop import structured_world
@@ -202,7 +204,7 @@ def test_key_union_is_the_set_union():
     assert u[:6].tolist() == [1, 2, 3, 5, 7, 9] and (u[6:] == EMPTY_KEY).all()
 
 
-def test_loop_paths_refused_and_on_the_card_by_default(monkeypatch):
+def test_loop_paths_refused_and_on_the_card_by_default(monkeypatch, tmp_path):
     from loam_livox_tpu_torch import OdometryPipeline
 
     _, tcfg = configs()
@@ -210,8 +212,19 @@ def test_loop_paths_refused_and_on_the_card_by_default(monkeypatch):
     assert TCloser(tcfg, device="cpu", dump_dir="out").dump_dir == "out"
     for over in ({"if_dump_keyframe_data": 1}, {"map_alignment_if_dump_matching_result": 1}):
         OdometryPipeline(tcfg.replace(loop_closure=over), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 15 "):
+    # product mode (item 15) is ported: it needs its process group, and
+    # runs the loop pipeline on a group of one rank
+    with pytest.raises(RuntimeError, match="torch.distributed initialised"):
         OdometryPipeline(tcfg.replace(parallel={"mesh_devices": 2}), device="cpu")
+    dist.init_process_group("gloo", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        product = OdometryPipeline(tcfg, device="cpu", mesh=make_mesh(1))
+        assert product.mesh.size == 1 and product.loop_closer is not None
+        assert product.state.cell_full.capacity == tcfg.capacity.cell_capacity
+        product.loop_closer.shutdown()
+    finally:
+        dist.destroy_process_group()
     pipe = OdometryPipeline(tcfg, device="cpu")
     with pytest.raises(RuntimeError, match="no accepted loop closure"):
         pipe.get_corrected_map()

@@ -6,7 +6,11 @@ The JAX package runs a simulator stream with loop closure on.  Before
 every frame t its ``OdometryState`` (``cell_full`` included) is carried
 into the port (`interop.state_from_numpy`) and both packages step once
 on the same feature frame, the port's kNN routed through the JAX dense
-engine as in tests/test_torch_odometry.py.  ``cell_full`` must agree:
+engine as in tests/test_torch_odometry.py.  Where the step is chaotic
+(one ulp of input moves the JAX step itself into another basin: frame
+10 on an AVX-512 host, 8.5e-4 in the quaternion), the port must match
+the JAX step from the frame one ulp away instead
+(tests/test_torch_odometry.py `first_match`).  ``cell_full`` must agree:
 keys, counts, update and creation frames and frame index equal, pooled
 points within 1e-3 m, moment sums within rtol 1e-4; ``last_touched``
 equal.  The stream has frames that are not admitted (a 2-frame history
@@ -37,7 +41,7 @@ from loam_livox_tpu_torch.interop import CELL_MAP_ARRAYS, config_from_dict, stat
 from loam_livox_tpu_torch.registration import icp as ticp
 from loam_livox_tpu_torch.runtime.odometry import init_state as tinit_state
 from loam_livox_tpu_torch.runtime.odometry import odometry_step as tstep
-from test_torch_odometry import jax_frames, jax_knn_fused, to_port_frame
+from test_torch_odometry import first_match, jax_frames, jax_knn_fused, nudged_frame, to_port_frame
 
 torch.set_num_threads(2)
 
@@ -76,12 +80,13 @@ def state_fields(st) -> dict:
 def jax_stream():
     cfg = jax_config()
     st = jinit_state(cfg)
-    steps = []
+    steps, states = [], []
     for fr in jax_frames(cfg, N_FRAMES):
         new, reg = jstep(st, fr, cfg)
         steps.append((state_fields(st), fr, state_fields(new), reg))
+        states.append(st)
         st = new
-    return cfg, steps
+    return cfg, steps, states
 
 
 def admitted(before, after) -> bool:
@@ -92,46 +97,56 @@ def admitted(before, after) -> bool:
 @pytest.mark.parametrize("t", range(N_FRAMES))
 def test_teacher_forced_full_map_matches_jax(jax_stream, monkeypatch, t):
     monkeypatch.setattr(ticp, "knn_fused", jax_knn_fused)
-    cfg, steps = jax_stream
+    cfg, steps, states = jax_stream
     before, fr, after, jreg = steps[t]
     state = state_from_numpy(before, "cpu")
     assert state.cell_corners is not None and state.cell_full is not None
     new, reg = tstep(state, to_port_frame(fr), config_from_dict(dataclasses.asdict(cfg)))
 
-    assert bool(reg.accepted) == bool(jreg.accepted)
-    for name in ("q_w", "t_w", "last_his_q", "last_his_t"):
-        np.testing.assert_allclose(getattr(new, name).numpy(), after[name], rtol=0, atol=1e-4,
-                                   err_msg=name)
-    assert (new.hist_len, new.hist_ptr) == (int(after["hist_len"]), int(after["hist_ptr"]))
-    cells = new.cell_full
-    assert cells.frame_idx == int(after["cell_full.frame_idx"]) == t + 1
-    for f in ("keys", "count", "last_update_frame", "create_frame"):
-        np.testing.assert_array_equal(getattr(cells, f).numpy(), after[f"cell_full.{f}"],
-                                      err_msg=f)
-    np.testing.assert_allclose(cells.pts.numpy(), after["cell_full.pts"], rtol=0, atol=1e-3)
-    for f in ("sum_p", "sum_pp"):
-        np.testing.assert_allclose(getattr(cells, f).numpy(), after[f"cell_full.{f}"],
-                                   rtol=1e-4, atol=1e-3, err_msg=f)
-    np.testing.assert_array_equal(new.last_touched.numpy(), after["last_touched"])
-    for name in ("cell_corners", "cell_planes"):
-        fm = getattr(new, name)
-        assert fm.frame_idx == int(after[f"{name}.frame_idx"]) == t + 1
-        for f in ("keys", "count"):
-            np.testing.assert_array_equal(getattr(fm, f).numpy(), after[f"{name}.{f}"],
-                                          err_msg=f"{name}.{f}")
-    if not admitted(before, after):
-        assert not new.last_touched.any()
-        for f in ("keys", "count", "pts"):
-            np.testing.assert_array_equal(getattr(cells, f).numpy(), before[f"cell_full.{f}"])
-    for name in ("map_corners", "map_surface"):
-        b = getattr(new, name)
-        np.testing.assert_array_equal(b.mask.numpy(), after[f"{name}.mask"], err_msg=name)
+    def check(jax_result):
+        after, jreg = jax_result
+        assert bool(reg.accepted) == bool(jreg.accepted)
+        for name in ("q_w", "t_w", "last_his_q", "last_his_t"):
+            np.testing.assert_allclose(getattr(new, name).numpy(), after[name], rtol=0,
+                                       atol=1e-4, err_msg=name)
+        assert (new.hist_len, new.hist_ptr) == (int(after["hist_len"]), int(after["hist_ptr"]))
+        cells = new.cell_full
+        assert cells.frame_idx == int(after["cell_full.frame_idx"]) == t + 1
+        for f in ("keys", "count", "last_update_frame", "create_frame"):
+            np.testing.assert_array_equal(getattr(cells, f).numpy(), after[f"cell_full.{f}"],
+                                          err_msg=f)
+        np.testing.assert_allclose(cells.pts.numpy(), after["cell_full.pts"], rtol=0, atol=1e-3)
+        for f in ("sum_p", "sum_pp"):
+            np.testing.assert_allclose(getattr(cells, f).numpy(), after[f"cell_full.{f}"],
+                                       rtol=1e-4, atol=1e-3, err_msg=f)
+        np.testing.assert_array_equal(new.last_touched.numpy(), after["last_touched"])
+        for name in ("cell_corners", "cell_planes"):
+            fm = getattr(new, name)
+            assert fm.frame_idx == int(after[f"{name}.frame_idx"]) == t + 1
+            for f in ("keys", "count"):
+                np.testing.assert_array_equal(getattr(fm, f).numpy(), after[f"{name}.{f}"],
+                                              err_msg=f"{name}.{f}")
+        if not admitted(before, after):
+            assert not new.last_touched.any()
+            for f in ("keys", "count", "pts"):
+                np.testing.assert_array_equal(getattr(cells, f).numpy(), before[f"cell_full.{f}"])
+        for name in ("map_corners", "map_surface"):
+            b = getattr(new, name)
+            np.testing.assert_array_equal(b.mask.numpy(), after[f"{name}.mask"], err_msg=name)
+
+    def jax_results():
+        yield after, jreg
+        for direction in (1, -1):
+            n2, r2 = jstep(states[t], nudged_frame(fr, direction), cfg)
+            yield state_fields(n2), r2
+
+    first_match(check, jax_results())
 
 
 def test_stream_exercises_admission_and_revisits(jax_stream):
     """The stream has what the step test claims: admitted and not
     admitted frames, touched cells, and cells restarted on a revisit."""
-    _, steps = jax_stream
+    _, steps, _ = jax_stream
     flags = [admitted(before, after) for before, _, after, _ in steps]
     assert flags.count(True) >= 4 and flags.count(False) >= 2, flags
     last = steps[-1][2]

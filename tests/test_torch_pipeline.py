@@ -75,8 +75,10 @@ def test_port_trajectory_matches_jax_run():
 
 
 def test_port_imports_no_jax():
-    """The sequential, piecewise (precision profile) and racing paths and
-    the scenario runner, a few frames each, load nothing of JAX."""
+    """The sequential, piecewise (precision profile) and racing paths, the
+    grid and dense engines, product mode on a group of one rank, the
+    scaling harness and the scenario runner, a few frames each, load
+    nothing of JAX."""
     code = (
         "import sys\n"
         "import numpy as np\n"
@@ -95,6 +97,26 @@ def test_port_imports_no_jax():
         "        LivoxSimulator(SimConfig(points_per_frame=3000)), device='cpu')\n"
         "    assert len(pipe.trajectory.positions) == rows\n"
         "    assert np.all(np.isfinite(pipe.trajectory.positions_array()))\n"
+        "for engine in ('grid', 'dense'):\n"
+        "    cfg = SlamConfig().replace(**small).replace(optimization={'correspondence': engine,\n"
+        "        'icp_maximum_iteration': 2}, capacity={'corner_bucket_count': 256,\n"
+        "        'surf_bucket_count': 512})\n"
+        "    pipe, sim, wall = run_odometry(cfg, 3, LivoxSimulator(SimConfig(points_per_frame=3000)),\n"
+        "                                   device='cpu')\n"
+        "    assert (pipe.state.grid_surface is not None) == (engine == 'grid')\n"
+        "import os, tempfile\n"
+        "import torch.distributed as dist\n"
+        "from loam_livox_tpu_torch.parallel.mesh import make_mesh\n"
+        "from loam_livox_tpu_torch.eval.scaling import measure_scaling\n"
+        "import loam_livox_tpu_torch.parallel.sharded_registration\n"
+        "store = os.path.join(tempfile.mkdtemp(), 'store')\n"
+        "dist.init_process_group('gloo', store=dist.FileStore(store, 1), rank=0, world_size=1)\n"
+        "pipe, sim, wall = run_odometry(SlamConfig().replace(**small), 2,\n"
+        "    LivoxSimulator(SimConfig(points_per_frame=3000)), device='cpu', mesh=make_mesh(1))\n"
+        "assert pipe.mesh.size == 1 and len(pipe.trajectory.positions) == 2\n"
+        "assert measure_scaling(make_mesh(1), device='cpu', n_query=64, n_ref=512, reps=1)[\n"
+        "    'sharded_overhead_x'] > 0\n"
+        "dist.destroy_process_group()\n"
         "scenario_config('largescale_realtime', small=True)\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'loam_livox_tpu' or m.startswith('loam_livox_tpu.')]\n"

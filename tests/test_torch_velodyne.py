@@ -8,7 +8,12 @@ room, with and without a plate; `chip_smoke.vlp16_sweep`), padded to
 * Ring ids, the kept mask and the sweep time, then the full, corner and
   surface clouds: masks equal, full and corner points equal (they are
   copies), the surface's voxel centroids within 1e-5 m, times within
-  rtol 1e-6 (f32 atan2 / division round-off in the last bit).  The
+  rtol 1e-6 (f32 atan2 / division round-off in the last bit).  Where
+  two ring neighbours' depths are within 4 ulps, the occlusion test's
+  side is a tie that the host's instruction set decides (one corner of
+  the plate sweep on an AVX-512 host): such corners may differ, each
+  within reach of a tie and at most two a tie, and the surface then
+  differs only in their voxels.  The
   HDL-64 ring formula on the same points; other ring counts raise.
 * A short stream: the sensor moves 3 cm and 2 cm a sweep along x and y
   through the room with the plate; the port's and the JAX pipeline
@@ -84,11 +89,70 @@ def test_ring_ids_and_sweep_time_match_jax(pillar):
         tvel._scan_id(torch.from_numpy(xs), torch.from_numpy(mask), 32)
 
 
+def depth_tie_reach(xyz, mask, lines=16, ulps=4):
+    """Points whose corner label hangs on a rounding tie.  The occlusion
+    test compares the depths of ring neighbours (``depth > d_nxt``,
+    reference :538-601) and masks 6 points on the side it picks; where
+    two depths are within ``ulps`` f32 ulps, the packages' last bits
+    decide the side.  Returns, for each tie, the points from 10 before
+    it to 11 after it in ring order: the masked side either way, plus
+    the ±5 that a greedy pick suppresses.  A site must be an
+    edge: the test runs only where the curvature is above 0.1."""
+    n = xyz.shape[0]
+    xs = np.nan_to_num(xyz, nan=0.0)
+    finite = np.isfinite(xyz).all(axis=1)
+    m = mask & finite & ((xs.astype(np.float64) ** 2).sum(axis=1) >= 0.01)
+    sid, m = (np.asarray(a) for a in jvel._scan_id(jnp.asarray(xs), jnp.asarray(m), lines))
+    order = np.argsort(np.where(m, sid, lines) * n + np.arange(n), kind="stable")
+    p, m, ring = xs[order], m[order], sid[order]
+    depth = np.sqrt(np.maximum((p.astype(np.float32) ** 2).sum(axis=1), np.float32(1e-12)))
+    # only an edge (curvature over ±5 above 0.1; 0.05 here) runs the test
+    p64 = np.pad(p.astype(np.float64), ((5, 5), (0, 0)))
+    acc = sum(p64[5 + o:5 + o + n] for o in range(-5, 6)) - 11.0 * p64[5:5 + n]
+    edge = (acc ** 2).sum(axis=1) > 0.05
+    tie = (m[:-1] & m[1:] & (ring[:-1] == ring[1:]) & edge[:-1]
+           & (np.abs(depth[:-1] - depth[1:]) <= ulps * np.spacing(depth[:-1])))
+    return [{tuple(r) for r in p[max(i - 10, 0):i + 12][m[max(i - 10, 0):i + 12]]}
+            for i in np.nonzero(tie)[0]]
+
+
+def rows(b):
+    return {tuple(r) for r in np.asarray(b.xyz)[np.asarray(b.mask)]}
+
+
 def test_feature_clouds_match_jax(sweep):
+    """The clouds equal, except where a depth tie (`depth_tie_reach`)
+    decides a corner: each mismatched corner lies in a tie's reach, at
+    most two a tie, and the surface differs only in the voxels of the
+    mismatched corners."""
     plate, j, t = sweep
+    xyz, mask = padded_sweep(plate)
+    # the ties with a corner of either package in reach
+    ties = [r for r in depth_tie_reach(xyz, mask) if r & (rows(j.corners) | rows(t.corners))]
+    moved = rows(j.corners) ^ rows(t.corners)
+    assert moved <= set().union(*ties) and len(moved) <= 2 * len(ties), (moved, len(ties))
+    leaf = CFG.feature_extraction.mapping_plane_resolution / 2.0
+    moved_voxels = {tuple(np.floor(np.asarray(r) / leaf).astype(int)) for r in moved}
     for name in ("full", "corners", "surface"):
         jb, tb = getattr(j, name), getattr(t, name)
         assert tb.capacity == CAP
+        if moved and name != "full":
+            # outside the ties: the corners by point (with their times),
+            # the surface's centroids by voxel, one a voxel
+            def keyed(b):
+                m = np.asarray(b.mask)
+                xs, ts = np.asarray(b.xyz)[m], np.asarray(b.time)[m]
+                keys = ([tuple(x) for x in xs] if name == "corners"
+                        else [tuple(np.floor(x / leaf).astype(int)) for x in xs])
+                assert len(set(keys)) == len(keys), name
+                return {k: (x, tt) for k, x, tt in zip(keys, xs, ts)
+                        if k not in moved_voxels and tuple(x) not in moved}
+            jk, tk = keyed(jb), keyed(tb)
+            assert jk.keys() == tk.keys() and len(jk) > 0, name
+            for k in jk:
+                np.testing.assert_allclose(tk[k][0], jk[k][0], rtol=0, atol=1e-5, err_msg=name)
+                np.testing.assert_allclose(tk[k][1], jk[k][1], **TIME_TOL, err_msg=name)
+            continue
         np.testing.assert_array_equal(tb.mask.numpy(), np.array(jb.mask), err_msg=name)
         tol = dict(rtol=0, atol=1e-5) if name == "surface" else dict(rtol=0, atol=0)
         np.testing.assert_allclose(tb.xyz.numpy(), np.array(jb.xyz), **tol, err_msg=name)
