@@ -15,8 +15,9 @@ cell matching, the kernel, grid or dense correspondence engine, one
 device or product mode over a process group, with sequential, chunked
 or racing dispatch, optional residual subsampling, and loop closure
 (keyframes, scene alignment, pose graph; inline or on a worker thread).
-``capacity.auto_schedule`` is accepted and ignored (the port runs at
-the configured capacities).  `require_supported` raises ``ValueError``
+With ``capacity.auto_schedule`` (on by default) the pipeline runs the
+six fill-driven capacities at a tier that grows toward the configured
+ones (`runtime.capacity_schedule`).  `require_supported` raises ``ValueError``
 on a front end or engine name that none of these is.
 """
 from __future__ import annotations
@@ -174,9 +175,11 @@ class CapacityConfig:
     history_window: int = 64
     hist_corner_capacity: int = 512
     hist_surf_capacity: int = 2048
-    # The JAX package grows its static shapes with fill (XLA needs one
-    # compile per shape).  PyTorch needs no shape ladder, so the port
-    # accepts these three fields and always runs at the capacities above.
+    # The adaptive capacity schedule (runtime/capacity_schedule.py): the
+    # pipeline starts max_*_ds, hist_*_capacity and map_*_capacity at
+    # 1/schedule_start_scale and doubles them whenever a measured fill
+    # crosses schedule_watermark, up to the values above.  Until then
+    # the voxel filters that fill those buffers truncate to the tier.
     auto_schedule: int = 1
     schedule_watermark: float = 0.7
     schedule_start_scale: int = 16

@@ -125,16 +125,31 @@ def measure_pipeline_scaling(mesh: Optional[Mesh] = None, device="cuda", frames:
     return out
 
 
-if __name__ == "__main__":
-    import sys
+def main(argv=None) -> None:
+    """One record a launch, printed by rank 0: ``python -m
+    loam_livox_tpu_torch.eval.scaling [--pipeline] [--device cpu]`` under
+    a launcher (torchrun).  On the cards (NCCL, one card a rank) unless
+    ``--device cpu`` asks for gloo ranks on the CPU; without a card and
+    without it, it raises."""
+    import argparse
 
+    from ..core.types import resolve_device
     from ..parallel.mesh import initialize_multihost
 
-    mesh = initialize_multihost()
-    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    ap = argparse.ArgumentParser(description=main.__doc__.split("\n\n")[0])
+    ap.add_argument("--pipeline", action="store_true",
+                    help="frames/s of the pipeline instead of one search and sum")
+    ap.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    args = ap.parse_args(argv)
+    dev = resolve_device(None if args.device == "cuda" else "cpu")
+    mesh = initialize_multihost(backend="nccl" if dev.type == "cuda" else "gloo")
     if mesh.backend == "nccl":
-        dev = f"cuda:{mesh.rank}"
-    run = measure_pipeline_scaling if "--pipeline" in sys.argv else measure_scaling
+        dev = torch.device("cuda", mesh.rank)
+    run = measure_pipeline_scaling if args.pipeline else measure_scaling
     out = run(mesh, device=dev)
     if mesh.rank == 0:
         print(json.dumps(out, indent=2))
+
+
+if __name__ == "__main__":
+    main()

@@ -95,10 +95,14 @@ def initialize_multihost(coordinator_address: Optional[str] = None,
     reads the launcher's environment (``torchrun``: ``MASTER_ADDR``,
     ``MASTER_PORT``, ``WORLD_SIZE``, ``RANK``); a coordinator address
     ``host:port`` with the process count and id starts a group by hand.
-    The backend is NCCL where CUDA is available, else gloo."""
+    The backend is NCCL, one card a rank; without a card that raises
+    unless the caller asks for the CPU with ``backend="gloo"``."""
     if not dist.is_initialized():
-        backend = backend or ("nccl" if torch.cuda.is_available() else "gloo")
+        backend = backend or "nccl"
         if backend == "nccl":
+            if not torch.cuda.is_available():
+                raise RuntimeError("no CUDA device for the NCCL backend: pass "
+                                   "backend='gloo' to run the ranks on the CPU")
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", process_id or 0)))
         if coordinator_address is not None:
             dist.init_process_group(backend, init_method=f"tcp://{coordinator_address}",

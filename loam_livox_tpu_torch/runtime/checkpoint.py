@@ -22,8 +22,12 @@ and reload", ``Points_cloud_map::save_to_file`` /
   ``:189-248``), after a flush that also drains the loop worker.
 * `export_reference_map`: the plane cell map in the reference's JSON.
 
-The adaptive capacity schedule is not ported (the port runs at the
-configured capacities), so no ``capacity_scale.txt`` is written.
+With the capacity schedule active (`runtime.capacity_schedule`),
+`save_pipeline` also writes the tier the state's buffers are shaped at
+(``capacity_scale.txt``, the JAX package's file), and `load_pipeline`
+restores that tier before it loads the state (scale 1, the configured
+capacities, when the file is missing); the resumed pipeline's next
+check comes 4 units later, as a fresh JAX pipeline's does.
 """
 from __future__ import annotations
 
@@ -228,6 +232,9 @@ def save_pipeline(pipe, directory: str) -> None:
     if pipe.mesh is None or pipe.mesh.rank == 0:
         os.makedirs(directory, exist_ok=True)
         save_state(state, os.path.join(directory, "odometry"))
+        if pipe.scheduler is not None:
+            with open(os.path.join(directory, "capacity_scale.txt"), "w") as f:
+                f.write(str(pipe.scheduler.scale))
         if pipe.loop_closer is not None:
             save_loop_state(pipe.loop_closer, os.path.join(directory, "loop_state.npz"))
     if pipe.mesh is not None:
@@ -237,12 +244,23 @@ def save_pipeline(pipe, directory: str) -> None:
 
 
 def load_pipeline(directory: str, cfg: SlamConfig, device=None, mesh=None):
-    """A new pipeline resumed from a directory written by `save_pipeline`;
-    in product mode every rank loads the file and keeps its slices."""
+    """A new pipeline resumed from a directory written by `save_pipeline`
+    (at its capacity tier); in product mode every rank loads the file and
+    keeps its slices."""
     from .pipeline import OdometryPipeline
 
     pipe = OdometryPipeline(cfg, device=device, mesh=mesh)
-    pipe.state = load_state(os.path.join(directory, "odometry"), cfg, pipe.device)
+    if pipe.scheduler is not None:
+        # the tier the saved buffers are shaped at; a directory without
+        # the file holds a state at the configured capacities
+        scale_path = os.path.join(directory, "capacity_scale.txt")
+        scale = 1
+        if os.path.exists(scale_path):
+            with open(scale_path) as f:
+                scale = int(f.read().strip())
+        pipe.scheduler.set_scale(scale)
+        pipe.cfg_active = pipe.scheduler.cfg
+    pipe.state = load_state(os.path.join(directory, "odometry"), pipe.cfg_active, pipe.device)
     loop_path = os.path.join(directory, "loop_state.npz")
     if pipe.loop_closer is not None and os.path.exists(loop_path):
         pipe.loop_closer.shutdown()

@@ -26,6 +26,17 @@ Three ways to dispatch, as in the JAX package's pipeline:
   more than ``common/maximum_parallel_thread`` are queued, so the guard
   sees motion up to that many groups old.
 
+The capacity schedule (`runtime.capacity_schedule`, on by default as in
+the JAX package): every path above runs its steps at ``cfg_active``,
+the configuration whose six fill-driven capacities start at
+``1/schedule_start_scale`` of ``cfg``'s and double when a check of the
+state's fills, every 4 to 64 dispatch units (a raw frame, a chunk, a
+raced group or a `process_feature_frame` step), finds one past its
+watermark.  A growth comes only between units and re-pads the state;
+``ladder`` records it with the units run by then.  The schedule is off
+in product mode, with ``parallel/deterministic`` 1, under the ``grid``
+engine and in cell matching.
+
 With ``loop_closure/if_enable_loop_closure`` the full-cloud cell map, a
 touched-cell mask and the pose go to `runtime.loop_service.LoopCloser`
 as they are dispatched, still on the device, in the JAX package's units:
@@ -88,6 +99,10 @@ Host-sync audit (the input to a CUDA-graph port):
     runtime/pipeline.py _log_unit           .cpu() of the unit's last        1 a logged dispatch
                                             registration's scalars for the   unit, only with logs
                                             ``mapping`` line
+    runtime/capacity_schedule.py            .cpu() of the six buffer fills   1 every 4-64 dispatch
+    CapacityScheduler.maybe_grow            (``schedule``)                   units until the tier
+                                                                             reaches the configured
+                                                                             capacities
 
 The loop service adds no read on the frame thread in async mode: a
 keyframe's member keys are united on the device, and the worker's reads
@@ -124,8 +139,9 @@ from ..parallel.layout import gather_state, shard_state
 from ..parallel.mesh import Mesh, make_mesh, mesh_device, set_active_mesh
 from ..registration import icp
 from ..utils import logging as L
-from . import odometry
+from . import capacity_schedule, odometry
 from .batched import odometry_step_batched
+from .capacity_schedule import CapacityScheduler, schedule_active
 from .loop_service import LoopCloser
 from .odometry import OdometryState, init_state, odometry_step
 
@@ -137,11 +153,11 @@ SYNCS = {"drain": 0, "log": 0}
 def host_syncs() -> dict:
     """Host reads of device values on the per-frame path since the last
     `reset_host_syncs`, by place."""
-    return {**livox.SYNCS, **icp.SYNCS, **odometry.SYNCS, **SYNCS}
+    return {**livox.SYNCS, **icp.SYNCS, **odometry.SYNCS, **capacity_schedule.SYNCS, **SYNCS}
 
 
 def reset_host_syncs() -> None:
-    for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS, SYNCS):
+    for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS, capacity_schedule.SYNCS, SYNCS):
         for key in counts:
             counts[key] = 0
 
@@ -282,7 +298,21 @@ class OdometryPipeline:
         # LM steps and the acceptance gates.
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        self.state = init_state(cfg, self.device)
+        # The capacity schedule (runtime/capacity_schedule.py): the steps
+        # run at cfg_active, whose six fill-driven capacities grow toward
+        # cfg's as the measured fills demand; self.cfg keeps the caller's
+        # configuration.
+        self.scheduler: Optional[CapacityScheduler] = None
+        self.cfg_active = cfg
+        if schedule_active(cfg, mesh):
+            self.scheduler = CapacityScheduler(cfg)
+            self.cfg_active = self.scheduler.cfg
+        self._sched_interval = 4          # dispatch units between fill checks
+        self._sched_countdown = self._sched_interval
+        self._units = 0                   # dispatch units run
+        #: (dispatch units run, scale) at each growth of the schedule
+        self.ladder: List[tuple] = []
+        self.state = init_state(self.cfg_active, self.device)
         self.trajectory = TrajectoryRecord()
         self.iterations: List[int] = []   # ICP iterations of each trajectory row
         self._buf: list = []              # raw frames waiting for their chunk or group
@@ -350,15 +380,38 @@ class OdometryPipeline:
             self._buf.append(frame)
             if len(self._buf) == self.frame_batch:
                 self._dispatch_group()
+                self._maybe_grow_capacity()
         elif self.dispatch_chunk > 1:
             self._buf.append(frame)
             if len(self._buf) == self.dispatch_chunk:
                 self._dispatch_chunk()
+                self._maybe_grow_capacity()
         else:
             self._pending.append(self._run_frame(*frame)._replace(raw=raw))
             self._feed_loop(1)
+            self._maybe_grow_capacity()
         if self.frame_batch > 1 or self._eager():
             self._drain(len(self._pending) - self.queue_depth)
+
+    def _maybe_grow_capacity(self) -> None:
+        """The schedule's check after a dispatch unit: every few units,
+        read the fills and grow the active capacities past a watermark
+        (the JAX package's countdown, runtime/pipeline.py:449-465).  A
+        growth re-pads the state only: queued rows and the loop
+        service's entries keep the shapes they were made at."""
+        self._units += 1
+        if self.scheduler is None or self.scheduler.at_max():
+            return
+        self._sched_countdown -= 1
+        if self._sched_countdown > 0:
+            return
+        self.state, self.cfg_active, grew = self.scheduler.maybe_grow(self.state)
+        if grew:
+            self.ladder.append((self._units, self.scheduler.scale))
+            self._sched_interval = 4
+        else:
+            self._sched_interval = min(self._sched_interval * 2, 64)
+        self._sched_countdown = self._sched_interval
 
     def _eager(self) -> bool:
         """Whether the rows are read after every raw frame (module doc)."""
@@ -368,7 +421,7 @@ class OdometryPipeline:
         """One raw frame through the front end and the odometry; returns
         its unit, not yet queued."""
         self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
-                                                     base_time, self.cfg)
+                                                     base_time, self.cfg_active)
         self.loop_iterations += sum(r.iterations for r in regs)
         return self._unit(trajectory_rows(regs, frames), regs[-1])
 
@@ -394,9 +447,10 @@ class OdometryPipeline:
         like a raw frame's.  Frames given here bypass any chunk or group
         that `process_raw` is filling."""
         self._activate()
-        self.state, reg = odometry_step(self.state, frame, self.cfg)
+        self.state, reg = odometry_step(self.state, frame, self.cfg_active)
         self.loop_iterations += reg.iterations
         self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
+        self._maybe_grow_capacity()
 
     def _dispatch_chunk(self) -> None:
         """The buffered raw frames back to back; the loop service gets one
@@ -425,8 +479,8 @@ class OdometryPipeline:
                 self._feed_loop(1)
             return
         self.raced_groups += 1
-        frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg)]
-        self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg)
+        frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg_active)]
+        self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg_active)
         self.loop_iterations += loops
         self.raced_loop_iterations += loops
         self._pending.append(self._unit(trajectory_rows(regs, frames), regs[-1]))

@@ -195,12 +195,13 @@ def _cli(inputs, argv: list):
     return {"rc": np.array(rc), "stdout": np.array(buf.getvalue())}
 
 
-def _scenario(inputs, name: str, frames: int, mesh_devices: int):
+def _scenario(inputs, name: str, frames: int, mesh_devices: int, auto_schedule: int = 1):
     """A small scenario on the CPU (`eval.scenarios.run_scenario`)."""
     from loam_livox_tpu_torch.eval.scenarios import run_scenario
 
     out = run_scenario(name, frames=frames, small=True, device="cpu",
-                       overrides={"parallel": {"mesh_devices": mesh_devices}})
+                       overrides={"parallel": {"mesh_devices": mesh_devices},
+                                  "capacity": {"auto_schedule": auto_schedule}})
     return {k: np.array(v) for k, v in out.items()
             if isinstance(v, (bool, int, float, str))}
 

@@ -629,7 +629,9 @@ def test_shard_input_equals_plain_and_merges(cuda):
 
 def test_product_mode_on_one_card_equals_plain(cuda, tmp_path):
     """Product mode on an NCCL group of one rank runs the plain pipeline's
-    trajectory bit for bit (small capacities, 10 frames)."""
+    trajectory bit for bit (small capacities, 10 frames).  Product mode
+    runs at the configured capacities (the capacity schedule is off
+    there), so the plain run turns the schedule off too."""
     import torch.distributed as dist
 
     from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig
@@ -638,7 +640,7 @@ def test_product_mode_on_one_card_equals_plain(cuda, tmp_path):
 
     cfg = SlamConfig().replace(
         capacity={"max_raw_points": 16384, "map_corner_capacity": 1024,
-                  "map_surf_capacity": 4096},
+                  "map_surf_capacity": 4096, "auto_schedule": 0},
         mapping={"init_accumulate_frames": 4})
     sim = LivoxSimulator(SimConfig(points_per_frame=10000, seed=1))
     frames = [sim.frame(i) for i in range(10)]

@@ -9,9 +9,12 @@ tests/test_scenarios_ci.py:24).
 
 The two packages are compared over the first 20 frames: the stream's
 registrations start at frame 6, and at this point budget with 5 ICP
-iterations the two runs part at frame 11 (3 mm) and by frame 14 are
-centimetres apart; the JAX run loses track at frame 24 and rejects every
-later frame (25 of 40 accepted), the port rejects 6 of 40.  Over 20
+iterations the two runs part at frame 11 (6 mm) and by frame 14 are
+centimetres apart.  Both run the capacity schedule (tier 16, then 2
+from frame 4) and both lose track later: the JAX run rejects every
+frame from 25 on (25 of 40 accepted), the port frame 23 and every frame
+from 27 on (26 of 40; it rejected 6 of 40 when it ran at the configured
+capacities).  Over 20
 frames both track: the aligned ATE must agree within 0.05 m, with the
 same number of keyframes (2, at frames 12 and 18) and the same first
 gate record (the similarity

@@ -129,9 +129,25 @@ def test_port_imports_no_jax():
 
 
 def test_entry_points_refuse_to_fall_back_to_the_cpu(monkeypatch):
+    from loam_livox_tpu_torch.eval import scaling
+    from loam_livox_tpu_torch.parallel.mesh import initialize_multihost
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loam_livox_tpu_torch.OdometryPipeline(loam_livox_tpu_torch.SlamConfig())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         loam_livox_tpu_torch.run_odometry(loam_livox_tpu_torch.SlamConfig(), 1)
     assert tpipe.resolve_device("cpu").type == "cpu"
+    # product mode's group and the scaling harness: NCCL on the cards
+    # unless the CPU is asked for; the refusal comes before the missing
+    # process group's error
+    for key in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE", "RANK"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="backend='gloo'"):
+        initialize_multihost()
+    with pytest.raises(RuntimeError, match="launcher"):
+        initialize_multihost(backend="gloo")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        scaling.main([])
+    with pytest.raises(RuntimeError, match="launcher"):
+        scaling.main(["--device", "cpu"])

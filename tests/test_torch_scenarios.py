@@ -40,15 +40,17 @@ def test_unported_scenarios_raise(name, item, tmp_path):
     """Every scenario is ported, the loop scenario over several devices
     too (queue 1 item 15): its first 12 small frames on 2 gloo ranks
     equal the 1-rank run's (product mode runs the step on the gathered
-    state, and the sharded search is exact).  Without a process group
-    the product mode says what it needs."""
+    state, and the sharded search is exact).  Product mode runs at the
+    configured capacities (the capacity schedule is off there, as in
+    the JAX package), so the 1-rank run turns the schedule off too.
+    Without a process group the product mode says what it needs."""
     from test_torch_dist_worker import launch
 
     with pytest.raises(RuntimeError, match="torch.distributed initialised"):
         tscenarios.run_scenario(name, small=True, device="cpu",
                                 overrides={"parallel": {"mesh_devices": 2}})
     one = launch("scenario", 1, tmp_path / "1", timeout=150, name=name, frames=12,
-                 mesh_devices=1)[0]
+                 mesh_devices=1, auto_schedule=0)[0]
     for out in launch("scenario", 2, tmp_path / "2", timeout=150, name=name, frames=12,
                       mesh_devices=2):
         for key in ("ate_aligned", "ate_raw", "accepted", "rows", "keyframes"):
