@@ -7,8 +7,11 @@ Phases, each printing JSON lines; any failure exits nonzero:
 
 1. card       the GPU's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the paths, from ``csrc/`` (one nvcc
-              per source, all started together), with ptxas's registers
-              and spills; and the native I/O library (host code,
+              per source, all started together: ``knn_fused``, the split
+              ``debounce`` and ``graph_cond``, the ICP loop's condition
+              and the frame graph's assembly), with ptxas's registers
+              and spills and the CUDA driver and runtime versions; and
+              the native I/O library (host code,
               ``native/native_io.cpp`` with g++) into the same ``_build/``;
 3. kernel     each kernel against its plain PyTorch version at the
               paths' shapes (corners 512 x 16,384 within sqrt(2) m;
@@ -42,17 +45,32 @@ Phases, each printing JSON lines; any failure exits nonzero:
               ``SlamConfig()`` with the capacity schedule on (the six
               fill-driven buffers start at 1/16 and grow as their fills
               demand): 40 simulator frames of 10,000 points, motion
-              deblur, history matching, registration after 10 frames.
+              deblur, history matching, registration after 10 frames,
+              each frame one CUDA graph launch of the frame program
+              (`runtime.frame_program`, one graph a capacity tier).
               Frames/s, accepted frames, aligned ATE against the
               simulator's ground truth, host syncs a frame, the tier
               ladder (the raw frame of each growth and the final scale)
-              and the ``schedule`` syncs; the launch counters are reset
-              just before and read just after, and ``knn_fused`` must
-              have launched exactly twice per ICP iteration; frames/s
-              over the first 20 frames too.  Then
+              and the ``schedule`` syncs, the ``graphs`` (keys, capture
+              seconds, whether a growth freed them) and the kernels'
+              runs, counted on the card by the kernels themselves; the
+              counters are reset just before and read just after: one
+              graph launch a frame, one capture a key, no kernel
+              launched from Python, ``knn_fused`` run twice an ICP pass,
+              the debounce once a frame, the condition kernel once a
+              pass and once before each WHILE and IF node, the ICP
+              passes counted on the card equal to the rows' iterations,
+              and no ICP-exit or admission read;
+              frames/s over the first 20 frames too.  Then
+              ``main_plain``: the same first 20 frames through the plain
+              program on the card, rows and state bit-equal to the
+              frame program's after 20 frames, or it fails; and
               ``main_fixed``: the first 20 frames at the configured
               capacities (``auto_schedule`` 0), the row the earlier
-              slices' main path ran.  Then the
+              slices' main path ran.  Then the debounce kernel on the
+              main path's last candidate table and the loop condition
+              kernel at each outcome against their plain versions, bit
+              for bit, with their times and bounds.  Then the
               kernel on the buffer and queries the main path ended on,
               at the main path's first tier (the buffer before the first
               growth, 1,024 / 4,096 rows, and the next frame's queries),
@@ -66,7 +84,8 @@ Phases, each printing JSON lines; any failure exits nonzero:
 6. path       the other rows of bench.py (bench.py:129-137) through
               ``process_raw`` at full width, 20 raw frames of 10,000
               points padded on the card beforehand: the shipped precision
-              and realtime profiles (3 pieces a frame), realtime racing
+              and realtime profiles (3 pieces a frame, on the frame
+              program: three WHILE nodes a graph), realtime racing
               (3 raw frames x 3 pieces a group) and chunked dispatch (8
               frames), each with the schedule on as the JAX package runs
               them.  Frames/s, registrations (trajectory rows)/s, ATE,
@@ -128,12 +147,15 @@ Phases, each printing JSON lines; any failure exits nonzero:
               the realtime profile, the schedule on) under its golden
               (aligned ATE < 1.30 m, at least half its 180 rows
               accepted), with its tier ladder;
-9. kernels    one line listing every kernel: launches on the main path
-              (and on each path), its time, the plain version's, the
-              bound and the yardstick on the main path's buffer, the
-              lane axis's on the racing path's, and its time on the
-              ``full_mapping`` buffer, at the scene alignment's input,
-              at the shard's input and on the main path's first tier.
+9. kernels    one line listing every kernel (``knn_fused``, ``debounce``,
+              ``graph_cond``): runs on the main path (counted on the
+              card by each kernel, one atomic add a run, so the frame
+              program's replays count), its time, the plain version's, the bound
+              and, for ``knn_fused``, the yardstick on the main path's
+              buffer, the lane axis's on the racing path's, and its time
+              on the ``full_mapping`` buffer, at the scene alignment's
+              input, at the shard's input and on the main path's first
+              tier.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; the last line is
@@ -230,8 +252,8 @@ def queued_ms(fn, reps: int) -> float:
 KERNEL_TIMER = {"by": "profiler"}
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time per call of the ``knn_fused`` kernels that ``fn``
+def device_ms(fn, reps: int, name: str = "knn_fused") -> float:
+    """Mean device time per call of the kernels named ``name`` that ``fn``
     launches, after two warm-up calls: the kernel alone, whatever the
     wrapper around it does, from torch.profiler's kernel records, or
     from `queued_ms` where the profiler records none (KERNEL_TIMER)."""
@@ -248,13 +270,13 @@ def device_ms(fn, reps: int) -> float:
                     fn()
                 torch.cuda.synchronize()
             rows = [e for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA and "knn_fused" in e.key]
+                    if e.device_type == torch.autograd.DeviceType.CUDA and name in e.key]
             us = sum(e.self_device_time_total for e in rows)
             if us > 0:
                 return us / reps / 1e3
         KERNEL_TIMER["by"] = "queued events"
         emit("kernel_timer", by=KERNEL_TIMER["by"],
-             why="the profiler recorded no knn_fused kernel in three tries")
+             why=f"the profiler recorded no {name} kernel in three tries")
     return queued_ms(fn, reps)
 
 
@@ -406,14 +428,15 @@ def load_baseline(root: str):
     return importlib.import_module("baseline_port.ops.knn_fused")
 
 
-def ptxas_report(log: str, k: int = 5) -> dict:
-    """Registers, spills and static shared memory of the K=k kernel, from
-    nvcc's ``-Xptxas -v`` log."""
+def ptxas_report(log: str, k: int | None = 5) -> dict:
+    """Registers, spills and static shared memory of the K=k kernel (with
+    ``k`` None, of the source's first kernel), from nvcc's ``-Xptxas -v``
+    log."""
     import re
 
     lines = log.splitlines()
     for n, ln in enumerate(lines):
-        if "Compiling entry function" in ln and f"ILi{k}E" in ln:
+        if "Compiling entry function" in ln and (k is None or f"ILi{k}E" in ln):
             block = []
             for x in lines[n + 1:]:
                 if "Compiling entry function" in x:
@@ -496,11 +519,13 @@ def rows_per_frame(cfg) -> int:
     return 1 if cfg.common.odom_mode == 0 else piece_count(cfg)
 
 
-def run_stream(cfg, sim, frames, device, split=None):
+def run_stream(cfg, sim, frames, device, split=None, plain=False):
     """The frames through a new pipeline; returns (pipeline, aligned ATE,
     accepted trajectory rows).  With ``split``, the card is synchronised
-    after that many frames and the seconds since the call are kept in
-    ``pipe.split_wall_s``."""
+    after that many frames, the seconds since the call are kept in
+    ``pipe.split_wall_s`` and a copy of the state then in
+    ``pipe.split_state``.  With ``plain``, the pipeline runs the plain
+    program where it would run the frame program."""
     import torch
 
     from loam_livox_tpu_torch.eval.ate import ate_rmse
@@ -508,10 +533,13 @@ def run_stream(cfg, sim, frames, device, split=None):
 
     t0 = time.perf_counter()
     pipe = OdometryPipeline(cfg, device=device)
+    if plain:
+        pipe.program = None
     if split is not None:
         feed(pipe, frames[:split])
         torch.cuda.synchronize()
         pipe.split_wall_s = time.perf_counter() - t0
+        pipe.split_state = clone_state(pipe.state)
         frames_rest = frames[split:]
     else:
         frames_rest = frames
@@ -527,12 +555,12 @@ def run_stream(cfg, sim, frames, device, split=None):
 
 # where each place of the host-sync audit (runtime/pipeline.py) lives
 AUDIT_FILES = {
-    "debounce": "loam_livox_tpu_torch/frontend/livox.py",
     "icp_exit": "loam_livox_tpu_torch/registration/icp.py",
     "admit": "loam_livox_tpu_torch/runtime/odometry.py",
     "drain": "loam_livox_tpu_torch/runtime/pipeline.py",
     "log": "loam_livox_tpu_torch/runtime/pipeline.py",
     "schedule": "loam_livox_tpu_torch/runtime/capacity_schedule.py",
+    "resume": "loam_livox_tpu_torch/runtime/checkpoint.py",
 }
 
 
@@ -544,6 +572,120 @@ def schedule_info(pipe) -> dict:
     s = pipe.scheduler
     return {"scheduled": s is not None, "ladder": [list(g) for g in pipe.ladder],
             "final_scale": s.scale if s is not None else None}
+
+
+def clone_state(state):
+    """A copy of an odometry state's tensors (the frame program updates
+    its state in place)."""
+    import torch
+
+    if isinstance(state, torch.Tensor):
+        return state.clone()
+    if isinstance(state, tuple) and hasattr(state, "_fields"):
+        return type(state)(*(clone_state(x) for x in state))
+    return state
+
+
+def reset_counts(kf, P) -> None:
+    """Zero every kernel wrapper's launch count and its kernel's run
+    counter on the card, the host-sync places and the frame program's
+    graph counters."""
+    from loam_livox_tpu_torch.ops import debounce as DB
+    from loam_livox_tpu_torch.ops import graph_cond as GC
+
+    kf.launches = DB.launches = GC.launches = 0
+    for counter in (kf.runs, DB.runs, GC.runs):
+        counter.reset()
+    P.reset_host_syncs()
+
+
+def kernel_runs(kf) -> dict:
+    """Each kernel's runs since `reset_counts`, counted on the card by the
+    kernel itself (one atomic add a run: launches from Python and runs
+    in graph replays alike), and the wrappers' launches from Python."""
+    from loam_livox_tpu_torch.ops import debounce as DB
+    from loam_livox_tpu_torch.ops import graph_cond as GC
+
+    return ({"knn_fused": kf.runs.read(), "debounce": DB.runs.read(),
+             "graph_cond": GC.runs.read()},
+            {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches})
+
+
+def graph_row(label, pipe, n_frames, kf, syncs, graphs) -> dict:
+    """A row on the frame program: its graphs (one a shape key: the
+    tier's capacities, steps, IF nodes, capture seconds, whether still
+    held) and the kernels' runs, counted on the card.  Fails unless
+    every frame was one graph launch, each key was captured once, no
+    kernel was launched from Python, the runs are what the replays hold
+    (``knn_fused`` twice an ICP pass, the debounce once a frame, the
+    condition kernel once a pass, once before each step's loop and once
+    before each IF node), the ICP passes counted on the card equal the
+    rows' iterations, and neither the ICP exit nor the admission read
+    the host (the front end has no host read left)."""
+    runs, from_python = kernel_runs(kf)
+    keys = pipe.program.summary()
+    passes = pipe.loop_iterations
+    conds = keys[0]["steps"] + keys[0]["branches"] if keys else 0
+    expected = {"knn_fused": 2 * passes, "debounce": n_frames,
+                "graph_cond": passes + conds * n_frames}
+    out = {"graphs": keys, "graph_counts": graphs, "kernel_runs": runs,
+           "capture_s": sum(k["capture_s"] for k in keys)}
+    reads = {p: syncs.get(p, 0) for p in ("icp_exit", "admit")}
+    if (runs != expected or any(from_python.values()) or graphs["graph_launch"] != n_frames
+            or graphs["graph_capture"] != len(keys) or passes != sum(pipe.iterations)
+            or len({(k["steps"], k["branches"]) for k in keys}) > 1 or any(reads.values())):
+        raise AssertionError(f"{label}: frame program off: kernel runs {runs} against "
+                             f"{expected}, launches from Python {from_python}, graphs "
+                             f"{graphs}, passes {passes} against {sum(pipe.iterations)}, "
+                             f"reads {reads}")
+    return out
+
+
+def debounce_inputs(cfg, frame, dev):
+    """The debounce's arguments on a host raw frame ``(xyz, intensity,
+    t0)``, as the front end builds them (recorded from its call)."""
+    from loam_livox_tpu_torch.core.types import to_device
+    from loam_livox_tpu_torch.frontend import livox
+
+    xyz, inten, t = frame[:3]
+    n_raw = cfg.capacity.max_raw_points
+    pts = np.zeros((n_raw, 3), np.float32)
+    it = np.zeros(n_raw, np.float32)
+    msk = np.zeros(n_raw, bool)
+    pts[:len(xyz)], it[:len(xyz)], msk[:len(xyz)] = xyz, inten, True
+    seen = []
+    real = livox.debounce
+    livox.debounce = lambda *a: seen.append(a) or real(*a)
+    try:
+        livox.extract_frame(to_device(pts, dev), to_device(it, dev), to_device(msk, dev), t,
+                            cfg.feature_extraction, cfg.capacity)
+    finally:
+        livox.debounce = real
+    return seen[0]
+
+
+def compare_small_kernel(name, kernel, plain, args, bytes_, ops, reps=200) -> dict:
+    """A kernel with a plain version of the same contract on the same
+    inputs: bit-equality, the wrapper's time, the kernel's alone, the
+    plain version's, and the bound (bytes over the memory rate or scalar
+    operations over the float32 rate, the larger)."""
+    import torch
+
+    got, want = kernel(*args), plain(*args)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    torch.cuda.synchronize()
+    err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+              for a, b in zip(got, want))
+    if err != 0.0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
+    t_bytes, t_ops = bytes_ / PEAK_BYTES, ops / PEAK_FP32_FLOPS
+    return dict(max_abs_err=err, ms=time_ms(lambda: kernel(*args), reps),
+                kernel_ms=device_ms(lambda: kernel(*args), reps, name=name),
+                kernel_ms_by=KERNEL_TIMER["by"],
+                plain_ms=time_ms(lambda: plain(*args), max(3, reps // 10)),
+                bound_ms=1e3 * max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
 
 
 def sync_check(label, pipe, frames):
@@ -651,7 +793,18 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, kerne
               **extra):
     """Emit a ``path`` line; fail unless the kernel launched twice per
     ICP loop pass (with ``kernel`` false, the ``grid`` and ``dense``
-    engines: never, over a run that made loop passes)."""
+    engines: never, over a run that made loop passes), or, on the frame
+    program, unless `graph_row` holds.  Returns the kernel's launches
+    (on the frame program, its runs counted on the card)."""
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    # raw frames on the slice ran on the frame program (multi-head feature
+    # frames run the plain program's step)
+    on_graphs = pipe.program is not None and bool(pipe.program.summary())
+    if on_graphs:
+        extra.update(graph_row(label, pipe, n_frames, kf, syncs, P.graph_counts()))
+        launches = extra["kernel_runs"]["knn_fused"]
     rows = len(pipe.trajectory.times)
     emit("path", path=label, frames=n_frames, rows=rows, fps=n_frames / wall,
          registrations_per_s=rows / wall, wall_s=wall, ate_aligned=ate, accepted=accepted,
@@ -663,10 +816,13 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, kerne
          map_surface_fill=int(pipe.state.map_surface.mask.sum()),
          map_surface_capacity=pipe.state.map_surface.capacity,
          schedule=schedule_info(pipe), **extra)
+    if on_graphs:
+        return launches
     expected = 2 * pipe.loop_iterations if kernel else 0
     if launches != expected or pipe.loop_iterations <= 0:
         raise AssertionError(f"{label}: knn_fused launched {launches} times for "
                              f"{pipe.loop_iterations} ICP loop passes")
+    return launches
 
 
 def shard_input(q, ref, mask, n_q, radius):
@@ -717,7 +873,7 @@ def tier_input(cfg, frames, dev) -> dict:
     pipe = OdometryPipeline(cfg, device=dev)
     start = pipe.scheduler.scale
     for frame in frames:
-        st, cfg_t = pipe.state, pipe.cfg_active
+        st, cfg_t = clone_state(pipe.state), pipe.cfg_active
         feed(pipe, [frame])
         if pipe.scheduler.scale != start:
             break
@@ -737,8 +893,7 @@ def engine_path(label, cfg, sim, frames, n, dev, kf, P):
 
     run_stream(cfg, sim, frames[:12], dev)
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     t0 = time.perf_counter()
     pipe, ate, accepted = run_stream(cfg, sim, frames[:n], dev)
     torch.cuda.synchronize()
@@ -774,8 +929,7 @@ def product_phase(cfg, sim, frames, n, dev, kf, P, main_rows, store_dir) -> int:
     try:
         mesh = make_mesh(1)
         torch.cuda.synchronize()
-        kf.launches = 0
-        P.reset_host_syncs()
+        reset_counts(kf, P)
         t0 = time.perf_counter()
         pipe = P.OdometryPipeline(cfg, device=dev, mesh=mesh)
         feed(pipe, frames[:n])
@@ -997,8 +1151,7 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
     rotations, restore_kf = record_rotations(KF)
     try:
         torch.cuda.synchronize()
-        kf.launches = 0
-        P.reset_host_syncs()
+        reset_counts(kf, P)
         t0 = time.perf_counter()
         pipe = P.OdometryPipeline(cfg, device=dev)
         closer = pipe.loop_closer
@@ -1382,13 +1535,18 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.compile_all(["knn_fused"])
+    build.compile_all(["knn_fused", "debounce", "graph_cond"])
     t1 = time.perf_counter()
     from loam_livox_tpu_torch.io import native
+    from loam_livox_tpu_torch.ops import graph_cond as GC
 
     native_lib = native.build()
-    emit("build", seconds=t1 - t0, sources=["knn_fused.cu"],
+    driver, runtime = GC.versions()
+    emit("build", seconds=t1 - t0, sources=["knn_fused.cu", "debounce.cu", "graph_cond.cu"],
+         cuda_driver=driver, cuda_runtime=runtime,
          ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
+         ptxas_debounce=ptxas_report(build.build_logs.get("debounce", ""), k=None),
+         ptxas_graph_cond=ptxas_report(build.build_logs.get("graph_cond", ""), k=None),
          launch_k5_surfaces=kf.launch_shape(5, 65536),
          native_io={"library": os.path.relpath(native_lib, HERE),
                     "seconds": time.perf_counter() - t1})
@@ -1494,46 +1652,70 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     sim_main, frames_main = sim, frames
     run_stream(cfg, sim, frames[:12], dev)          # warm-up: first registrations
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     n_fixed = 20            # main_fixed's frames, below
     t0 = time.perf_counter()
     pipe, ate, accepted = run_stream(cfg, sim, frames[:n], dev, split=n_fixed)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kf.launches
     syncs = P.host_syncs()
     iters = sum(pipe.iterations)
+    # the frame program's row: one graph launch a frame, the kernels' runs
+    # counted on the card (graph_row fails otherwise)
+    graph_main = graph_row("main", pipe, n, kf, syncs, P.graph_counts())
+    launches = graph_main["kernel_runs"]["knn_fused"]
     emit("main", frames=n, fps=n / wall, wall_s=wall, accepted=accepted, ate_aligned=ate,
          fps_first_20=n_fixed / pipe.split_wall_s,
-         icp_iterations=iters, knn_fused_launches=launches,
+         icp_iterations=iters, loop_iterations=pipe.loop_iterations,
+         knn_fused_launches=launches,
          host_syncs_per_frame=sum(syncs.values()) / n,
          host_syncs={k: v / n for k, v in syncs.items()}, schedule_syncs=syncs["schedule"],
          schedule=schedule_info(pipe),
          map_surface_fill=int(pipe.state.map_surface.mask.sum()),
          map_corner_fill=int(pipe.state.map_corners.mask.sum()),
          map_surface_capacity=pipe.state.map_surface.capacity,
-         map_corner_capacity=pipe.state.map_corners.capacity)
-    if launches != 2 * iters or launches <= 0:
-        raise AssertionError(f"knn_fused launched {launches} times for {iters} ICP iterations")
+         map_corner_capacity=pipe.state.map_corners.capacity, **graph_main)
     if not (ate < 0.35 and accepted >= n // 2):
         raise AssertionError(f"main path off: ATE {ate}, accepted {accepted}/{n}")
     if pipe.scheduler is None or syncs["schedule"] <= 0:
         raise AssertionError("the main path ran without its capacity schedule")
     launches_by_path = {"main": launches}
 
+    # the same first 20 frames through the plain program on the card: the
+    # frame program replays it, so rows and state must be bit-equal
+    torch.cuda.synchronize()
+    reset_counts(kf, P)
+    t0 = time.perf_counter()
+    pipe_pl, ate_pl, acc_pl = run_stream(cfg, sim, frames[:n_fixed], dev, plain=True)
+    torch.cuda.synchronize()
+    wall_pl = time.perf_counter() - t0
+    launches_by_path["main_plain"] = kf.launches
+    keys = ("times", "positions", "quaternions", "accepted")
+    rows_equal = (all(np.array_equal(np.asarray(getattr(pipe_pl.trajectory, k)),
+                                     np.asarray(getattr(pipe.trajectory, k)[:n_fixed]))
+                      for k in keys)
+                  and pipe_pl.iterations == pipe.iterations[:n_fixed])
+    a, b = state_tensors(pipe_pl.state), state_tensors(pipe.split_state)
+    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    path_line("main_plain", pipe_pl, n_fixed, wall_pl, ate_pl, acc_pl, kf.launches,
+              P.host_syncs(), rows_bit_equal_to_main=rows_equal,
+              state_fields_differing_from_main=differ, state_fields=len(a))
+    if not rows_equal or differ:
+        raise AssertionError(f"the frame program departs from the plain program: rows equal "
+                             f"{rows_equal}, state fields differing {differ}")
+
     # the same frames at the configured capacities (the schedule off): the
     # fixed-capacity main row of the earlier slices, 20 frames
     cfg_fixed = cfg.replace(capacity={"auto_schedule": 0})
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     t0 = time.perf_counter()
     pipe_x, ate_x, acc_x = run_stream(cfg_fixed, sim, frames[:n_fixed], dev)
     torch.cuda.synchronize()
     wall_x = time.perf_counter() - t0
-    launches_by_path["main_fixed"] = kf.launches
-    path_line("main_fixed", pipe_x, n_fixed, wall_x, ate_x, acc_x, kf.launches, P.host_syncs())
+    launches_by_path["main_fixed"] = path_line("main_fixed", pipe_x, n_fixed, wall_x, ate_x,
+                                               acc_x, kf.launches, P.host_syncs())
     if not (ate_x < 0.35 and acc_x >= n_fixed // 2 and pipe_x.scheduler is None):
         raise AssertionError(f"main_fixed off: ATE {ate_x}, accepted {acc_x}/{n_fixed}")
     tr = pipe_x.trajectory
@@ -1563,6 +1745,32 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     worst_err = max(worst_err, r_tier["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer at tier 16", **r_tier)
 
+    # the frame program's two kernels against their plain versions at the
+    # main path's shapes: the debounce on the candidate table of the
+    # path's last frame (512 slots), the loop condition on a step's carry
+    # (one lane, icp_maximum_iteration 15) at each of its outcomes
+    from loam_livox_tpu_torch.ops import debounce as DB
+    from loam_livox_tpu_torch.ops import graph_cond as GC
+
+    db_args = debounce_inputs(cfg, frames[n - 1], dev)
+    ns = db_args[0].shape[0]
+    r_db = compare_small_kernel("debounce", DB.debounce, DB.debounce_plain, db_args,
+                                bytes_=ns * 8 + ns + 8 + ns * 8 + 8, ops=4 * ns)
+    r_db.update(slots=ns, candidates=int((db_args[0] < db_args[2]).sum()),
+                kept=int(DB.debounce_plain(*db_args)[1]),
+                ptxas=ptxas_report(build.build_logs.get("debounce", ""), k=None))
+    emit("kernel", kernel="debounce", search="main-path candidate table", **r_db)
+    max_loops = cfg.optimization.icp_maximum_iteration
+    r_cond = None
+    for active, loops in ((True, 0), (True, max_loops - 1), (True, max_loops), (False, 3)):
+        args = (torch.tensor([active], device=dev),
+                torch.tensor(loops, dtype=torch.int32, device=dev), max_loops)
+        r_c = compare_small_kernel("loop_cond", GC.loop_condition, GC.loop_condition_plain,
+                                   args, bytes_=1 + 4 + 4, ops=2)
+        r_cond = r_cond or r_c
+        emit("kernel", kernel="graph_cond", search=f"active {active}, loops {loops}", **r_c)
+    r_cond.update(ptxas=ptxas_report(build.build_logs.get("graph_cond", ""), k=None))
+
     # torch's own count of synchronising calls over three more frames of
     # the same run (a cross-check of the audit in runtime/pipeline.py)
     sync_check("main", pipe, frames[n:n + 3])
@@ -1582,6 +1790,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     busy_ms = sum(e.self_device_time_total for e in kernels_ka) / 1e3
     launches_api = sum(e.count for e in ka if e.key in ("cudaLaunchKernel", "cuLaunchKernel",
                                                           "cudaLaunchKernelExC"))
+    graph_launches_api = sum(e.count for e in ka if e.key == "cudaGraphLaunch")
     prof_iters = pipe.iterations[-1:]
     # the profiler slows the host, not the card: set the device time per
     # ICP iteration against the unprofiled main run's frame time
@@ -1597,7 +1806,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     emit("profile", frames=1, iterations=prof_iters, wall_ms_per_frame_profiled=wall_ms,
          device_busy_ms_per_frame=busy_ms, device_busy_ms_per_icp_iteration=busy_per_iter,
          device_idle_share_main_estimate=idle_main,
-         kernel_launches_per_frame=launches_api,
+         kernel_launches_per_frame=launches_api, graph_launches_per_frame=graph_launches_api,
          kernel_launches_per_icp_iteration=launches_api / max(sum(prof_iters), 1),
          top_kernels_self_device_ms_per_frame=top(kernels_ka, "self_device_time_total"),
          top_self_cpu_ms_per_frame=top(ka, "self_cpu_time_total"))
@@ -1617,8 +1826,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     racing_pipe = None
     for label, cfg_p in paths.items():
         torch.cuda.synchronize()
-        kf.launches = 0
-        P.reset_host_syncs()
+        reset_counts(kf, P)
         t0 = time.perf_counter()
         pipe_p, ate_p, acc_p = run_stream(cfg_p, sim, dev_frames[:n_path], dev)
         torch.cuda.synchronize()
@@ -1627,6 +1835,10 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         syncs_p = P.host_syncs()
         rows = len(pipe_p.trajectory.times)
         fallback_iters = pipe_p.loop_iterations - pipe_p.raced_loop_iterations
+        graph_p = ({} if pipe_p.program is None else
+                   graph_row(label, pipe_p, n_path, kf, syncs_p, P.graph_counts()))
+        if graph_p:
+            launches_p = graph_p["kernel_runs"]["knn_fused"]
         emit("path", path=label, frames=n_path, rows=rows, fps=n_path / wall_p,
              registrations_per_s=rows / wall_p, wall_s=wall_p, ate_aligned=ate_p,
              accepted=acc_p, icp_iterations=sum(pipe_p.iterations),
@@ -1638,13 +1850,15 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
              host_syncs={k: v / n_path for k, v in syncs_p.items()},
              map_surface_fill=int(pipe_p.state.map_surface.mask.sum()),
              map_surface_capacity=pipe_p.state.map_surface.capacity,
-             schedule=schedule_info(pipe_p))
+             schedule=schedule_info(pipe_p), **graph_p)
         # each ICP pass searches corners and surfaces once: a piece's
         # iterations on the sequential paths, the batched loop of a raced
         # group plus the iterations of fallen-back frames on racing
         if pipe_p.raced_groups == 0 and pipe_p.loop_iterations != sum(pipe_p.iterations):
             raise AssertionError(f"{label}: loop passes differ from the rows' iterations")
-        if launches_p != 2 * (pipe_p.raced_loop_iterations + fallback_iters) or launches_p <= 0:
+        if pipe_p.program is None and (
+                launches_p != 2 * (pipe_p.raced_loop_iterations + fallback_iters)
+                or launches_p <= 0):
             raise AssertionError(f"{label}: knn_fused launched {launches_p} times for "
                                  f"{pipe_p.loop_iterations} ICP loop passes")
         if not (ate_p < 0.35 and acc_p >= rows // 2):
@@ -1698,8 +1912,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     host_f = [sim_f.frame(i) for i in range(n_f + 3)]
     dev_f = on_device(host_f, cfg_f.capacity.max_raw_points, dev)
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     t0 = time.perf_counter()
     pipe_f, ate_f, acc_f = run_stream(cfg_f, sim_f, dev_f[:n_f], dev)
     torch.cuda.synchronize()
@@ -1728,8 +1941,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     sims_m = S.simulators(cfg_m, kw_m)
     parts = [[sim.frame(i) for sim in sims_m] for i in range(n_m)]
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     t0 = time.perf_counter()
     pipe_m = P.OdometryPipeline(cfg_m, device=dev)
     for heads in parts:
@@ -1761,8 +1973,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
                          ("velodyne_scheduled", velodyne_config(C))):
         dev_v = on_device(sweeps, cfg_v.capacity.max_raw_points, dev)
         torch.cuda.synchronize()
-        kf.launches = 0
-        P.reset_host_syncs()
+        reset_counts(kf, P)
         t0 = time.perf_counter()
         pipe_v, ate_v, acc_v = run_velodyne(cfg_v, dev_v, truth, dev)
         torch.cuda.synchronize()
@@ -1808,16 +2019,15 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     sim_l = S.simulators(cfg_l, kw_l)[0]
     dev_l = on_device(large_sim.get(timeout=900), cfg_l.capacity.max_raw_points, dev)
     torch.cuda.synchronize()
-    kf.launches = 0
-    P.reset_host_syncs()
+    reset_counts(kf, P)
     t0 = time.perf_counter()
     pipe_l, ate_l, acc_l = run_stream(cfg_l, sim_l, dev_l, dev)
     torch.cuda.synchronize()
     wall_l = time.perf_counter() - t0
-    launches_by_path["largescale_realtime"] = kf.launches
     rows_l = len(pipe_l.trajectory.times)
-    path_line("largescale_realtime", pipe_l, n_l, wall_l, ate_l, acc_l, kf.launches,
-              P.host_syncs(), world_half_extent_m=kw_l["scene"]["half_extent"])
+    launches_by_path["largescale_realtime"] = path_line(
+        "largescale_realtime", pipe_l, n_l, wall_l, ate_l, acc_l, kf.launches, P.host_syncs(),
+        world_half_extent_m=kw_l["scene"]["half_extent"])
     emit("scenario", scenario="largescale_realtime", frames=n_l, rows=rows_l, fps=n_l / wall_l,
          ate_aligned=ate_l, accepted=acc_l, schedule=schedule_info(pipe_l))
     if not (ate_l < 1.30 and acc_l >= rows_l // 2):
@@ -1845,7 +2055,20 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         "shard_library_ms": r_shard["library_ms"],
         "tier16_ms": r_tier["ms"], "tier16_kernel_ms": r_tier["kernel_ms"],
         "tier16_bound_ms": r_tier["bound_ms"], "tier16_plain_ms": r_tier["plain_ms"],
-        "tier16_library_ms": r_tier["library_ms"], "launches_by_path": launches_by_path}]
+        "tier16_library_ms": r_tier["library_ms"], "launches_by_path": launches_by_path}, {
+        "name": "debounce", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/debounce.cu",
+        "replaces": "loam_livox_tpu/frontend/livox.py:186 (lax.scan, no Pallas kernel)",
+        "launches": graph_main["kernel_runs"]["debounce"], "max_abs_err": r_db["max_abs_err"],
+        "ms": r_db["ms"], "kernel_ms": r_db["kernel_ms"], "plain_ms": r_db["plain_ms"],
+        "bound_ms": r_db["bound_ms"], "bound_by": r_db["bound_by"], "library_ms": None}, {
+        "name": "graph_cond", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/graph_cond.cu",
+        "replaces": "loam_livox_tpu/registration/icp.py:327 (lax.while_loop, no Pallas kernel)",
+        "launches": graph_main["kernel_runs"]["graph_cond"],
+        "max_abs_err": r_cond["max_abs_err"],
+        "ms": r_cond["ms"], "kernel_ms": r_cond["kernel_ms"], "plain_ms": r_cond["plain_ms"],
+        "bound_ms": r_cond["bound_ms"], "bound_by": r_cond["bound_by"], "library_ms": None}]
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

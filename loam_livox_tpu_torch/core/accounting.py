@@ -1,5 +1,5 @@
 """Which tally the calling thread's host syncs and kernel launches count
-against.
+against, and the frame program's graph counters.
 
 The frame path counts into module-level tallies: the host-sync audit
 (`runtime.pipeline.host_syncs`) and ``ops.knn_fused.launches``.  The
@@ -13,6 +13,11 @@ import threading
 from contextlib import contextmanager
 
 _local = threading.local()
+
+#: the frame program's (`runtime.frame_program`) graph launches (one a raw
+#: frame), captures (one a shape key) and the seconds the captures took,
+#: since the last `runtime.pipeline.reset_host_syncs`
+GRAPHS = {"graph_launch": 0, "graph_capture": 0, "graph_capture_s": 0.0}
 
 
 @contextmanager

@@ -239,7 +239,7 @@ knn_fused_kernel(const float* __restrict__ query, int n_rows, long long lane_str
                  const float4* __restrict__ ref4, const float4* __restrict__ boxes,
                  int n_groups_cap, const int* __restrict__ n_ref_ptr,
                  const int* __restrict__ n_q_ptr, float radius2, float* __restrict__ out_d,
-                 int* __restrict__ out_i) {
+                 int* __restrict__ out_i, unsigned long long* __restrict__ runs) {
   extern __shared__ __align__(128) unsigned char smem[];
   float4* ring = reinterpret_cast<float4*>(smem);
   float* lane_d = reinterpret_cast<float*>(smem);  // [lane][s][t], after the scan
@@ -261,6 +261,8 @@ knn_fused_kernel(const float* __restrict__ query, int n_rows, long long lane_str
   const int rank = static_cast<int>(cluster.block_rank());
   const int tid = threadIdx.x;
   const int q0 = (blockIdx.x / kCluster) * kTileQ;
+  // the run counter: one thread of the launch adds one
+  if (runs != nullptr && blockIdx.x == 0 && blockIdx.y == 0 && tid == 0) atomicAdd(runs, 1ull);
   // this grid row's query set
   query += static_cast<size_t>(blockIdx.y) * static_cast<size_t>(lane_stride) * 3;
   out_d += static_cast<size_t>(blockIdx.y) * n_rows * K;
@@ -557,7 +559,7 @@ cudaError_t allow_smem(int smem) {
 template <int K>
 int launch(const float* query, int n_rows, int lanes, long long lane_stride, const float* ref4,
            const float* boxes, int mp, const int* n_ref, const int* n_q, float radius2,
-           float* out_d, int* out_i, cudaStream_t stream) {
+           float* out_d, int* out_i, unsigned long long* runs, cudaStream_t stream) {
   auto kernel = knn_fused_kernel<K>;
   const int n_groups = mp / kGroup;
   const int smem = Smem<K>::bytes(n_groups);
@@ -578,7 +580,7 @@ int launch(const float* query, int n_rows, int lanes, long long lane_stride, con
   e = cudaLaunchKernelEx(&cfg, kernel, query, n_rows, lane_stride,
                          reinterpret_cast<const float4*>(ref4),
                          reinterpret_cast<const float4*>(boxes), n_groups, n_ref, n_q, radius2,
-                         out_d, out_i);
+                         out_d, out_i, runs);
   return static_cast<int>(e != cudaSuccess ? e : cudaGetLastError());
 }
 
@@ -646,11 +648,13 @@ int knn_fused_max_rows(int k) {
 // (valid query rows of each set) on the device, out_d/out_i (lanes,
 // n_rows, k).  mp is a multiple of 256 no larger than
 // knn_fused_max_rows(k), 1 <= lanes <= 65535 (gridDim.y) and 1 <= k <= 8.
-// Returns a CUDA error code, 0 on a launch that was accepted.
+// `runs` (a device counter, or null) gains one each time the launch runs,
+// in a CUDA graph at every replay.  Returns a CUDA error code, 0 on a
+// launch that was accepted.
 int knn_fused_launch(const float* query, int n_rows, int lanes, long long lane_stride,
                      const float* ref4, const float* boxes, int mp, const int* n_ref,
                      const int* n_q, float radius2, int k, float* out_d, int* out_i,
-                     void* stream) {
+                     unsigned long long* runs, void* stream) {
   if (n_rows <= 0 || lanes <= 0 || lanes > 65535 || lane_stride < 0 || mp <= 0 ||
       mp % kGroup != 0)
     return cudaErrorInvalidValue;
@@ -658,7 +662,7 @@ int knn_fused_launch(const float* query, int n_rows, int lanes, long long lane_s
 #define KNN_LAUNCH(K)                                                                          \
   case K:                                                                                      \
     return launch<K>(query, n_rows, lanes, lane_stride, ref4, boxes, mp, n_ref, n_q, radius2, \
-                     out_d, out_i, s)
+                     out_d, out_i, runs, s)
   switch (k) {
     KNN_LAUNCH(1);
     KNN_LAUNCH(2);

@@ -8,11 +8,21 @@ ported: ``odometry_only``, ``full_mapping`` (cell matching),
 ``largescale_realtime``, ``loop_closure`` (keyframes, scene alignment,
 pose graph, in the orientation-rich world) and ``mid100_trilidar``
 (three-head front end).
+
+    python -m loam_livox_tpu_torch.eval.scenarios [names] [--set NS/KEY=VALUE]
+        [--device cpu] [--small] [--frames N]
+
+prints one JSON line a scenario (default: all), with the JAX package's
+``--set`` overrides (``loam_livox_tpu/eval/scenarios.py:273-300``,
+repeatable, applied to every scenario; an integer, else a float, else a
+string); on the card unless ``--device`` says otherwise; ``--small``
+runs the CPU-scale CI variants and ``--frames`` cuts each stream.
 """
 from __future__ import annotations
 
+import json
 import time
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 
@@ -194,3 +204,46 @@ def run_scenario(name: str, frames: int | None = None, small: bool = False,
         "keyframes": len(closer.keyframes) if closer is not None else 0,
         **score_loop_payoff(closer, pipe.trajectory.times, sims[0].gt_pose_at),
     }
+
+
+def parse_overrides(args: List[str]):
+    """``(names, overrides, options)`` from the command line: ``--set
+    NS/KEY=VALUE`` as the JAX package parses it (``NS.KEY`` too; the value
+    an int, else a float, else a string), ``--device``, ``--small`` and
+    ``--frames``; every other word names a scenario."""
+    overrides: Dict = {}
+    names, opts = [], {"device": None, "small": False, "frames": None}
+    i = 0
+    while i < len(args):
+        if args[i] == "--set":
+            path, val = args[i + 1].split("=", 1)
+            ns, key = path.replace(".", "/").split("/", 1)
+            try:
+                v: object = int(val)
+            except ValueError:
+                try:
+                    v = float(val)
+                except ValueError:
+                    v = val
+            overrides.setdefault(ns, {})[key] = v
+            i += 2
+        elif args[i] in ("--device", "--frames"):
+            opts[args[i][2:]] = args[i + 1] if args[i] == "--device" else int(args[i + 1])
+            i += 2
+        elif args[i] == "--small":
+            opts["small"] = True
+            i += 1
+        else:
+            names.append(args[i])
+            i += 1
+    return names, overrides, opts
+
+
+if __name__ == "__main__":
+    import sys
+
+    names, overrides, opts = parse_overrides(sys.argv[1:])
+    for nm in names or list(SCENARIOS):
+        print(json.dumps(run_scenario(nm, frames=opts["frames"], small=opts["small"],
+                                      overrides=overrides or None, device=opts["device"]),
+                         default=float), flush=True)

@@ -13,21 +13,24 @@ The behaviour of the reference front end (`Livox_laser`,
 * feature selection into corner / surface / full clouds
   (reference `get_features`, ``:219-272``).
 
-Everything is vectorised except the debounce, a greedy pass over at
-most ``max_splits`` turning-point candidates: its candidates cross to
-the host in one copy (one device sync per frame), the loop runs there,
-and the split table returns in one copy.
+Everything stays on the device: the debounce, a greedy pass over at
+most ``max_splits`` turning-point candidates (the JAX package's
+``lax.scan``), runs as the hand-written kernel of `ops.debounce` on the
+card, and the petal count is a tensor, so a frame reads nothing on the
+host and the frame program (`runtime.frame_program`) can capture it.
+The frame's base time may be a Python float or a scalar tensor (the
+frame program's input buffer), so that no time is fixed at capture.
 """
 from __future__ import annotations
 
 import math
 from typing import NamedTuple
 
-import numpy as np
 import torch
 
 from ..core.config import CapacityConfig, FeatureExtractionConfig
-from ..core.types import FeatureFrame, PointBatch, to_device
+from ..core.types import FeatureFrame, PointBatch
+from ..ops.debounce import debounce
 from ..ops.masked import compact
 
 # E_point_type bitmask (reference :82-92)
@@ -47,10 +50,6 @@ LABEL_NEAR_NAN = 1 << 2
 LABEL_NEAR_ZERO = 1 << 3
 
 _RAD2DEG = 57.3  # the reference's conversion constant, kept verbatim
-
-#: host reads of device values since the last reset
-SYNCS = {"debounce": 0}
-
 
 class PtInfo(NamedTuple):
     """Per-point analysis record (reference `Pt_infos`, :118-133)."""
@@ -99,39 +98,13 @@ def _dilate_mask_asymmetric(flag: torch.Tensor) -> torch.Tensor:
     return flag | _shift(flag, 1) | _shift(flag, 2) | _shift(flag, -1)
 
 
-def _debounce(cand_idx, cand_is_edge, n: int, n_valid: int, gap: int):
-    """The greedy split debounce on the host (reference :541-566): a
-    candidate is kept if it is the first of its kind or lies more than
-    ``gap`` samples past the last kept one.  Returns the sorted split
-    table (padding ``n``, the terminator ``n_valid - 1`` in the first
-    free slot) and the number of kept candidates."""
-    ns = len(cand_idx)
-    splits = np.full(ns, n, np.int64)
-    last, edge_seen, zero_seen, kept = -(10 ** 9), False, False, 0
-    for slot in range(ns):
-        ci = int(cand_idx[slot])
-        if ci >= n:
-            break
-        is_edge = bool(cand_is_edge[slot])
-        first = not edge_seen if is_edge else not zero_seen
-        if first or ci - last > gap:
-            splits[slot] = ci
-            last = ci
-            edge_seen |= is_edge
-            zero_seen |= not is_edge
-            kept += 1
-    free = np.nonzero(splits == n)[0]
-    if len(free):
-        splits[free[0]] = n_valid - 1
-    return np.sort(splits), kept
-
-
 def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
-                       in_mask: torch.Tensor, base_time: float,
+                       in_mask: torch.Tensor, base_time,
                        fe: FeatureExtractionConfig, caps: CapacityConfig):
-    """Per-point analysis of one padded raw frame.  Returns
-    ``(PtInfo, n_petals)``; ``n_petals == 0`` rejects the frame (fewer
-    than 3 petals, reference :572-573)."""
+    """Per-point analysis of one padded raw frame (``base_time`` a float
+    or a scalar tensor).  Returns ``(PtInfo, n_petals)``, ``n_petals`` an
+    int64 scalar tensor; 0 rejects the frame (fewer than 3 petals,
+    reference :572-573)."""
     dev = xyz.device
     n = xyz.shape[0]
     idxs = torch.arange(n, device=dev)
@@ -158,9 +131,10 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     sigma = torch.where(proj_ok, raw_intensity / torch.clamp(polar, min=1e-12), zero)
     low_refl = proj_ok & (sigma < fe.livox_min_sigma)
     pt_type = pt_type | torch.where(low_refl, PT_REFLECTIVITY_LOW, 0).to(torch.int32)
-    max_edge = torch.tan(torch.tensor(fe.max_fov_deg / _RAD2DEG,
-                                      dtype=torch.float32)) ** 2
-    edge = _dilate_mask_asymmetric(proj_ok & (polar > max_edge.item())) & in_mask
+    # a host float, computed in float32 on the CPU as before
+    max_edge = float(torch.tan(torch.tensor(fe.max_fov_deg / _RAD2DEG,
+                                            dtype=torch.float32)) ** 2)
+    edge = _dilate_mask_asymmetric(proj_ok & (polar > max_edge)) & in_mask
     pt_type = pt_type | torch.where(edge, PT_CIRCLE_EDGE, 0).to(torch.int32)
 
     # ---- petal split (reference :529-573) ------------------------------
@@ -173,7 +147,7 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     n_valid_t = in_mask.sum()
 
     # The first max_splits candidates in index order, compacted by
-    # cumsum (padding n), then one host round trip for the debounce.
+    # cumsum (padding n), then the debounce on the device.
     ns = caps.max_splits
     cand = edge_cand | zero_cand
     slot = torch.cumsum(cand.to(torch.int64), 0) - 1
@@ -183,19 +157,14 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
         torch.where(keep, idxs, torch.full_like(idxs, n))
     cand_idx = cand_idx[:ns]
     cand_is_edge = edge_cand[torch.clamp(cand_idx, max=n - 1)] & (cand_idx < n)
-    SYNCS["debounce"] += 1
-    host = torch.cat([cand_idx, cand_is_edge.to(torch.int64),
-                      n_valid_t.reshape(1)]).cpu().numpy()
-    n_valid = int(host[-1])
-    splits_np, n_accepted = _debounce(host[:ns], host[ns:2 * ns], n, n_valid,
-                                      fe.split_min_gap)
-    splits = to_device(splits_np, dev)
+    splits, n_accepted = debounce(cand_idx, cand_is_edge, n, n_valid_t, fe.split_min_gap)
     n_splits = n_accepted + 1            # includes the terminator
-    n_petals = 0 if n_splits < 6 else n_splits - 1
+    n_petals = torch.where(n_splits < 6, 0, n_splits - 1)
 
     # ---- per-segment scan angle (reference :575-604) --------------------
     count_less = torch.searchsorted(torch.clamp(splits, 0, n), idxs)
-    seg_of_pt = torch.clamp(count_less - 1, 0, max(n_splits - 2, 0))
+    seg_of_pt = torch.minimum(torch.clamp(count_less - 1, min=0),
+                              torch.clamp(n_splits - 2, min=0))
     seg_end = splits[torch.clamp(torch.arange(ns, device=dev) + 1, max=ns - 1)]
     internal = seg_end - splits
     far = polar[torch.clamp(seg_end, 0, n - 1)] > 10000.0
@@ -203,7 +172,7 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     rep = seg_end - (internal.to(torch.float32) * frac).to(torch.int64)
     rep = torch.clamp(rep, 0, n - 1)
     seg_angle = torch.atan2(pt_2d[rep, 1], pt_2d[rep, 0]) * _RAD2DEG + 180.0
-    scan_angle = seg_angle[seg_of_pt] if n_petals > 0 else torch.zeros_like(polar)
+    scan_angle = torch.where(n_petals > 0, seg_angle[seg_of_pt], torch.zeros_like(polar))
 
     # ---- curvature, view angle, labels (reference :361-455) -------------
     xyz_f = torch.stack([xs, ys, zs], dim=-1)
@@ -214,7 +183,7 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     bad1 = ((t_m1 | t_p1) & (PT_000 | PT_NAN)) != 0
     bad2 = ((t_m2 | t_p2) & (PT_000 | PT_NAN)) != 0
     self_bad = (pt_type & (PT_000 | PT_NAN)) != 0
-    interior = (idxs >= 2) & (idxs < n_valid - 2) & in_mask
+    interior = (idxs >= 2) & (idxs < n_valid_t - 2) & in_mask
     can_label = interior & ~self_bad & ~bad1 & ~bad2
 
     near_zero = interior & ~self_bad & (((t_m1 | t_p1) & PT_000) != 0)
@@ -244,8 +213,11 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     label = label | torch.where(is_surface, LABEL_SURFACE, 0).to(torch.int32)
     label = label | torch.where(is_corner, LABEL_CORNER, 0).to(torch.int32)
 
-    time = (torch.full((), base_time, dtype=torch.float32, device=dev)
-            + idxs.to(torch.float32) * fe.time_internal_pts)
+    if isinstance(base_time, torch.Tensor):
+        t0 = base_time.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        t0 = torch.full((), base_time, dtype=torch.float32, device=dev)
+    time = t0 + idxs.to(torch.float32) * fe.time_internal_pts
 
     info = PtInfo(pt_type=pt_type, label=label, depth_sq2=depth_sq2,
                   polar_dis_sq2=polar, pt_2d=pt_2d, curvature=curvature,
@@ -254,7 +226,7 @@ def extract_point_info(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     return info, n_petals
 
 
-def select_features(xyz: torch.Tensor, info: PtInfo, n_petals: int,
+def select_features(xyz: torch.Tensor, info: PtInfo, n_petals,
                     min_frac: float, max_frac: float,
                     fe: FeatureExtractionConfig) -> FeatureFrame:
     """Corner / surface / full clouds of the index-fraction window
@@ -292,7 +264,7 @@ def select_features(xyz: torch.Tensor, info: PtInfo, n_petals: int,
 
 
 def extract_frame(xyz: torch.Tensor, raw_intensity: torch.Tensor,
-                  in_mask: torch.Tensor, base_time: float,
+                  in_mask: torch.Tensor, base_time,
                   fe: FeatureExtractionConfig, caps: CapacityConfig,
                   piecewise_number: int = 1):
     """Front end for one raw frame, split into ``piecewise_number``

@@ -10,8 +10,9 @@ S times a head's capacity.  Optional per-head extrinsics move each
 head's points into the common frame (the Mid-100 sensor publishes a
 common frame, so by default none apply, as in the reference).
 
-Each head's `livox.extract_point_info` reads its debounce candidates on
-the host once: S host syncs a raw frame, counted under ``debounce``.
+Each head's `livox.extract_point_info` runs its split debounce on the
+device (`ops.debounce`): a multi-head frame reads nothing on the host
+in its front end.
 """
 from __future__ import annotations
 

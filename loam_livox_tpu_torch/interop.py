@@ -87,13 +87,13 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
     cell_full = cells("cell_full")
     return OdometryState(
         q_w=t("q_w"), t_w=t("t_w"),
-        frame_count=int(fields["frame_count"]),
+        frame_count=t("frame_count", torch.int32),
         hist_corner_xyz=t("hist_corner_xyz"),
         hist_corner_mask=t("hist_corner_mask", torch.bool),
         hist_surf_xyz=t("hist_surf_xyz"),
         hist_surf_mask=t("hist_surf_mask", torch.bool),
-        hist_ptr=int(fields["hist_ptr"]),
-        hist_len=int(fields["hist_len"]),
+        hist_ptr=t("hist_ptr", torch.int32),
+        hist_len=t("hist_len", torch.int32),
         last_his_q=t("last_his_q"), last_his_t=t("last_his_t"),
         last_q_incre=t("last_q_incre"), last_t_incre=t("last_t_incre"),
         cell_corners=cells("cell_corners"),

@@ -50,6 +50,61 @@ class RosettePattern:
 
 
 @dataclass
+class BoxScene:
+    """Axis-aligned boxes; the room walls are six thin slabs (the JAX
+    package's ``io/simulator.py:48-100``)."""
+    boxes: np.ndarray         # (B, 2, 3): [:, 0] = lo corner, [:, 1] = hi corner
+    reflectivity: np.ndarray  # (B,)
+
+    @staticmethod
+    def random_room(rng: np.random.Generator, half_extent: float = 12.0,
+                    n_boxes: int = 14, n_pillars: int = 12) -> "BoxScene":
+        """Room walls, random boxes, and full-height pillars inside the +X
+        viewing frustum: the pillars give the creases the Livox corner
+        detector fires on (reference ``livox_feature_extractor.hpp:443-452``)."""
+        e = half_extent
+        w = 0.5  # wall thickness
+        walls = [
+            [[e, -e - w, -e - w], [e + w, e + w, e + w]],     # +x
+            [[-e - w, -e - w, -e - w], [-e, e + w, e + w]],   # -x
+            [[-e - w, e, -e - w], [e + w, e + w, e + w]],     # +y
+            [[-e - w, -e - w, -e - w], [e + w, -e, e + w]],   # -y
+            [[-e - w, -e - w, e], [e + w, e + w, e + w]],     # +z (ceiling)
+            [[-e - w, -e - w, -e - w], [e + w, e + w, -e]],   # -z (floor)
+        ]
+        boxes = [np.array(b, np.float64) for b in walls]
+        for _ in range(n_boxes):
+            c = rng.uniform(-0.7 * e, 0.7 * e, size=3)
+            s = rng.uniform(0.4, 2.5, size=3)
+            boxes.append(np.stack([c - s / 2, c + s / 2]))
+        for _ in range(n_pillars):
+            x = rng.uniform(0.3 * e, 0.9 * e)
+            y = rng.uniform(-0.55 * e, 0.55 * e)
+            sx, sy = rng.uniform(0.3, 0.9, size=2)
+            boxes.append(np.array([[x - sx / 2, y - sy / 2, -e], [x + sx / 2, y + sy / 2, e]]))
+        arr = np.stack(boxes)
+        return BoxScene(arr, rng.uniform(0.5, 1.5, size=len(arr)))
+
+    def raycast(self, origins: np.ndarray, dirs: np.ndarray):
+        """First-hit distances along each ray (slab method): ``(t_hit (N,),
+        box_idx (N,))``, ``t_hit`` inf where no box is hit."""
+        o = origins[:, None, :]
+        d = dirs[:, None, :]
+        lo = self.boxes[None, :, 0, :]
+        hi = self.boxes[None, :, 1, :]
+        inv = 1.0 / np.where(np.abs(d) < 1e-12, 1e-12, d)
+        t1 = (lo - o) * inv
+        t2 = (hi - o) * inv
+        tmin = np.max(np.minimum(t1, t2), axis=-1)
+        tmax = np.min(np.maximum(t1, t2), axis=-1)
+        hit = (tmax >= tmin) & (tmax > 0)
+        t_enter = np.where(tmin > 0, tmin, tmax)     # inside a box: its exit
+        t_enter = np.where(hit, t_enter, np.inf)
+        box_idx = np.argmin(t_enter, axis=1)
+        return t_enter[np.arange(len(origins)), box_idx], box_idx
+
+
+@dataclass
 class ConvexScene:
     """Convex solids, each the intersection of half-spaces ``n·x ≤ d``;
     padded planes have n = 0, d = 1.  Solids meeting at angles give the

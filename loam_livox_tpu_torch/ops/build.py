@@ -22,6 +22,37 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded: dict[str, ctypes.CDLL] = {}
+
+
+class RunCounter:
+    """A kernel's runs, counted on the card by the kernel itself: its
+    launch takes the address of a device int64 that one thread of each
+    run increments, so a launch recorded into a CUDA graph counts at
+    every replay and never at its capture.  One counter a device."""
+
+    def __init__(self):
+        self._on: dict = {}
+
+    def address(self, device) -> int:
+        """The counter's address on ``device`` (made zero at its first
+        use, which must not fall under a graph capture)."""
+        import torch
+
+        t = self._on.get(device)
+        if t is None:
+            if torch.cuda.is_current_stream_capturing():
+                raise RuntimeError("a kernel's first launch on a device is under graph "
+                                   "capture: launch it once before capturing")
+            t = self._on[device] = torch.zeros((), dtype=torch.int64, device=device)
+        return t.data_ptr()
+
+    def read(self) -> int:
+        """Runs since the last `reset`, on every device (a host read)."""
+        return sum(int(t) for t in self._on.values())
+
+    def reset(self) -> None:
+        for t in self._on.values():
+            t.zero_()
 #: the compiler's report (ptxas registers / spills) of each build, kept
 #: beside the library
 build_logs: dict[str, str] = {}

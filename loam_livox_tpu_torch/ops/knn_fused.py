@@ -33,10 +33,13 @@ GROUP = 256    # references per bounding box and operand padding (kGroup in the 
 MAX_K = 8
 MAX_LANES = 65535   # gridDim.y
 
-#: kernel launches since the last reset (read and reset by callers that
-#: check the main path went through the kernel); launches inside
-#: `core.accounting.charged_to` count into that dict's "knn_fused" instead
+#: kernel launches made from Python since the last reset (read and reset
+#: by callers that check the main path went through the kernel); launches
+#: inside `core.accounting.charged_to` count into that dict's "knn_fused"
+#: instead, and a call recorded into a CUDA graph launches nothing
 launches = 0
+#: the kernel's runs on the card, counted by the kernel (replays included)
+runs = build.RunCounter()
 
 
 class RefOperand(NamedTuple):
@@ -115,7 +118,7 @@ def _library() -> ctypes.CDLL:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int64,
                        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                        ctypes.c_void_p, ctypes.c_float, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
         lib.knn_fused_info.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
         lib.knn_fused_info.restype = ctypes.c_int
@@ -209,11 +212,14 @@ def knn_fused(query_xyz: torch.Tensor, ref_xyz: torch.Tensor,
         err = lib.knn_fused_launch(
             q3.data_ptr(), n_rows, n_lanes, q3.stride(0) // 3, ref4.data_ptr(),
             boxes.data_ptr(), mp, n_ref.data_ptr(), n_q.data_ptr(), r2, k,
-            out_d.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out_d.data_ptr(), out_i.data_ptr(), runs.address(dev),
+            torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
             raise RuntimeError(f"knn_fused kernel launch failed: CUDA error {err}")
         counts = accounting.charged()
-        if counts is None:
+        if torch.cuda.is_current_stream_capturing():
+            pass            # recorded into a graph: its replays count in `runs`
+        elif counts is None:
             launches += 1
         else:
             counts["knn_fused"] = counts.get("knn_fused", 0) + 1

@@ -22,6 +22,29 @@ def masked_quantile_l1(values: torch.Tensor, mask: torch.Tensor,
     return torch.gather(svals, -1, idx.long()[..., None])[..., 0]
 
 
+def masked_mean(values: torch.Tensor, mask: torch.Tensor, axis=None) -> torch.Tensor:
+    """Mean of the valid entries (over ``axis``, default all); 0 where
+    none is valid."""
+    w = mask.to(values.dtype)
+    if axis is None:
+        return (values * w).sum() / torch.clamp(w.sum(), min=1.0)
+    return (values * w).sum(dim=axis) / torch.clamp(w.sum(dim=axis), min=1.0)
+
+
+def masked_min(values: torch.Tensor, mask: torch.Tensor, axis=None,
+               initial: float = BIG) -> torch.Tensor:
+    """Minimum of the valid entries; ``initial`` where none is valid."""
+    v = torch.where(mask, values, torch.full_like(values, initial))
+    return v.amin() if axis is None else v.amin(dim=axis)
+
+
+def masked_max(values: torch.Tensor, mask: torch.Tensor, axis=None,
+               initial: float = -BIG) -> torch.Tensor:
+    """Maximum of the valid entries; ``initial`` where none is valid."""
+    v = torch.where(mask, values, torch.full_like(values, initial))
+    return v.amax() if axis is None else v.amax(dim=axis)
+
+
 def random_keep_mask(mask: torch.Tensor, budget: int,
                      uniforms: torch.Tensor) -> torch.Tensor:
     """Thin ``mask`` so that about ``budget`` entries of the last axis

@@ -6,7 +6,8 @@ and reload", ``Points_cloud_map::save_to_file`` /
 * `save_state` / `load_state`: the whole `OdometryState` with
   ``torch.save`` (the JAX package uses orbax): pose, history ring,
   matching buffers, cell maps (``None`` where the configuration keeps
-  none), the host integers, and the residual-subsampling generator's
+  none), the counters (device scalars; a file that holds them as host
+  integers loads too), and the residual-subsampling generator's
   state.  A resumed run on the device type the state was written on
   continues bit for bit.  The CPU's and the card's generators keep
   different states, so a state moved between them restarts the
@@ -39,12 +40,16 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..core import accounting
 from ..core.config import SlamConfig
 from ..core.types import PointBatch, resolve_device
 from ..map.cell_map import EMPTY_KEY, CellMap
 from .loop_service import LoopCloser
 from ..ops.bucket_grid import BucketGrid
 from .odometry import OdometryState, init_state
+
+#: host reads of the restored frame counter since the last reset
+SYNCS = {"resume": 0}
 
 # ---- the odometry state ------------------------------------------------------
 
@@ -89,6 +94,8 @@ def _unpack(saved, ref, name: str, device):
         return type(ref)(**{f: _unpack(saved[f], getattr(ref, f), f"{name}.{f}", device)
                             for f in ref._fields})
     if isinstance(ref, torch.Tensor):
+        if not isinstance(saved, torch.Tensor):     # a counter saved as a host int
+            saved = torch.tensor(saved)
         if tuple(saved.shape) != tuple(ref.shape):
             raise ValueError(f"checkpoint shape {tuple(saved.shape)} of {name} != config "
                              f"shape {tuple(ref.shape)}: capacities differ")
@@ -271,5 +278,6 @@ def load_pipeline(directory: str, cfg: SlamConfig, device=None, mesh=None):
     c = cfg.common
     pieces = (1 if (c.if_motion_deblur or c.odom_mode == 0 or c.lidar_type == "velodyne")
               else max(1, c.piecewise_number))
-    pipe._frame_idx = pipe.state.frame_count // pieces
+    accounting.count(SYNCS, "resume")
+    pipe._frame_idx = int(pipe.state.frame_count) // pieces
     return pipe

@@ -37,21 +37,27 @@ a grid has no append, so appends between rebuilds are off under
 In place of the JAX rng key the state carries a ``torch.Generator`` on
 the device, which draws the uniforms of residual subsampling
 (``optimization/subsample_residuals``); its draws cannot match JAX's.
-The frame counter, ring pointer, ring length and the cell maps' frame
-index are host integers: the host decides from them whether to
-register, rebuild or append.
+The frame counter, ring pointer and ring length are int32 scalars on
+the state's device, as in the JAX package; the cell maps' frame index
+is a host integer.
 
-After registration the host reads one flag, whether the frame enters
-the history and the cell maps (`SYNCS`); rebuild and append follow from
-it on the host.
+History admission stays on the device, as the JAX step's ``jnp.where``
+and ``lax.cond`` keep it (``loam_livox_tpu/runtime/odometry.py:325-453``):
+the flag is a bool tensor, the ring write, pointers and last admitted
+pose are selects, and the matching buffer's rebuild and append are both
+computed and the one the flag and the cadence pick is kept.  A step
+reads nothing on the host, so the frame program
+(`runtime.frame_program`) can capture it.  Only the cell maps (cell
+matching or loop closure) take host branches on the flag: they read it
+once a step, counted in `SYNCS`.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core import se3
+from ..core import accounting, se3
 from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, PointBatch
 from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius,
@@ -59,22 +65,24 @@ from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius
 from ..ops.bucket_grid import BucketGrid, build_bucket_grid
 from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
-from ..registration.icp import RegistrationResult, refine_blur, register_frame
+from ..registration.icp import (RegistrationResult, prepare_frame, refine_blur,
+                                register_on_host)
 
-#: host reads of the history-admission flag since the last reset
+#: host reads of the history-admission flag since the last reset (made
+#: only where cell maps branch on it)
 SYNCS = {"admit": 0}
 
 
 class OdometryState(NamedTuple):
     q_w: torch.Tensor               # (4,) world pose
     t_w: torch.Tensor               # (3,)
-    frame_count: int                # frames processed
+    frame_count: torch.Tensor       # () int32 frames processed
     hist_corner_xyz: torch.Tensor   # (W, Ch, 3) world-frame history ring
     hist_corner_mask: torch.Tensor  # (W, Ch)
     hist_surf_xyz: torch.Tensor     # (W, Cs, 3)
     hist_surf_mask: torch.Tensor    # (W, Cs)
-    hist_ptr: int                   # next ring slot
-    hist_len: int                   # valid ring entries
+    hist_ptr: torch.Tensor          # () int32 next ring slot
+    hist_len: torch.Tensor          # () int32 valid ring entries
     last_his_q: torch.Tensor        # pose of the last admitted frame
     last_his_t: torch.Tensor
     last_q_incre: torch.Tensor      # last accepted increment
@@ -107,6 +115,7 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
     caps = cfg.capacity
     w = caps.history_window
     f32 = dict(dtype=torch.float32, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
 
     def cells(on: bool):
         if not on:
@@ -121,15 +130,15 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
     return OdometryState(
         q_w=se3.quat_identity(device=device),
         t_w=torch.zeros(3, **f32),
-        frame_count=0,
+        frame_count=torch.zeros((), **i32),
         hist_corner_xyz=torch.zeros((w, caps.hist_corner_capacity, 3), **f32),
         hist_corner_mask=torch.zeros((w, caps.hist_corner_capacity),
                                      dtype=torch.bool, device=device),
         hist_surf_xyz=torch.zeros((w, caps.hist_surf_capacity, 3), **f32),
         hist_surf_mask=torch.zeros((w, caps.hist_surf_capacity),
                                    dtype=torch.bool, device=device),
-        hist_ptr=0,
-        hist_len=0,
+        hist_ptr=torch.zeros((), **i32),
+        hist_len=torch.zeros((), **i32),
         last_his_q=se3.quat_identity(device=device),
         last_his_t=torch.zeros(3, **f32),
         last_q_incre=se3.quat_identity(device=device),
@@ -230,18 +239,75 @@ def input_downsample(frame: FeatureFrame, cfg: SlamConfig):
     return frame.corners, frame.surface
 
 
-def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
-                  ) -> Tuple[OdometryState, RegistrationResult]:
-    """Register one feature frame, then update the history and the
-    matching buffer."""
+def prepare_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig):
+    """A step up to its ICP loop: the input voxel filter and the
+    registration's pass, first carry and gates (`icp.prepare_frame`).
+    Returns ``(corner_in, surf_in, icp_pass, carry, finish)``."""
     corner_in, surf_in = input_downsample(frame, cfg)
-    reg = register_frame(
+    icp_pass, carry, finish = prepare_frame(
         corner_in, surf_in, state.map_corners, state.map_surface,
         state.q_w, state.t_w, frame.time_min, frame.time_max,
         state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
         q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
         rng=state.rng, grid_corners=state.grid_corners, grid_surface=state.grid_surface)
+    return corner_in, surf_in, icp_pass, carry, finish
+
+
+def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
+                  ) -> Tuple[OdometryState, RegistrationResult]:
+    """Register one feature frame (its ICP loop on the host), then update
+    the history and the matching buffer."""
+    corner_in, surf_in, icp_pass, carry, finish = prepare_step(state, frame, cfg)
+    reg = register_on_host(icp_pass, carry, finish, cfg.optimization.icp_maximum_iteration)
     return commit_frame(state, frame, corner_in, surf_in, reg, cfg)
+
+
+def _select(cond: torch.Tensor, a, b):
+    """``cond ? a : b`` field by field over two batches or grids of one
+    shape (host fields are equal and kept; ``None`` stays ``None``)."""
+    if a is None:
+        return None
+    return type(a)(*(torch.where(cond, x, y) if isinstance(x, torch.Tensor) else x
+                     for x, y in zip(a, b)))
+
+
+class MatchingUpdate(NamedTuple):
+    """A step's matching-buffer update under history matching: rebuild
+    the buffer from the history window, append the step's world points,
+    or neither (the JAX step's ``lax.cond``)."""
+    rebuild: torch.Tensor             # () bool
+    append: Optional[torch.Tensor]    # () bool, exclusive of rebuild; None without appends
+    corners: PointBatch               # the step's world points, for an append
+    surface: PointBatch
+
+
+def rebuilt_matching(state: OdometryState, cfg: SlamConfig):
+    """``(map_corners, map_surface, grid_corners, grid_surface)`` rebuilt
+    from the state's history window."""
+    map_c, map_s = rebuild_matching_buffer(state, cfg)
+    return (map_c, map_s) + tuple(build_grids(map_c, map_s, cfg))
+
+
+def appended_matching(state: OdometryState, upd: MatchingUpdate):
+    """``(map_corners, map_surface)`` with the step's points appended."""
+    return (append_to_buffer(state.map_corners, upd.corners),
+            append_to_buffer(state.map_surface, upd.surface))
+
+
+def update_matching(state: OdometryState, upd: MatchingUpdate, cfg: SlamConfig
+                    ) -> OdometryState:
+    """Apply ``upd`` to the state after its history write: each branch
+    computed, one kept, with no host read (the frame program runs only
+    the branch taken, under CUDA graph IF nodes)."""
+    fresh = rebuilt_matching(state, cfg)
+    keep_c, keep_s = state.map_corners, state.map_surface
+    if upd.append is not None:
+        app_c, app_s = appended_matching(state, upd)
+        keep_c, keep_s = _select(upd.append, app_c, keep_c), _select(upd.append, app_s, keep_s)
+    return state._replace(map_corners=_select(upd.rebuild, fresh[0], keep_c),
+                          map_surface=_select(upd.rebuild, fresh[1], keep_s),
+                          grid_corners=_select(upd.rebuild, fresh[2], state.grid_corners),
+                          grid_surface=_select(upd.rebuild, fresh[3], state.grid_surface))
 
 
 def commit_frame(state: OdometryState, frame: FeatureFrame,
@@ -255,6 +321,18 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     ``state.t_w`` (the default) in the sequential step, each lane's
     coasted start pose in the racing step.  Returns a new state; the input state's tensors
     are not modified."""
+    new, reg, upd = commit_history(state, frame, corner_in, surf_in, reg, cfg, q_base, t_base)
+    return (new if upd is None else update_matching(new, upd, cfg)), reg
+
+
+def commit_history(state: OdometryState, frame: FeatureFrame,
+                   corner_in: PointBatch, surf_in: PointBatch,
+                   reg: RegistrationResult, cfg: SlamConfig, q_base=None, t_base=None
+                   ) -> Tuple[OdometryState, RegistrationResult, Optional[MatchingUpdate]]:
+    """`commit_frame` up to the matching buffer under history matching:
+    the new state (the matching buffer as it was) and the
+    `MatchingUpdate` that `update_matching` applies; with cell maps,
+    the whole commit and no update."""
     fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
     deblur = bool(cfg.common.if_motion_deblur)
     if q_base is None:
@@ -280,21 +358,47 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     corner_w = to_world(corner_in, fe.mapping_line_resolution, caps.hist_corner_capacity)
     surf_w = to_world(surf_in, fe.mapping_plane_resolution, caps.hist_surf_capacity)
 
-    # history admission (reference :1444-1463): the frame's one host sync
+    # history admission (reference :1444-1463), on the device
     r_diff = se3.quat_angular_distance(reg.q_w, state.last_his_q) * 57.3
     t_diff = torch.linalg.vector_norm(reg.t_w - state.last_his_t)
     moved = ((t_diff > mp.history_add_t_step)
              | (r_diff > mp.history_add_angle_step * 57.3))
     window_open = state.hist_len < mp.maximum_histroy_buffer
-    SYNCS["admit"] += 1
-    admit = bool(reg.accepted & (moved | window_open))
+    admit = reg.accepted & (moved | window_open)
+    w = caps.history_window
+    slot = state.hist_ptr.to(torch.int64).reshape(1)
 
-    new = state._replace(q_w=reg.q_w, t_w=reg.t_w,
-                         frame_count=state.frame_count + 1,
-                         last_q_incre=last_q_incre, last_t_incre=last_t_incre)
+    def write(ring, value):
+        return torch.where(admit, ring.index_copy(0, slot, value[None]), ring)
+
+    new = state._replace(
+        q_w=reg.q_w, t_w=reg.t_w, frame_count=state.frame_count + 1,
+        last_q_incre=last_q_incre, last_t_incre=last_t_incre,
+        hist_corner_xyz=write(state.hist_corner_xyz, corner_w.xyz),
+        hist_corner_mask=write(state.hist_corner_mask, corner_w.mask),
+        hist_surf_xyz=write(state.hist_surf_xyz, surf_w.xyz),
+        hist_surf_mask=write(state.hist_surf_mask, surf_w.mask),
+        hist_ptr=torch.where(admit, (state.hist_ptr + 1) % w, state.hist_ptr),
+        hist_len=torch.where(admit, torch.clamp(state.hist_len + 1, max=w), state.hist_len),
+        last_his_q=torch.where(admit, reg.q_w, state.last_his_q),
+        last_his_t=torch.where(admit, reg.t_w, state.last_his_t))
+    interval = rebuild_interval(cfg)
+    if state.cell_corners is None and state.cell_full is None:
+        # rebuild (admitted, on the cadence), append (admitted, off it) or
+        # keep, decided on the device
+        do_rebuild = admit if interval == 1 else admit & (state.frame_count % interval == 0)
+        do_append = (admit & ~do_rebuild) if append_mode(cfg) and interval > 1 else None
+        return new, reg, MatchingUpdate(do_rebuild.reshape(()), None if do_append is None
+                                        else do_append.reshape(()), corner_w, surf_w)
+
+    # The cell maps branch on the host: one read of the flag (and of the
+    # rebuild cadence, in the same transfer).
+    accounting.count(SYNCS, "admit")
+    admitted, on_cadence = torch.stack([admit.reshape(()),
+                                        state.frame_count % interval == 0]).tolist()
     # the full-cloud cell map of loop closure (reference :1526-1530)
     if state.cell_full is not None:
-        if admit:
+        if admitted:
             s = refine_blur(frame.full.time, frame.time_min, frame.time_max, deblur)
             full_w = frame.full._replace(xyz=res.transform_points_incre(
                 reg.q_incre, reg.t_incre, frame.full.xyz, s, q_base, t_base, deblur))
@@ -308,28 +412,11 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     # The cell maps count every frame (the JAX step appends each frame
     # with an admit-gated mask), so a frame that is not admitted still
     # moves their frame index.
-    if not admit:
+    if not admitted:
         if state.cell_corners is not None:
             new = new._replace(cell_corners=skip_frame(state.cell_corners),
                                cell_planes=skip_frame(state.cell_planes))
-        return new, reg
-
-    w = caps.history_window
-    slot = state.hist_ptr
-
-    def write(ring, value):
-        ring = ring.clone()
-        ring[slot] = value
-        return ring
-
-    new = new._replace(
-        hist_corner_xyz=write(state.hist_corner_xyz, corner_w.xyz),
-        hist_corner_mask=write(state.hist_corner_mask, corner_w.mask),
-        hist_surf_xyz=write(state.hist_surf_xyz, surf_w.xyz),
-        hist_surf_mask=write(state.hist_surf_mask, surf_w.mask),
-        hist_ptr=(slot + 1) % w,
-        hist_len=min(state.hist_len + 1, w),
-        last_his_q=reg.q_w, last_his_t=reg.t_w)
+        return new, reg, None
     # cell-map insertion (reference :1491-1493), before the rebuild, so
     # that a rebuild sees this frame's cells
     if state.cell_corners is not None:
@@ -338,13 +425,11 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
             cell_corners=append_cloud(state.cell_corners, corner_w, revisit, max_new)[0],
             cell_planes=append_cloud(state.cell_planes, surf_w, revisit, max_new)[0])
 
-    interval = rebuild_interval(cfg)
-    if interval == 1 or state.frame_count % interval == 0:
-        map_c, map_s = rebuild_matching_buffer(new, cfg)
-        grid_c, grid_s = build_grids(map_c, map_s, cfg)
+    if interval == 1 or on_cadence:
+        map_c, map_s, grid_c, grid_s = rebuilt_matching(new, cfg)
         return new._replace(map_corners=map_c, map_surface=map_s,
-                            grid_corners=grid_c, grid_surface=grid_s), reg
+                            grid_corners=grid_c, grid_surface=grid_s), reg, None
     if append_mode(cfg):
         return new._replace(map_corners=append_to_buffer(state.map_corners, corner_w),
-                            map_surface=append_to_buffer(state.map_surface, surf_w)), reg
-    return new, reg
+                            map_surface=append_to_buffer(state.map_surface, surf_w)), reg, None
+    return new, reg, None

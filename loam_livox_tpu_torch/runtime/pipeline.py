@@ -77,20 +77,28 @@ dispatched, so logging, pcd files and ``eager_drain`` (the command
 line's ``--follow``) read the queue after every raw frame, down to the
 racing queue depth.
 
-Host-sync audit (the input to a CUDA-graph port):
+On the card, a configuration on the frame program's slice
+(`runtime.frame_program.on_slice`: sequential dispatch, the Livox front
+end, history matching, the ``knn_fused`` engine, loop closure off) runs
+each raw frame as one CUDA graph launch (`runtime.frame_program`), the
+counterpart of the JAX package's one jitted program a frame; its rows,
+state and iterations equal the plain program's (`process_raw_frame`)
+bit for bit.  The choice depends on the device and the configuration
+only.  Every other path, and every path on the CPU, runs the plain
+program.  The pipeline's `state` on the graph path is the program's
+static state: each frame updates it in place.
+
+Host-sync audit (a sync drains the launch queue):
 
     where                                   what                             how often
-    frontend/livox.py extract_point_info    .cpu() of the <= max_splits      1 a raw Livox frame
-                                            turning-point candidates for     (1 a head of a
-                                            the host debounce                multi-head frame;
-                                                                             none for Velodyne)
-    registration/icp.py register_frames     bool(active.any()): the early    <= icp_maximum_iteration
-                                            exit of the ICP loop (the first  + 1 a piece, or a
-                                            read also carries the map-size   racing group
-                                            gate)
-    runtime/odometry.py commit_frame        bool(admit): history admission,  1 a piece (1 a lane
-                                            which decides the ring write     of a racing group)
-                                            and rebuild/append
+    registration/icp.py run_host_loop       bool(active.any()): the early    <= icp_maximum_iteration
+                                            exit of the ICP loop             + 1 a piece, or a racing
+                                                                             group, on the plain
+                                                                             program; none in the
+                                                                             frame program
+    runtime/odometry.py commit_history      history admission and the        1 a piece with cell
+                                            rebuild cadence, read together   maps (cell matching or
+                                            where the cell maps branch       loop closure); else none
     runtime/pipeline.py _drain              .cpu() of the rows of the        1 a racing group (or
                                             groups drained past the queue    fallback frame) past
                                             depth, for the motion guard      the queue depth; with
@@ -103,19 +111,22 @@ Host-sync audit (the input to a CUDA-graph port):
     CapacityScheduler.maybe_grow            (``schedule``)                   units until the tier
                                                                              reaches the configured
                                                                              capacities
+    runtime/checkpoint.py load_pipeline     the restored frame counter       1 a resume
+                                            (``resume``)
 
-The loop service adds no read on the frame thread in async mode: a
+The front end reads nothing on the host: its split debounce runs on
+the device (`ops.debounce`), so it has no place here.  The loop service adds no read on the frame thread in async mode: a
 keyframe's member keys are united on the device, and the worker's reads
 (and, inline, the service's reads on the frame thread) count in
 ``LoopCloser.counts``, not here.
 
-Everything else stays on the device: the raw frame and the split table
-go up through pinned memory without blocking, the kNN kernel reads its
-valid-prefix counts from device memory, and the solver's accept/reject
-steps are ``torch.where``.  `host_syncs` counts the reads;
-``chip_smoke.py`` checks the list against PyTorch's own sync-debug
-report, by source line.  (Writing a Python scalar into a CUDA tensor,
-``t[0] = 1.0``, is a blocking copy too, and stays off this path.)
+Everything else stays on the device: the raw frame goes up through
+pinned memory without blocking, the kNN kernel reads its valid-prefix
+counts from device memory, and the solver's accept/reject steps are
+``torch.where``.  `host_syncs` counts the reads; ``chip_smoke.py``
+checks the list against PyTorch's own sync-debug report, by source
+line.  (Writing a Python scalar into a CUDA tensor, ``t[0] = 1.0``, is
+a blocking copy too, and stays off this path.)
 """
 from __future__ import annotations
 
@@ -138,10 +149,12 @@ from ..ops.voxel import voxel_downsample
 from ..parallel.layout import gather_state, shard_state
 from ..parallel.mesh import Mesh, make_mesh, mesh_device, set_active_mesh
 from ..registration import icp
+from ..core import accounting
 from ..utils import logging as L
-from . import capacity_schedule, odometry
+from . import capacity_schedule, checkpoint, odometry
 from .batched import odometry_step_batched
 from .capacity_schedule import CapacityScheduler, schedule_active
+from .frame_program import FrameProgram, on_slice
 from .loop_service import LoopCloser
 from .odometry import OdometryState, init_state, odometry_step
 
@@ -150,16 +163,27 @@ from .odometry import OdometryState, init_state, odometry_step
 SYNCS = {"drain": 0, "log": 0}
 
 
+_SYNC_PLACES = (icp.SYNCS, odometry.SYNCS, capacity_schedule.SYNCS,
+                checkpoint.SYNCS, SYNCS)
+
+
 def host_syncs() -> dict:
     """Host reads of device values on the per-frame path since the last
     `reset_host_syncs`, by place."""
-    return {**livox.SYNCS, **icp.SYNCS, **odometry.SYNCS, **capacity_schedule.SYNCS, **SYNCS}
+    return {k: v for counts in _SYNC_PLACES for k, v in counts.items()}
+
+
+def graph_counts() -> dict:
+    """Frame-program launches and captures (and the seconds the captures
+    took) since the last `reset_host_syncs`."""
+    return dict(accounting.GRAPHS)
 
 
 def reset_host_syncs() -> None:
-    for counts in (livox.SYNCS, icp.SYNCS, odometry.SYNCS, capacity_schedule.SYNCS, SYNCS):
+    """Zero the host-sync places and the graph counters."""
+    for counts in (*_SYNC_PLACES, accounting.GRAPHS):
         for key in counts:
-            counts[key] = 0
+            counts[key] = type(counts[key])(0)
 
 
 def source_downsample(frame: FeatureFrame, cfg: SlamConfig) -> FeatureFrame:
@@ -183,10 +207,11 @@ def piece_count(cfg: SlamConfig) -> int:
     return max(1, cfg.common.piecewise_number)
 
 
-def extract_pieces(pts, inten, mask, base_time: float, cfg: SlamConfig,
+def extract_pieces(pts, inten, mask, base_time, cfg: SlamConfig,
                    n_run: int | None = None) -> List[FeatureFrame]:
-    """The front end and the source voxel filter of one padded raw frame:
-    its first ``n_run`` (default all) pieces."""
+    """The front end and the source voxel filter of one padded raw frame
+    (``base_time`` a float or a scalar tensor): its first ``n_run``
+    (default all) pieces."""
     fe = cfg.feature_extraction
     if cfg.common.lidar_type == "velodyne":
         frames = [extract_velodyne_features(pts, mask, base_time, fe,
@@ -197,16 +222,21 @@ def extract_pieces(pts, inten, mask, base_time: float, cfg: SlamConfig,
     return [source_downsample(f, cfg) for f in frames[:n_run]]
 
 
+def steps_per_frame(cfg: SlamConfig) -> int:
+    """Odometry steps a raw frame runs: its pieces, or with ``odom_mode``
+    0 only the first (the reference's extractor publishes only piece 0
+    in odometry mode, laser_feature_extractor.hpp:385-388)."""
+    return 1 if cfg.common.odom_mode == 0 else piece_count(cfg)
+
+
 def process_raw_frame(state: OdometryState, pts, inten, mask, base_time: float,
                       cfg: SlamConfig):
     """One padded raw frame through the front end and one odometry step
-    a piece (reference pipeline.py:99-133): with ``odom_mode`` 0 and
-    more than one piece, only the first runs (the reference's extractor
-    publishes only piece 0 in odometry mode,
-    laser_feature_extractor.hpp:385-388).  Returns ``(state, regs,
-    frames)``, one result and feature frame a piece that ran."""
-    n_run = 1 if cfg.common.odom_mode == 0 else None
-    frames = extract_pieces(pts, inten, mask, base_time, cfg, n_run)
+    a piece that runs (reference pipeline.py:99-133, `steps_per_frame`):
+    the plain program, which the frame program (`runtime.frame_program`)
+    replays on the card.  Returns ``(state, regs, frames)``, one result
+    and feature frame a step."""
+    frames = extract_pieces(pts, inten, mask, base_time, cfg, steps_per_frame(cfg))
     regs = []
     for frame in frames:
         state, reg = odometry_step(state, frame, cfg)
@@ -318,9 +348,12 @@ class OdometryPipeline:
         self._buf: list = []              # raw frames waiting for their chunk or group
         self._pending: deque = deque()    # _Unit rows not yet on the host
         self._last_motion = 0.0           # racing guard: last observed step (m)
-        #: ICP loop passes run (each launches the kNN kernel twice): a
-        #: piece's iterations, or one batched loop for a racing group
-        self.loop_iterations = 0
+        self._loop_iterations = 0         # passes of the plain program's loops
+        #: the frame program on the card, for a configuration on its slice;
+        #: set to None, the plain program runs instead (the card's reference
+        #: run that chip_smoke.py and the GPU tests hold it against)
+        self.program: Optional[FrameProgram] = (
+            FrameProgram(self.device) if on_slice(cfg, self.device, mesh) else None)
         self.raced_groups = 0
         self.raced_loop_iterations = 0    # the batched loops' share
         self.fallback_groups = 0
@@ -328,6 +361,14 @@ class OdometryPipeline:
         self.loop_closer: Optional[LoopCloser] = None
         if cfg.loop_closure.if_enable_loop_closure:
             self.loop_closer = LoopCloser(cfg, device=self.device)
+
+    @property
+    def loop_iterations(self) -> int:
+        """ICP loop passes run (each launches the kNN kernel twice): a
+        piece's iterations, or one batched loop for a racing group; the
+        frame program's passes are summed on the card and read here."""
+        graph = self.program.loop_passes() if self.program is not None else 0
+        return self._loop_iterations + graph
 
     @property
     def state(self) -> OdometryState:
@@ -418,11 +459,17 @@ class OdometryPipeline:
         return self.eager_drain or self.logger.enabled() or self._pcd_dir is not None
 
     def _run_frame(self, pts, inten, mask, base_time: float) -> _Unit:
-        """One raw frame through the front end and the odometry; returns
-        its unit, not yet queued."""
+        """One raw frame through the front end and the odometry (the frame
+        program on the card, on its slice; else the plain program);
+        returns its unit, not yet queued."""
+        if self.program is not None:
+            self.state, rows, last_reg = self.program.run(
+                self.state, pts, inten, mask, base_time, self.cfg_active,
+                steps_per_frame(self.cfg_active))
+            return self._unit(rows, last_reg)
         self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
                                                      base_time, self.cfg_active)
-        self.loop_iterations += sum(r.iterations for r in regs)
+        self._loop_iterations += sum(r.iterations for r in regs)
         return self._unit(trajectory_rows(regs, frames), regs[-1])
 
     def _unit(self, rows: torch.Tensor, last_reg) -> _Unit:
@@ -448,7 +495,7 @@ class OdometryPipeline:
         that `process_raw` is filling."""
         self._activate()
         self.state, reg = odometry_step(self.state, frame, self.cfg_active)
-        self.loop_iterations += reg.iterations
+        self._loop_iterations += reg.iterations
         self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
         self._maybe_grow_capacity()
 
@@ -481,7 +528,7 @@ class OdometryPipeline:
         self.raced_groups += 1
         frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg_active)]
         self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg_active)
-        self.loop_iterations += loops
+        self._loop_iterations += loops
         self.raced_loop_iterations += loops
         self._pending.append(self._unit(trajectory_rows(regs, frames), regs[-1]))
         self._feed_loop(len(buf))

@@ -1,0 +1,162 @@
+"""Frames/s of a few paths of the port through two checkouts on one card,
+in turns (baseline, this, this, baseline), so that the two are compared
+on the same card within one call.
+
+    python scripts/torch_rows_in_turns.py --baseline DIR [--frames 20] [--out FILE]
+
+``DIR`` is an earlier checkout of the repo (``git archive <commit> | tar
+-x -C DIR``).  Each turn is a child process with its checkout first on
+``sys.path``; it simulates the frames, pads them onto the card, and runs
+each row through a fresh ``OdometryPipeline`` after a 12-frame warm-up
+of the same configuration (the kernels' first launches):
+
+    main_fixed        ``SlamConfig()`` at the configured capacities, the
+                      frame program where the checkout has one
+    main_fixed_plain  the same through the plain program (``program =
+                      None``; the same as ``main_fixed`` in a checkout
+                      without a frame program)
+    dense             the ``dense`` correspondence engine, off the frame
+                      program's slice: the plain program in both
+    main_fixed_plain_branched
+                      ``main_fixed_plain`` with the matching-buffer update
+                      branched on the host (one read of its flags a
+                      step, the branch taken alone), where the checkout
+                      computes both and selects: what that select costs
+
+A row's time runs from the pipeline's construction to its flush, graph
+captures included.  Prints one JSON line a turn and a summary line with
+the card's name and power limit; ``--out`` also writes them to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def child(root: str, n_frames: int) -> dict:
+    sys.path.insert(0, root)
+    import torch
+
+    from loam_livox_tpu_torch.core import config as C
+    from loam_livox_tpu_torch.core.types import to_device
+    from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig, Trajectory
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    import loam_livox_tpu_torch
+    if not loam_livox_tpu_torch.__file__.startswith(os.path.abspath(root)):
+        raise RuntimeError(f"imported {loam_livox_tpu_torch.__file__}, not {root}'s package")
+    dev = torch.device("cuda")
+    cfg = C.SlamConfig().replace(mapping={"init_accumulate_frames": 10},
+                                 capacity={"auto_schedule": 0})
+    n_raw = cfg.capacity.max_raw_points
+    sim = LivoxSimulator(SimConfig(points_per_frame=10000, seed=0),
+                         traj=Trajectory(ramp_t0=0.1 * 10 + 0.2))
+    frames = []
+    for i in range(n_frames + 12):
+        xyz, inten, t0 = sim.frame(i)
+        pts = np.zeros((n_raw, 3), np.float32)
+        it = np.zeros(n_raw, np.float32)
+        m = np.zeros(n_raw, bool)
+        pts[:len(xyz)], it[:len(xyz)], m[:len(xyz)] = xyz, inten, True
+        frames.append((to_device(pts, dev), to_device(it, dev), t0, to_device(m, dev)))
+
+    def run(cfg_row, plain, batch):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe = OdometryPipeline(cfg_row, device=dev)
+        if plain:
+            pipe.program = None
+        for pts, inten, t, m in batch:
+            pipe.process_raw(pts, inten, t, mask=m)
+        pipe.flush()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, pipe
+
+    rows = {"main_fixed": (cfg, False), "main_fixed_plain": (cfg, True),
+            "dense": (cfg.replace(optimization={"correspondence": "dense"}), False),
+            "main_fixed_plain_branched": (cfg, True)}
+    out = {"root": root, "has_frame_program": hasattr(OdometryPipeline(cfg, device=dev),
+                                                       "program")}
+    from loam_livox_tpu_torch.runtime import odometry as O
+    selected = getattr(O, "update_matching", None)
+
+    def branched(state, upd, cfg_row):
+        """The update taken alone, chosen by one host read a step."""
+        flags = [upd.rebuild] + ([] if upd.append is None else [upd.append])
+        rebuild, *append = torch.stack(flags).tolist()
+        if rebuild:
+            map_c, map_s, grid_c, grid_s = O.rebuilt_matching(state, cfg_row)
+            return state._replace(map_corners=map_c, map_surface=map_s,
+                                  grid_corners=grid_c, grid_surface=grid_s)
+        if append and append[0]:
+            map_c, map_s = O.appended_matching(state, upd)
+            return state._replace(map_corners=map_c, map_surface=map_s)
+        return state
+
+    for label, (cfg_row, plain) in rows.items():
+        if label.endswith("_branched"):
+            if selected is None:
+                continue            # the checkout branches on the host already
+            O.update_matching = branched
+        try:
+            run(cfg_row, plain, frames[:12])
+            wall, pipe = run(cfg_row, plain, frames[:n_frames])
+        finally:
+            if selected is not None:
+                O.update_matching = selected
+        out[label] = {"fps": n_frames / wall, "wall_s": wall,
+                      "iterations": int(sum(pipe.iterations)),
+                      "accepted": int(sum(pipe.trajectory.accepted))}
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--baseline", help="an earlier checkout of the repo")
+    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--out", help="also write the lines to this file")
+    ap.add_argument("--child", help=argparse.SUPPRESS)
+    args = ap.parse_args()
+    if args.child:
+        print(json.dumps(child(args.child, args.frames)))
+        return 0
+    if not args.baseline:
+        ap.error("--baseline is required")
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          check=True).stdout.strip().splitlines()[0]
+    lines = []
+    for turn, root in enumerate([args.baseline, HERE, HERE, args.baseline]):
+        res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
+                              os.path.abspath(root), "--frames", str(args.frames)],
+                             capture_output=True, text=True, cwd=os.path.abspath(root))
+        if res.returncode != 0:
+            sys.stderr.write(res.stderr[-4000:])
+            raise SystemExit(f"turn {turn} ({root}) failed")
+        line = json.loads(res.stdout.strip().splitlines()[-1])
+        line["turn"] = turn
+        lines.append(line)
+        print(json.dumps(line), flush=True)
+    summary = {"card": card, "frames": args.frames}
+    for label in ("main_fixed", "main_fixed_plain", "dense", "main_fixed_plain_branched"):
+        summary[label] = {
+            "baseline_fps": [lines[i][label]["fps"] for i in (0, 3) if label in lines[i]],
+            "this_fps": [lines[i][label]["fps"] for i in (1, 2) if label in lines[i]]}
+    print(json.dumps(summary))
+    if args.out:
+        with open(args.out, "w") as f:
+            for line in lines + [summary]:
+                f.write(json.dumps(line) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

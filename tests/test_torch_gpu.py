@@ -661,3 +661,205 @@ def test_product_mode_on_one_card_equals_plain(cuda, tmp_path):
         dist.destroy_process_group()
     assert np.array_equal(product.positions_array(), plain.positions_array())
     assert product.accepted == plain.accepted and sum(plain.accepted) > 0
+
+
+# ---- the frame program: one CUDA graph launch a raw frame -------------------
+
+def test_debounce_kernel_equals_plain(cuda):
+    """The debounce kernel against its plain version: seeded candidate
+    sets (empty, sparse, the 512-slot table overfull, small gaps) and the
+    front end's own candidates, bit for bit."""
+    from loam_livox_tpu_torch.ops import debounce as db
+
+    rng = np.random.default_rng(11)
+    for trial in range(300):
+        n = int(rng.integers(8, 16385))
+        ns = int(rng.choice([1, 7, 512]))
+        idx = np.sort(rng.choice(n, size=int(rng.integers(0, min(n, ns) + 1)), replace=False))
+        cand = np.full(ns, n, np.int64)
+        cand[:len(idx)] = idx
+        edge = np.zeros(ns, bool)
+        edge[:len(idx)] = rng.random(len(idx)) < rng.random()
+        args = (torch.from_numpy(cand).to(cuda), torch.from_numpy(edge).to(cuda), n,
+                torch.tensor(int(rng.integers(0, n + 1)), device=cuda), int(rng.integers(0, 80)))
+        s_k, k_k = db.debounce(*args)
+        s_p, k_p = db.debounce_plain(*args)
+        assert torch.equal(s_k, s_p) and int(k_k) == int(k_p), trial
+
+
+def test_loop_condition_kernel_equals_plain(cuda):
+    from loam_livox_tpu_torch.ops import graph_cond as gc
+
+    for lanes in ([False], [True], [False, False, True], [False] * 9):
+        active = torch.tensor(lanes, device=cuda)
+        for loops, max_loops in ((0, 15), (14, 15), (15, 15), (3, 0)):
+            n = torch.tensor(loops, dtype=torch.int32, device=cuda)
+            assert int(gc.loop_condition(active, n, max_loops)) == \
+                int(gc.loop_condition_plain(active, n, max_loops))
+
+
+def _state_leaves(tree, prefix=""):
+    out = {}
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree
+    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        for f in tree._fields:
+            out.update(_state_leaves(getattr(tree, f), f"{prefix}.{f}"))
+    return out
+
+
+def _graph_and_plain(cuda, cfg, n_frames):
+    """The same padded frames through a pipeline on the frame program and
+    one on the plain program (``program = None``), both on the card."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    _, host = simulate(n_frames, 10000, 10)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    out = []
+    for plain in (False, True):
+        pipe = P.OdometryPipeline(cfg, device=cuda)
+        if plain:
+            pipe.program = None
+        P.reset_host_syncs()
+        for pts, inten, t0, mask in frames:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+        pipe.flush()
+        out.append((pipe, P.host_syncs(), P.graph_counts()))
+    return out
+
+
+def _assert_runs_equal(graph, plain):
+    tg, tp = graph.trajectory, plain.trajectory
+    assert tg.times == tp.times and tg.accepted == tp.accepted
+    assert np.array_equal(tg.positions_array(), tp.positions_array())
+    assert np.array_equal(np.asarray(tg.quaternions), np.asarray(tp.quaternions))
+    assert graph.iterations == plain.iterations
+    lg, lp = _state_leaves(graph.state), _state_leaves(plain.state)
+    assert lg.keys() == lp.keys()
+    for k in lg:
+        assert lg[k].dtype == lp[k].dtype and torch.equal(lg[k], lp[k]), k
+
+
+def test_frame_program_main_equals_plain_across_growths(cuda):
+    """The shipped default (deblur, the capacity schedule) over 20 frames,
+    two growths: one graph launch a frame, no debounce, ICP-exit or
+    admission read, and rows and every state tensor bit-equal to the
+    plain program on the card."""
+    from loam_livox_tpu_torch.core.config import SlamConfig
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 10})
+    (g, sg, cg), (p, sp, cp) = _graph_and_plain(cuda, cfg, 20)
+    assert g.program is not None and len(g.ladder) >= 1 and g.ladder == p.ladder
+    assert cg["graph_launch"] == 20 and cg["graph_capture"] == len(g.ladder) + 1
+    # only the schedule's and the final drain's reads remain (no ICP exit
+    # or admission read; the front end has no read left)
+    assert {k for k, v in sg.items() if v} == {"schedule", "drain"}
+    assert (sg["schedule"], sg["drain"]) == (sp["schedule"], sp["drain"])
+    assert sp["icp_exit"] > 0 and cp["graph_launch"] == 0
+    # each growth freed the graphs of the tier it left
+    assert [k["held"] for k in g.program.summary()] == [False] * len(g.ladder) + [True]
+    _assert_runs_equal(g, p)
+
+
+def test_frame_program_precision_equals_plain(cuda):
+    """Three pieces a frame: three WHILE nodes in one graph, 10 frames."""
+    from loam_livox_tpu_torch.core.config import precision_profile
+
+    cfg = precision_profile().replace(mapping={"init_accumulate_frames": 4})
+    (g, sg, cg), (p, _, _) = _graph_and_plain(cuda, cfg, 10)
+    assert cg["graph_launch"] == 10 and len(g.trajectory.times) == 30
+    assert {k for k, v in sg.items() if v} <= {"schedule", "drain"}
+    _assert_runs_equal(g, p)
+
+
+def test_while_node_runs_the_host_loops_passes(cuda):
+    """The WHILE node's passes, counted on the card, equal the host loop's
+    (rows' iterations and the pipelines' loop passes)."""
+    from loam_livox_tpu_torch.core.config import realtime_profile
+
+    cfg = realtime_profile().replace(mapping={"init_accumulate_frames": 4})
+    (g, _, _), (p, _, _) = _graph_and_plain(cuda, cfg, 8)
+    assert g.iterations == p.iterations and sum(g.iterations) > 0
+    assert g.loop_iterations == p.loop_iterations == sum(p.iterations)
+
+
+def test_run_counters_count_the_replays(cuda):
+    """The kernels count their own runs on the card: in the replays, the
+    kNN kernel runs twice a pass, the debounce once a frame, and the
+    condition kernel once before each step's loop, once a pass and once
+    before each IF node (rebuild and append); captures run nothing."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.ops import debounce as db
+    from loam_livox_tpu_torch.ops import graph_cond as gc
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+    from loam_livox_tpu_torch.runtime.odometry import append_mode, rebuild_interval
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0})
+    _, host = simulate(6, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    pipe.process_raw(*frames[0][:3], mask=frames[0][3])      # the capture, and frame 0
+    torch.cuda.synchronize()
+    passes0 = pipe.loop_iterations
+    for counter in (kf.runs, db.runs, gc.runs):
+        counter.reset()
+    launches = (kf.launches, db.launches, gc.launches)
+    for pts, inten, t0, mask in frames[1:]:
+        pipe.process_raw(pts, inten, t0, mask=mask)
+    pipe.flush()
+    passes = pipe.loop_iterations - passes0
+    ifs = 1 + (append_mode(cfg) and rebuild_interval(cfg) > 1)
+    assert passes > 0 and kf.runs.read() == 2 * passes
+    assert db.runs.read() == 5 and gc.runs.read() == passes + 5 * (1 + ifs)
+    assert (kf.launches, db.launches, gc.launches) == launches     # no launch from Python
+
+
+def test_capture_makes_no_host_sync(cuda):
+    """Capture and replay under torch's sync debug mode "error": a read
+    on the host anywhere in the frame would raise."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0})
+    _, host = simulate(5, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pts, inten, t0, mask in frames:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pipe.flush()
+    assert len(pipe.trajectory.times) == 5 and sum(pipe.iterations) > 0
+
+
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A frame that cannot be captured raises: the card never runs the
+    plain program for a configuration on the slice instead."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.runtime import frame_program as fp
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    real = fp.prepare_step
+
+    def reads_the_host(state, frame, cfg):
+        float(frame.time_min)           # a host read: illegal under capture
+        return real(state, frame, cfg)
+
+    monkeypatch.setattr(fp, "prepare_step", reads_the_host)
+    cfg = SlamConfig().replace(capacity={"auto_schedule": 0})
+    _, host = simulate(1, 10000, 2)
+    pts, inten, t0, mask = on_device(host, cfg.capacity.max_raw_points, cuda)[0]
+    pipe = OdometryPipeline(cfg, device=cuda)
+    with pytest.raises(RuntimeError):
+        pipe.process_raw(pts, inten, t0, mask=mask)
+    assert not pipe.trajectory.times and not pipe._pending
