@@ -57,8 +57,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
               counters are reset just before and read just after: one
               graph launch a frame, one capture a key, no kernel
               launched from Python, ``knn_fused`` run twice an ICP pass,
-              the debounce once a frame, the condition kernel once a
-              pass and once before each WHILE and IF node, the ICP
+              the debounce once a frame, the loop condition once a pass
+              and once before each WHILE node, the switch condition
+              once before each SWITCH node (each kernel its own counter;
+              passes + 2 x steps a frame together), the ICP
               passes counted on the card equal to the rows' iterations,
               and no ICP-exit or admission read;
               frames/s over the first 20 frames too.  Then
@@ -67,10 +69,19 @@ Phases, each printing JSON lines; any failure exits nonzero:
               frame program's after 20 frames, or it fails; and
               ``main_fixed``: the first 20 frames at the configured
               capacities (``auto_schedule`` 0), the row the earlier
-              slices' main path ran.  Then the debounce kernel on the
-              main path's last candidate table and the loop condition
-              kernel at each outcome against their plain versions, bit
-              for bit, with their times and bounds.  Then the
+              slices' main path ran.  Then the debounce kernel against
+              its plain version, bit for bit, on every main-path frame's
+              candidate table and on seeded tables of 1 to 4,096 slots
+              (random, strictly alternating kinds, the longest chain of
+              one-step hops, one kept, empty and overfull), timed on the
+              path's last table; the loop condition kernel at each
+              outcome and on lane axes of up to 1,100 lanes, and the
+              switch index at each outcome (rebuild, append, neither),
+              against their plain versions, with their times and bounds;
+              ``--baseline DIR`` times the earlier checkout's debounce
+              and loop condition in turns with these; and the floor of
+              a kernel node in a CUDA graph (``node_floor``: an empty
+              one-thread kernel, 64 nodes a graph, replayed).  Then the
               kernel on the buffer and queries the main path ended on,
               at the main path's first tier (the buffer before the first
               growth, 1,024 / 4,096 rows, and the next frame's queries),
@@ -150,7 +161,11 @@ Phases, each printing JSON lines; any failure exits nonzero:
 9. kernels    one line listing every kernel (``knn_fused``, ``debounce``,
               ``graph_cond``): runs on the main path (counted on the
               card by each kernel, one atomic add a run, so the frame
-              program's replays count), its time, the plain version's, the bound
+              program's replays count), its time, the plain version's, the bound,
+              the graph-node floor (``node_floor_ms``), with
+              ``--baseline`` the earlier checkout's times, the switch
+              index's times and the two condition kernels' runs apart
+              under ``graph_cond``,
               and, for ``knn_fused``, the yardstick on the main path's
               buffer, the lane axis's on the racing path's, and its time
               on the ``full_mapping`` buffer, at the scene alignment's
@@ -286,6 +301,27 @@ def in_turns(timer, new, old, reps):
     return (n1 + n2) / 2, (o1 + o2) / 2
 
 
+def kernel_times(new, old, reps, name) -> dict:
+    """The wrapper's time (``ms``, CUDA events) and the kernel's alone
+    (``kernel_ms``, `device_ms` of the kernels named ``name``) of the
+    call ``new``; with ``old`` (an earlier version's call on the same
+    inputs) both in turns with its times (``baseline_ms``,
+    ``baseline_kernel_ms``)."""
+    def kernel(fn, r):
+        return device_ms(fn, r, name=name)
+
+    if old is None:
+        out = dict(ms=time_ms(new, reps), kernel_ms=kernel(new, reps))
+    else:
+        out = dict(zip(("ms", "baseline_ms"), in_turns(time_ms, new, old, reps)))
+        by = KERNEL_TIMER["by"]
+        out["kernel_ms"], out["baseline_kernel_ms"] = in_turns(kernel, new, old, reps)
+        if KERNEL_TIMER["by"] != by:    # the timer changed midway: all four again
+            out["kernel_ms"], out["baseline_kernel_ms"] = in_turns(kernel, new, old, reps)
+    out["kernel_ms_by"] = KERNEL_TIMER["by"]
+    return out
+
+
 def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
     """Kernel vs plain on one input: bit-equality, times, bound.  ``q``
     may carry a lane axis (L, Q, 3) with ``n_q`` an (L,) tensor.  With
@@ -314,19 +350,9 @@ def compare_kernel(q, ref, mask, n_q, radius, base=None, reps=20):
         return dict(max_abs_err=err, index_mismatches=mismatches)
 
     out = check(kf)
-    new = runner(kf)
     if base:
         check(base)
-        old = runner(base)
-        out["ms"], out["baseline_ms"] = in_turns(time_ms, new, old, reps)
-        by = KERNEL_TIMER["by"]
-        out["kernel_ms"], out["baseline_kernel_ms"] = in_turns(device_ms, new, old, reps)
-        if KERNEL_TIMER["by"] != by:    # the timer changed midway: all four again
-            out["kernel_ms"], out["baseline_kernel_ms"] = in_turns(device_ms, new, old, reps)
-    else:
-        out["ms"] = time_ms(new, reps)
-        out["kernel_ms"] = device_ms(new, reps)
-    out["kernel_ms_by"] = KERNEL_TIMER["by"]
+    out.update(kernel_times(runner(kf), runner(base) if base else None, reps, "knn_fused"))
     out["plain_ms"] = time_ms(lambda: knn(q, ref, mask, k=5, query_count=n_q,
                                          max_radius=radius), max(3, reps // 5))
 
@@ -412,12 +438,15 @@ def kernel_phase(dev, base=None) -> float:
 
 
 def load_baseline(root: str):
-    """The wrapper module ``ops.knn_fused`` of the port package in an
-    earlier checkout at ``root``, imported as ``baseline_port`` beside
-    this one (the package's modules import each other relatively, and
-    it builds its kernel into its own ``_build/``)."""
+    """The kernel wrapper modules ``ops.knn_fused``, ``ops.debounce`` and
+    ``ops.graph_cond`` of the port package in an earlier checkout at
+    ``root``, imported as ``baseline_port`` beside this one (the
+    package's modules import each other relatively, and it builds its
+    kernels into its own ``_build/``); a module the checkout lacks is
+    None."""
     import importlib
     import importlib.util
+    import types
 
     pkg = os.path.join(os.path.abspath(root), "loam_livox_tpu_torch")
     spec = importlib.util.spec_from_file_location(
@@ -425,18 +454,26 @@ def load_baseline(root: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules["baseline_port"] = mod
     spec.loader.exec_module(mod)
-    return importlib.import_module("baseline_port.ops.knn_fused")
+
+    def wrapper(name):
+        path = os.path.join(pkg, "ops", f"{name}.py")
+        return importlib.import_module(f"baseline_port.ops.{name}") if os.path.exists(path) \
+            else None
+
+    return types.SimpleNamespace(**{k: wrapper(k) for k in ("knn_fused", "debounce",
+                                                           "graph_cond")})
 
 
-def ptxas_report(log: str, k: int | None = 5) -> dict:
+def ptxas_report(log: str, k: int | None = 5, name: str | None = None) -> dict:
     """Registers, spills and static shared memory of the K=k kernel (with
-    ``k`` None, of the source's first kernel), from nvcc's ``-Xptxas -v``
-    log."""
+    ``k`` None, of the source's first kernel, or of the first whose
+    symbol holds ``name``), from nvcc's ``-Xptxas -v`` log."""
     import re
 
     lines = log.splitlines()
     for n, ln in enumerate(lines):
-        if "Compiling entry function" in ln and (k is None or f"ILi{k}E" in ln):
+        if "Compiling entry function" in ln and (k is None or f"ILi{k}E" in ln) \
+                and (name is None or name in ln):
             block = []
             for x in lines[n + 1:]:
                 if "Compiling entry function" in x:
@@ -594,7 +631,7 @@ def reset_counts(kf, P) -> None:
     from loam_livox_tpu_torch.ops import graph_cond as GC
 
     kf.launches = DB.launches = GC.launches = 0
-    for counter in (kf.runs, DB.runs, GC.runs):
+    for counter in (kf.runs, DB.runs, GC.runs, GC.switch_runs):
         counter.reset()
     P.reset_host_syncs()
 
@@ -607,33 +644,36 @@ def kernel_runs(kf) -> dict:
     from loam_livox_tpu_torch.ops import graph_cond as GC
 
     return ({"knn_fused": kf.runs.read(), "debounce": DB.runs.read(),
-             "graph_cond": GC.runs.read()},
+             "loop_cond": GC.runs.read(), "switch_cond": GC.switch_runs.read()},
             {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches})
 
 
 def graph_row(label, pipe, n_frames, kf, syncs, graphs) -> dict:
     """A row on the frame program: its graphs (one a shape key: the
-    tier's capacities, steps, IF nodes, capture seconds, whether still
-    held) and the kernels' runs, counted on the card.  Fails unless
+    tier's capacities, steps, SWITCH nodes, capture seconds, whether
+    still held) and the kernels' runs, counted on the card.  Fails unless
     every frame was one graph launch, each key was captured once, no
     kernel was launched from Python, the runs are what the replays hold
-    (``knn_fused`` twice an ICP pass, the debounce once a frame, the
-    condition kernel once a pass, once before each step's loop and once
-    before each IF node), the ICP passes counted on the card equal the
-    rows' iterations, and neither the ICP exit nor the admission read
-    the host (the front end has no host read left)."""
+    (``knn_fused`` twice an ICP pass, the debounce once a frame, the loop
+    condition once a pass and once before each step's loop, the switch
+    condition once before each step's SWITCH node: passes + 2 x steps a
+    frame together), the ICP
+    passes counted on the card equal the rows' iterations, and neither
+    the ICP exit nor the admission read the host (the front end has no
+    host read left)."""
     runs, from_python = kernel_runs(kf)
     keys = pipe.program.summary()
     passes = pipe.loop_iterations
-    conds = keys[0]["steps"] + keys[0]["branches"] if keys else 0
+    steps, switches = (keys[0]["steps"], keys[0]["switches"]) if keys else (0, 0)
     expected = {"knn_fused": 2 * passes, "debounce": n_frames,
-                "graph_cond": passes + conds * n_frames}
+                "loop_cond": passes + steps * n_frames, "switch_cond": switches * n_frames}
     out = {"graphs": keys, "graph_counts": graphs, "kernel_runs": runs,
            "capture_s": sum(k["capture_s"] for k in keys)}
     reads = {p: syncs.get(p, 0) for p in ("icp_exit", "admit")}
     if (runs != expected or any(from_python.values()) or graphs["graph_launch"] != n_frames
             or graphs["graph_capture"] != len(keys) or passes != sum(pipe.iterations)
-            or len({(k["steps"], k["branches"]) for k in keys}) > 1 or any(reads.values())):
+            or len({(k["steps"], k["switches"]) for k in keys}) > 1 or any(reads.values())
+            or any(k["switches"] != k["steps"] for k in keys)):
         raise AssertionError(f"{label}: frame program off: kernel runs {runs} against "
                              f"{expected}, launches from Python {from_python}, graphs "
                              f"{graphs}, passes {passes} against {sum(pipe.iterations)}, "
@@ -664,28 +704,134 @@ def debounce_inputs(cfg, frame, dev):
     return seen[0]
 
 
-def compare_small_kernel(name, kernel, plain, args, bytes_, ops, reps=200) -> dict:
+def compare_small_kernel(name, kernel, plain, args, bytes_, ops, reps=200,
+                         base_kernel=None) -> dict:
     """A kernel with a plain version of the same contract on the same
     inputs: bit-equality, the wrapper's time, the kernel's alone, the
     plain version's, and the bound (bytes over the memory rate or scalar
-    operations over the float32 rate, the larger)."""
+    operations over the float32 rate, the larger).  With ``base_kernel``
+    (an earlier version's wrapper of the same contract), it is held to
+    the plain version too and timed in turns with this one."""
     import torch
 
-    got, want = kernel(*args), plain(*args)
-    got = got if isinstance(got, tuple) else (got,)
-    want = want if isinstance(want, tuple) else (want,)
-    torch.cuda.synchronize()
-    err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
-              for a, b in zip(got, want))
-    if err != 0.0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
-        raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
+    def check(fn):
+        got, want = fn(*args), plain(*args)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        torch.cuda.synchronize()
+        err = max(float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
+                  for a, b in zip(got, want))
+        if err != 0.0 or not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f"{name} disagrees with its plain version: max_abs_err {err}")
+        return err
+
+    out = dict(max_abs_err=check(kernel))
+    if base_kernel is not None:
+        check(base_kernel)
+    out.update(kernel_times(lambda: kernel(*args),
+                            None if base_kernel is None else lambda: base_kernel(*args),
+                            reps, name))
     t_bytes, t_ops = bytes_ / PEAK_BYTES, ops / PEAK_FP32_FLOPS
-    return dict(max_abs_err=err, ms=time_ms(lambda: kernel(*args), reps),
-                kernel_ms=device_ms(lambda: kernel(*args), reps, name=name),
-                kernel_ms_by=KERNEL_TIMER["by"],
-                plain_ms=time_ms(lambda: plain(*args), max(3, reps // 10)),
-                bound_ms=1e3 * max(t_bytes, t_ops),
-                bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    out.update(plain_ms=time_ms(lambda: plain(*args), max(3, reps // 10)),
+               bound_ms=1e3 * max(t_bytes, t_ops),
+               bound_by="bytes" if t_bytes >= t_ops else "operations", library_ms=None)
+    return out
+
+
+def debounce_tables(rng, ns, n):
+    """Seeded debounce inputs ``(cand_idx, cand_is_edge, n, n_valid, gap)``
+    as host arrays at ``ns`` slots over ``n`` points: random candidate
+    sets (empty to overfull, random and strictly alternating kinds), a
+    chain of ns one-step hops (each candidate just past ``gap`` of the
+    one before, so every slot is kept and the chain is the longest), in
+    one kind and alternating, every candidate within ``gap`` of the first
+    (one kept), and an empty table."""
+    out = []
+    for trial in range(8):
+        k = int(rng.integers(0, min(n, ns) + 1)) if trial < 6 else min(n, ns)
+        idx = np.sort(rng.choice(n, size=k, replace=False))
+        cand = np.full(ns, n, np.int64)
+        cand[:k] = idx
+        edge = np.zeros(ns, bool)
+        edge[:k] = (np.arange(k) % 2 == 1) if trial % 3 == 2 else rng.random(k) < rng.random()
+        out.append((cand, edge, n, int(rng.integers(0, n + 1)), int(rng.integers(0, 80))))
+    gap = 3
+    hops = np.arange(ns, dtype=np.int64) * (gap + 1)
+    out.append((hops, np.zeros(ns, bool), int(hops[-1]) + 2, int(hops[-1]) + 1, gap))
+    out.append((hops, np.arange(ns) % 2 == 0, int(hops[-1]) + 2, int(hops[-1]) + 1, gap))
+    out.append((np.arange(ns, dtype=np.int64), np.zeros(ns, bool), ns + 1, ns, ns))
+    out.append((np.full(ns, n, np.int64), np.zeros(ns, bool), n, 0, gap))
+    return out
+
+
+#: the table sizes of the debounce's seeded inputs: one thread's worth,
+#: just below and past one warp, the shipped 512, past one block of
+#: 1,024 threads, and a table of 4,096 (4 slots a thread, ~74 KB of
+#: shared memory)
+DEBOUNCE_SLOTS = (1, 31, 33, 512, 1000, 1025, 4096)
+
+
+def debounce_phase(cfg, frames, dev) -> dict:
+    """The debounce kernel bit for bit against its plain version on the
+    candidate table of every one of ``frames`` (host raw frames, as the
+    front end builds them) and on `debounce_tables` at each of
+    DEBOUNCE_SLOTS; returns the counts held."""
+    import torch
+
+    from loam_livox_tpu_torch.ops import debounce as DB
+
+    cases = [debounce_inputs(cfg, f, dev) for f in frames]
+    rng = np.random.default_rng(10)
+    for ns in DEBOUNCE_SLOTS:
+        for cand, edge, n, n_valid, gap in debounce_tables(rng, ns, int(rng.integers(8, 16385))):
+            cases.append((torch.from_numpy(cand).to(dev), torch.from_numpy(edge).to(dev), n,
+                          torch.tensor(n_valid, device=dev), gap))
+    for k, args in enumerate(cases):
+        (s_k, n_k), (s_p, n_p) = DB.debounce(*args), DB.debounce_plain(*args)
+        if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
+            raise AssertionError(f"debounce disagrees with its plain version on table {k} "
+                                 f"({args[0].shape[0]} slots)")
+    return {"frame_tables": len(frames), "seeded_tables": len(cases) - len(frames),
+            "slots": list(DEBOUNCE_SLOTS)}
+
+
+def node_floor(nodes=64, reps=20) -> dict:
+    """The floor of a kernel node in a CUDA graph: an empty one-thread
+    kernel captured ``nodes`` times into one graph, replayed.  Per node:
+    the kernel alone with the kernel lines' timer (profiler records, or
+    calls queued behind a spin kernel where the profiler records none;
+    KERNEL_TIMER is left as it is), and the replay's time over its nodes
+    (CUDA events, the gaps between nodes included)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from loam_livox_tpu_torch.ops import graph_cond as GC
+
+    GC.empty_kernel()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(nodes):
+            GC.empty_kernel()
+    g.replay()
+    torch.cuda.synchronize()
+    kernel_ms, by = None, KERNEL_TIMER["by"]
+    if by == "profiler":
+        for _ in range(3):
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    g.replay()
+                torch.cuda.synchronize()
+            us = sum(e.self_device_time_total for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and "empty_kernel" in e.key)
+            if us > 0:
+                kernel_ms = us / reps / nodes / 1e3
+                break
+    if kernel_ms is None:
+        by = "queued events"
+        kernel_ms = queued_ms(g.replay, reps) / nodes
+    return dict(nodes=nodes, kernel_ms=kernel_ms, kernel_ms_by=by,
+                node_ms=time_ms(g.replay, reps) / nodes)
 
 
 def sync_check(label, pipe, frames):
@@ -1485,8 +1631,8 @@ def main() -> int:
 
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", metavar="DIR",
-                    help="an earlier checkout of the repo: time its knn_fused and its "
-                    "loop_closure path beside this one's")
+                    help="an earlier checkout of the repo: time its knn_fused, debounce and "
+                    "loop condition kernels and its loop_closure path beside this one's")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -1546,15 +1692,18 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
          cuda_driver=driver, cuda_runtime=runtime,
          ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
          ptxas_debounce=ptxas_report(build.build_logs.get("debounce", ""), k=None),
-         ptxas_graph_cond=ptxas_report(build.build_logs.get("graph_cond", ""), k=None),
+         ptxas_graph_cond={kernel: ptxas_report(build.build_logs.get("graph_cond", ""), k=None,
+                                                name=kernel)
+                           for kernel in ("loop_cond_kernel", "switch_cond_kernel")},
          launch_k5_surfaces=kf.launch_shape(5, 65536),
          native_io={"library": os.path.relpath(native_lib, HERE),
                     "seconds": time.perf_counter() - t1})
     base = load_baseline(args.baseline) if args.baseline else None
+    base_knn = base.knn_fused if base else None
 
     # 3. each kernel against its plain version at the paths' shapes, then
     # at the scene alignment's
-    worst_err = kernel_phase(dev, base)
+    worst_err = kernel_phase(dev, base_knn)
     r_align = alignment_kernel(dev)
     worst_err = max(worst_err, r_align["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="scene alignment, artifact keyframes 0 / 19",
@@ -1729,8 +1878,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     st = pipe.state
     n_raw = cfg.capacity.max_raw_points
     qs, n_qs = surface_queries(st, frames[n - 1], cfg, dev)
-    r = compare_kernel(qs, st.map_surface.xyz, st.map_surface.mask, n_qs, 50.0 ** 0.5, base,
-                       reps=50)
+    r = compare_kernel(qs, st.map_surface.xyz, st.map_surface.mask, n_qs, 50.0 ** 0.5,
+                       base_knn, reps=50)
     worst_err = max(worst_err, r["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer", **r)
     # the kernel at a shard's input: a slice of the same buffer with a
@@ -1745,31 +1894,56 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     worst_err = max(worst_err, r_tier["max_abs_err"])
     emit("kernel", kernel="knn_fused", search="surfaces, main-path buffer at tier 16", **r_tier)
 
-    # the frame program's two kernels against their plain versions at the
-    # main path's shapes: the debounce on the candidate table of the
-    # path's last frame (512 slots), the loop condition on a step's carry
-    # (one lane, icp_maximum_iteration 15) at each of its outcomes
+    # the frame program's two kernels against their plain versions: the
+    # debounce on the candidate table of every main-path frame and on
+    # seeded tables (DEBOUNCE_SLOTS), timed on the path's last table (512
+    # slots); the loop condition on a step's carry (one lane,
+    # icp_maximum_iteration 15) at each of its outcomes and on lane axes
+    # of 9, 33 and 1,100; the switch index at each of its outcomes
+    # (rebuild, append, neither); and the floor of a kernel node in a graph
     from loam_livox_tpu_torch.ops import debounce as DB
     from loam_livox_tpu_torch.ops import graph_cond as GC
 
+    db_held = debounce_phase(cfg, frames[:n], dev)
     db_args = debounce_inputs(cfg, frames[n - 1], dev)
     ns = db_args[0].shape[0]
     r_db = compare_small_kernel("debounce", DB.debounce, DB.debounce_plain, db_args,
-                                bytes_=ns * 8 + ns + 8 + ns * 8 + 8, ops=4 * ns)
+                                bytes_=ns * 8 + ns + 8 + ns * 8 + 8, ops=4 * ns,
+                                base_kernel=base.debounce.debounce
+                                if base and base.debounce else None)
     r_db.update(slots=ns, candidates=int((db_args[0] < db_args[2]).sum()),
-                kept=int(DB.debounce_plain(*db_args)[1]),
+                kept=int(DB.debounce_plain(*db_args)[1]), held=db_held,
                 ptxas=ptxas_report(build.build_logs.get("debounce", ""), k=None))
     emit("kernel", kernel="debounce", search="main-path candidate table", **r_db)
     max_loops = cfg.optimization.icp_maximum_iteration
     r_cond = None
-    for active, loops in ((True, 0), (True, max_loops - 1), (True, max_loops), (False, 3)):
-        args = (torch.tensor([active], device=dev),
-                torch.tensor(loops, dtype=torch.int32, device=dev), max_loops)
+    for lanes, loops in ((1, 0), (1, max_loops - 1), (1, max_loops), (0, 3), (9, 0), (33, 0),
+                         (1100, 0), (1100, 3)):
+        active = torch.zeros(max(lanes, 1), dtype=torch.bool, device=dev)
+        active[lanes - 1:lanes] = lanes > 0      # the last lane set; (0, ...) one lane unset
+        args = (active, torch.tensor(loops, dtype=torch.int32, device=dev), max_loops)
+        base_cond = base.graph_cond.loop_condition if base and base.graph_cond else None
         r_c = compare_small_kernel("loop_cond", GC.loop_condition, GC.loop_condition_plain,
-                                   args, bytes_=1 + 4 + 4, ops=2)
+                                   args, bytes_=active.numel() + 4 + 4, ops=active.numel() + 1,
+                                   base_kernel=base_cond if r_cond is None else None)
         r_cond = r_cond or r_c
-        emit("kernel", kernel="graph_cond", search=f"active {active}, loops {loops}", **r_c)
-    r_cond.update(ptxas=ptxas_report(build.build_logs.get("graph_cond", ""), k=None))
+        emit("kernel", kernel="graph_cond", search=f"loop condition, {active.numel()} lanes, "
+             f"lane {lanes - 1} set, loops {loops}", **r_c)
+    r_cond.update(ptxas=ptxas_report(build.build_logs.get("graph_cond", ""), k=None,
+                                     name="loop_cond_kernel"))
+    r_switch = None
+    for row, outcome in (((True, False), "rebuild"), ((False, True), "append"),
+                         ((False, False), "neither"), ((True,), "rebuild, no appends"),
+                         ((False,), "neither, no appends")):
+        r_s = compare_small_kernel("switch_cond", GC.switch_index, GC.switch_index_plain,
+                                   (torch.tensor(row, device=dev),),
+                                   bytes_=len(row) + 4, ops=len(row))
+        r_switch = r_switch or dict(r_s, ptxas=ptxas_report(
+            build.build_logs.get("graph_cond", ""), k=None, name="switch_cond_kernel"))
+        emit("kernel", kernel="graph_cond", search=f"switch index, flags {list(row)} "
+             f"({outcome})", **r_s)
+    floor = node_floor()
+    emit("node_floor", **floor)
 
     # torch's own count of synchronising calls over three more frames of
     # the same run (a cross-check of the audit in runtime/pipeline.py)
@@ -2055,20 +2229,31 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         "shard_library_ms": r_shard["library_ms"],
         "tier16_ms": r_tier["ms"], "tier16_kernel_ms": r_tier["kernel_ms"],
         "tier16_bound_ms": r_tier["bound_ms"], "tier16_plain_ms": r_tier["plain_ms"],
-        "tier16_library_ms": r_tier["library_ms"], "launches_by_path": launches_by_path}, {
+        "tier16_library_ms": r_tier["library_ms"], "launches_by_path": launches_by_path,
+        "node_floor_ms": floor["kernel_ms"]}, {
         "name": "debounce", "route": "cuda",
         "source": "loam_livox_tpu_torch/csrc/debounce.cu",
         "replaces": "loam_livox_tpu/frontend/livox.py:186 (lax.scan, no Pallas kernel)",
         "launches": graph_main["kernel_runs"]["debounce"], "max_abs_err": r_db["max_abs_err"],
         "ms": r_db["ms"], "kernel_ms": r_db["kernel_ms"], "plain_ms": r_db["plain_ms"],
-        "bound_ms": r_db["bound_ms"], "bound_by": r_db["bound_by"], "library_ms": None}, {
+        "bound_ms": r_db["bound_ms"], "bound_by": r_db["bound_by"], "library_ms": None,
+        "node_floor_ms": floor["kernel_ms"], "baseline_ms": r_db.get("baseline_ms"),
+        "baseline_kernel_ms": r_db.get("baseline_kernel_ms")}, {
         "name": "graph_cond", "route": "cuda",
         "source": "loam_livox_tpu_torch/csrc/graph_cond.cu",
-        "replaces": "loam_livox_tpu/registration/icp.py:327 (lax.while_loop, no Pallas kernel)",
-        "launches": graph_main["kernel_runs"]["graph_cond"],
-        "max_abs_err": r_cond["max_abs_err"],
+        "replaces": "loam_livox_tpu/registration/icp.py:327 (lax.while_loop) and "
+                    "loam_livox_tpu/runtime/odometry.py:446 (lax.cond), no Pallas kernel",
+        "launches": graph_main["kernel_runs"]["loop_cond"]
+        + graph_main["kernel_runs"]["switch_cond"],
+        "loop_cond_launches": graph_main["kernel_runs"]["loop_cond"],
+        "switch_cond_launches": graph_main["kernel_runs"]["switch_cond"],
+        "max_abs_err": max(r_cond["max_abs_err"], r_switch["max_abs_err"]),
         "ms": r_cond["ms"], "kernel_ms": r_cond["kernel_ms"], "plain_ms": r_cond["plain_ms"],
-        "bound_ms": r_cond["bound_ms"], "bound_by": r_cond["bound_by"], "library_ms": None}]
+        "bound_ms": r_cond["bound_ms"], "bound_by": r_cond["bound_by"], "library_ms": None,
+        "switch_ms": r_switch["ms"], "switch_kernel_ms": r_switch["kernel_ms"],
+        "switch_plain_ms": r_switch["plain_ms"], "switch_bound_ms": r_switch["bound_ms"],
+        "node_floor_ms": floor["kernel_ms"], "baseline_ms": r_cond.get("baseline_ms"),
+        "baseline_kernel_ms": r_cond.get("baseline_kernel_ms")}]
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -1,5 +1,6 @@
 """The Livox split debounce: the hand-written CUDA kernel
-``csrc/debounce.cu`` on the card, its plain version on the CPU.
+``csrc/debounce.cu`` (one block of pointer doubling in shared memory) on
+the card, its plain version on the CPU.
 
 It ports the JAX package's greedy ``lax.scan`` over the turning-point
 candidates (``loam_livox_tpu/frontend/livox.py:186-205``; reference
@@ -87,6 +88,8 @@ def debounce(cand_idx: torch.Tensor, cand_is_edge: torch.Tensor, n: int,
             or n_valid.numel() != 1):
         raise ValueError("debounce: cand_idx (ns,) int64, cand_is_edge (ns,) bool and a "
                          "scalar n_valid on one device")
+    if not 0 <= n < 2 ** 31:
+        raise ValueError(f"debounce: n = {n} outside the kernel's int32 tables")
     dev = cand_idx.device
     idx = cand_idx.contiguous()
     edge = cand_is_edge.contiguous()

@@ -19,7 +19,7 @@ at the key's first use:
     commit k    step k's gates and history commit
                 (`runtime.odometry.commit_history`), its trajectory row,
                 the new state copied into the static state, and the
-                matching-buffer update's flags
+                matching-buffer update's flags (rebuild, append)
     rebuild k   the matching buffer rebuilt from the history window, in
                 place (`runtime.odometry.rebuilt_matching`)
     append k    the step's points appended to it, in place, where the
@@ -28,14 +28,17 @@ at the key's first use:
 
 each a ``torch.cuda.CUDAGraph(keep_graph=True)`` capture into one
 memory pool, in the order they replay; `ops.graph_cond.build_frame_graph`
-joins them into ``segment 0 → WHILE{body 0} → commit 0 → IF{rebuild 0}
-→ IF{append 0} → segment 1 → …``.  Each WHILE node's condition kernel
-(``csrc/graph_cond.cu``) reads the carry's ``active`` and pass count on
-the card: the ``lax.while_loop`` of
-``loam_livox_tpu/registration/icp.py:324-331``.  Each IF node's condition
-reads its flag, so only the update taken runs: the ``lax.cond`` of
-``loam_livox_tpu/runtime/odometry.py:422-453``, where the plain program
-computes both and selects (`runtime.odometry.update_matching`).
+joins them into ``segment 0 → WHILE{body 0} → commit 0 →
+SWITCH{rebuild 0 | append 0} → segment 1 → …``.  Each WHILE node's
+condition kernel (``csrc/graph_cond.cu``) reads the carry's ``active``
+and pass count on the card: the ``lax.while_loop`` of
+``loam_livox_tpu/registration/icp.py:324-331``.  Each SWITCH node's
+condition kernel picks the first set of the step's two exclusive flags
+(or neither), so only the update taken runs, after one condition launch:
+the ``lax.cond`` of ``loam_livox_tpu/runtime/odometry.py:421-458``,
+where the plain program computes both and selects
+(`runtime.odometry.update_matching`).  Without appends the switch has
+the rebuild alone.
 
 Everything a frame reads lives in static buffers that the graph's
 addresses point at: the padded points, intensities, mask and the base
@@ -139,6 +142,7 @@ def _warm_up(device: torch.device) -> None:
                          torch.ones((), dtype=torch.int64, device=device), 1)
     graph_cond.loop_condition(torch.zeros(1, dtype=torch.bool, device=device),
                               torch.zeros((), dtype=torch.int32, device=device), 1)
+    graph_cond.switch_index(torch.zeros(2, dtype=torch.bool, device=device))
     _warm.add(device)
 
 
@@ -251,13 +255,15 @@ class _KeyGraph:
             items.append(G.Item(G.WHILE, capture(body(k)), carries[k].active, carries[k].loops,
                                 max_loops))
             items.append(G.Item(G.SEGMENT, capture(commit(k))))
-            items.append(G.Item(G.IF, capture(rebuild), flags[k, 0:1]))
+            # body 0 the rebuild, body 1 the append where appends run
+            bodies = (capture(rebuild),)
             if ctx["upd", k].append is not None:
-                items.append(G.Item(G.IF, capture(append(k)), flags[k, 1:2]))
+                bodies += (capture(append(k)),)
+            items.append(G.Item(G.SWITCH, bodies, flags[k, :len(bodies)]))
             if k + 1 < n_steps:
                 items.append(G.Item(G.SEGMENT, capture(segment(k + 1))))
-        #: IF nodes a frame (a rebuild a step, and an append where appends run)
-        self.branches = sum(it.kind == G.IF for it in items)
+        #: SWITCH nodes a frame (one a step: the matching update)
+        self.switches = sum(it.kind == G.SWITCH for it in items)
         self._keep += [ctx, carries, flags]
         self.graph = G.build_frame_graph(dev, items)
         self.capture_s = time.perf_counter() - t0
@@ -304,7 +310,7 @@ class FrameProgram:
                 "map_corner_capacity": caps.map_corner_capacity,
                 "hist_surf_capacity": caps.hist_surf_capacity,
                 "max_surface_ds": caps.max_surface_ds, "n_raw": pts.shape[0],
-                "steps": n_steps, "branches": g.branches, "capture_s": g.capture_s,
+                "steps": n_steps, "switches": g.switches, "capture_s": g.capture_s,
                 "cond_nodes": g.graph.cond_nodes}))
             accounting.GRAPHS["graph_capture"] += 1
             accounting.GRAPHS["graph_capture_s"] += g.capture_s
@@ -327,6 +333,6 @@ class FrameProgram:
 
     def summary(self) -> List[dict]:
         """Each key captured, in order: its capacities, input length,
-        steps, IF nodes, capture seconds and condition kernels placed, and whether
+        steps, SWITCH nodes, capture seconds and condition kernels placed, and whether
         it is still held (a superseded key is freed)."""
         return [{**c, "held": key in self._graphs} for key, c in self._captured]

@@ -298,7 +298,7 @@ def update_matching(state: OdometryState, upd: MatchingUpdate, cfg: SlamConfig
                     ) -> OdometryState:
     """Apply ``upd`` to the state after its history write: each branch
     computed, one kept, with no host read (the frame program runs only
-    the branch taken, under CUDA graph IF nodes)."""
+    the branch taken, under a CUDA graph SWITCH node)."""
     fresh = rebuilt_matching(state, cfg)
     keep_c, keep_s = state.map_corners, state.map_surface
     if upd.append is not None:

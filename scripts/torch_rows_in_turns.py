@@ -1,8 +1,9 @@
 """Frames/s of a few paths of the port through two checkouts on one card,
-in turns (baseline, this, this, baseline), so that the two are compared
-on the same card within one call.
+in turns (baseline, this, this, baseline, ``--rounds`` times), so that
+the two are compared on the same card within one call.
 
-    python scripts/torch_rows_in_turns.py --baseline DIR [--frames 20] [--out FILE]
+    python scripts/torch_rows_in_turns.py --baseline DIR [--frames 20] [--rounds 1]
+                                          [--rows a,b] [--out FILE]
 
 ``DIR`` is an earlier checkout of the repo (``git archive <commit> | tar
 -x -C DIR``).  Each turn is a child process with its checkout first on
@@ -17,6 +18,7 @@ of the same configuration (the kernels' first launches):
                       without a frame program)
     dense             the ``dense`` correspondence engine, off the frame
                       program's slice: the plain program in both
+    grid              the ``grid`` engine, likewise
     main_fixed_plain_branched
                       ``main_fixed_plain`` with the matching-buffer update
                       branched on the host (one read of its flags a
@@ -41,7 +43,10 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def child(root: str, n_frames: int) -> dict:
+ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_branched")
+
+
+def child(root: str, n_frames: int, labels) -> dict:
     sys.path.insert(0, root)
     import torch
 
@@ -82,6 +87,7 @@ def child(root: str, n_frames: int) -> dict:
 
     rows = {"main_fixed": (cfg, False), "main_fixed_plain": (cfg, True),
             "dense": (cfg.replace(optimization={"correspondence": "dense"}), False),
+            "grid": (cfg.replace(optimization={"correspondence": "grid"}), False),
             "main_fixed_plain_branched": (cfg, True)}
     out = {"root": root, "has_frame_program": hasattr(OdometryPipeline(cfg, device=dev),
                                                        "program")}
@@ -102,6 +108,8 @@ def child(root: str, n_frames: int) -> dict:
         return state
 
     for label, (cfg_row, plain) in rows.items():
+        if label not in labels:
+            continue
         if label.endswith("_branched"):
             if selected is None:
                 continue            # the checkout branches on the host already
@@ -122,21 +130,28 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--baseline", help="an earlier checkout of the repo")
     ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--rounds", type=int, default=1,
+                    help="repeat baseline, this, this, baseline this many times")
+    ap.add_argument("--rows", default=",".join(ROWS),
+                    help="the rows to run, comma-separated (default all)")
     ap.add_argument("--out", help="also write the lines to this file")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        print(json.dumps(child(args.child, args.frames)))
+        print(json.dumps(child(args.child, args.frames, args.rows.split(","))))
         return 0
     if not args.baseline:
         ap.error("--baseline is required")
+    if not set(args.rows.split(",")) <= set(ROWS):
+        ap.error(f"--rows: each of {', '.join(ROWS)}")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           check=True).stdout.strip().splitlines()[0]
     lines = []
-    for turn, root in enumerate([args.baseline, HERE, HERE, args.baseline]):
+    for turn, root in enumerate([args.baseline, HERE, HERE, args.baseline] * args.rounds):
         res = subprocess.run([sys.executable, os.path.abspath(__file__), "--child",
-                              os.path.abspath(root), "--frames", str(args.frames)],
+                              os.path.abspath(root), "--frames", str(args.frames),
+                              "--rows", args.rows],
                              capture_output=True, text=True, cwd=os.path.abspath(root))
         if res.returncode != 0:
             sys.stderr.write(res.stderr[-4000:])
@@ -145,11 +160,13 @@ def main() -> int:
         line["turn"] = turn
         lines.append(line)
         print(json.dumps(line), flush=True)
-    summary = {"card": card, "frames": args.frames}
-    for label in ("main_fixed", "main_fixed_plain", "dense", "main_fixed_plain_branched"):
+    summary = {"card": card, "frames": args.frames, "rounds": args.rounds}
+    base = [line for line in lines if line["root"] == os.path.abspath(args.baseline)]
+    this = [line for line in lines if line["root"] != os.path.abspath(args.baseline)]
+    for label in args.rows.split(","):
         summary[label] = {
-            "baseline_fps": [lines[i][label]["fps"] for i in (0, 3) if label in lines[i]],
-            "this_fps": [lines[i][label]["fps"] for i in (1, 2) if label in lines[i]]}
+            "baseline_fps": [line[label]["fps"] for line in base if label in line],
+            "this_fps": [line[label]["fps"] for line in this if label in line]}
     print(json.dumps(summary))
     if args.out:
         with open(args.out, "w") as f:

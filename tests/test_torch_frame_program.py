@@ -19,6 +19,9 @@ runs eagerly.
   registration is off (init window) and the pose the identity, so the
   world points are the frame's and every field must be equal: ring,
   pointers, counters, last admitted pose and matching buffers.
+* The SWITCH node's index (`ops.graph_cond.switch_index_plain`) over the
+  port step's matching-update flags against the update the JAX step's
+  ``lax.cond`` took, over admission x cadence x append mode.
 * The counters as device scalars through `interop.state_from_numpy` and a
   checkpoint (and a checkpoint that holds them as host integers).
 * A slice-configuration frame on the CPU reads nothing on the host for
@@ -47,8 +50,10 @@ from loam_livox_tpu_torch.core.types import FeatureFrame, PointBatch
 from loam_livox_tpu_torch.frontend import livox as tlivox
 from loam_livox_tpu_torch.interop import config_from_dict, state_from_numpy
 from loam_livox_tpu_torch.ops.debounce import debounce
+from loam_livox_tpu_torch.ops.graph_cond import switch_index_plain
 from loam_livox_tpu_torch.registration import icp as ticp
 from loam_livox_tpu_torch.runtime import checkpoint as ck
+from loam_livox_tpu_torch.runtime import odometry as todometry
 from loam_livox_tpu_torch.runtime import pipeline as P
 from loam_livox_tpu_torch.runtime.odometry import input_downsample as tinput
 from loam_livox_tpu_torch.runtime.odometry import odometry_step as tstep
@@ -83,9 +88,10 @@ def greedy(cand, edge, n, n_valid, gap):
 @pytest.mark.parametrize("seed", range(6))
 def test_debounce_matches_the_greedy_loop(seed):
     rng = np.random.default_rng(seed)
-    for _ in range(40):
+    for trial in range(44):
         n = int(rng.integers(8, 4000))
-        ns = int(rng.choice([1, 3, 64, 512]))
+        # the last trials: tables past one block of 1,024 slots
+        ns = int(rng.choice([1, 3, 64, 512])) if trial < 40 else [1025, 4096][trial % 2]
         idx = np.sort(rng.choice(n, size=int(rng.integers(0, min(n, ns) + 1)), replace=False))
         cand = np.full(ns, n, np.int64)
         cand[:len(idx)] = idx
@@ -254,15 +260,14 @@ ADMISSION_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", list(ADMISSION_CASES))
-def test_admission_matches_jax(case):
-    cfg = admission_config()
-    tc = port_config(cfg)
+def admission_inputs(cfg, hist_len, moved, on_cadence, seed):
+    """A JAX state whose history window holds ``hist_len`` frames, the
+    last admitted pose 4 m away (``moved``) or here, the frame counter on
+    the rebuild cadence or one past it, matching buffers with 300 / 900
+    points, and a seeded feature frame in both packages' types."""
     caps = cfg.capacity
-    hist_len, moved, on_cadence = ADMISSION_CASES[case]
-    interval = rebuild_interval(tc)
-    assert interval > 1
-    rng = np.random.default_rng(len(case))
+    interval = rebuild_interval(port_config(cfg))
+    rng = np.random.default_rng(seed)
     st = jinit_state(cfg)
     w = caps.history_window
     ring = {}
@@ -290,6 +295,17 @@ def test_admission_matches_jax(case):
                  time_min=jnp.float32(tmin), time_max=jnp.float32(tmax))
     tfr = FeatureFrame(*(PointBatch(*(torch.from_numpy(a) for a in p)) for p in parts),
                        time_min=torch.tensor(tmin), time_max=torch.tensor(tmax))
+    return st, jfr, tfr
+
+
+@pytest.mark.parametrize("case", list(ADMISSION_CASES))
+def test_admission_matches_jax(case):
+    cfg = admission_config()
+    tc = port_config(cfg)
+    w = cfg.capacity.history_window
+    hist_len, moved, on_cadence = ADMISSION_CASES[case]
+    assert rebuild_interval(tc) > 1
+    st, jfr, tfr = admission_inputs(cfg, hist_len, moved, on_cadence, len(case))
     before = state_fields(st)
     new_j, jreg = jstep(st, jfr, cfg)
     after = state_fields(new_j)
@@ -318,6 +334,53 @@ def test_admission_matches_jax(case):
     else:
         assert grew > 0 and np.array_equal(after["map_surface.xyz"][:900],
                                            before["map_surface.xyz"][:900])
+
+
+SWITCH_CASES = [(admit, on_cadence, appends) for appends in (True, False)
+                for admit in (True, False) for on_cadence in (True, False)]
+
+
+@pytest.mark.parametrize("admit,on_cadence,appends", SWITCH_CASES,
+                         ids=[f"{'admit' if a else 'reject'}-{'cadence' if c else 'between'}-"
+                              f"{'appends' if m else 'rebuilds only'}"
+                              for a, c, m in SWITCH_CASES])
+def test_switch_index_matches_the_jax_steps_choice(admit, on_cadence, appends, monkeypatch):
+    """The SWITCH node's index over the port step's flags (`MatchingUpdate`:
+    rebuild, then append where appends run) against the update the JAX
+    step's ``lax.cond`` took (``do_rebuild`` / ``do_append``), read from
+    its matching buffers: rebuilt (body 0), appended (body 1) or kept (no
+    body).  Admitted or not, on the rebuild cadence or between, with and
+    without appends (a cadence of 4 either way)."""
+    cfg = admission_config()
+    if not appends:
+        cfg = cfg.replace(capacity={"matching_append_mode": 0, "matching_rebuild_interval": 4})
+    tc = port_config(cfg)
+    assert rebuild_interval(tc) == 4
+    st, jfr, tfr = admission_inputs(cfg, W_OPEN, admit, on_cadence, 3)
+    before = state_fields(st)
+    after = state_fields(jstep(st, jfr, cfg)[0])
+    surf, old = after["map_surface.xyz"], before["map_surface.xyz"]
+    if not np.array_equal(surf[:900], old[:900]):
+        jax_body = 0                    # rebuilt from the history window
+    elif int(after["map_surface.mask"].sum()) > int(before["map_surface.mask"].sum()):
+        jax_body = 1                    # the step's points appended
+    else:
+        assert np.array_equal(surf, old)
+        jax_body = None                 # kept
+    updates = []
+    real = todometry.update_matching
+    monkeypatch.setattr(todometry, "update_matching",
+                        lambda state, upd, c: updates.append(upd) or real(state, upd, c))
+    new_t, _ = tstep(state_from_numpy(before, "cpu"), tfr, tc)
+    (upd,) = updates
+    assert (upd.append is not None) == appends
+    flags = torch.stack([upd.rebuild] + ([upd.append] if appends else []))
+    index = switch_index_plain(flags)
+    assert index.dtype == torch.int32 and index.dim() == 0
+    assert int(index) == (flags.numel() if jax_body is None else jax_body)
+    assert jax_body == ((0 if on_cadence else (1 if appends else None)) if admit else None)
+    np.testing.assert_array_equal(new_t.map_surface.xyz.numpy(), surf)
+    np.testing.assert_array_equal(new_t.map_surface.mask.numpy(), after["map_surface.mask"])
 
 
 # -------------------------------------------------- counters, round trips --

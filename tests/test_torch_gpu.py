@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import vlp16_sweep
+from chip_smoke import debounce_tables, vlp16_sweep
 from loam_livox_tpu_torch.core.config import SlamConfig
 from loam_livox_tpu_torch.core.types import PointBatch
 from loam_livox_tpu_torch.frontend.velodyne import extract_velodyne_features
@@ -666,9 +666,12 @@ def test_product_mode_on_one_card_equals_plain(cuda, tmp_path):
 # ---- the frame program: one CUDA graph launch a raw frame -------------------
 
 def test_debounce_kernel_equals_plain(cuda):
-    """The debounce kernel against its plain version: seeded candidate
-    sets (empty, sparse, the 512-slot table overfull, small gaps) and the
-    front end's own candidates, bit for bit."""
+    """The debounce kernel against its plain version, bit for bit: 300
+    seeded candidate sets (empty, sparse, the 512-slot table overfull,
+    small gaps) at 1, 7 and 512 slots, and `debounce_tables` (random,
+    alternating kinds, the longest chain, a single kept slot, empty and
+    overfull) at one warp or less, just past one warp, the shipped 512
+    slots and past one block of 1,024 threads."""
     from loam_livox_tpu_torch.ops import debounce as db
 
     rng = np.random.default_rng(11)
@@ -685,17 +688,99 @@ def test_debounce_kernel_equals_plain(cuda):
         s_k, k_k = db.debounce(*args)
         s_p, k_p = db.debounce_plain(*args)
         assert torch.equal(s_k, s_p) and int(k_k) == int(k_p), trial
+    for ns in (1, 7, 31, 33, 512, 1000, 1025, 4096):
+        for trial, (cand, edge, n, n_valid, gap) in enumerate(
+                debounce_tables(rng, ns, int(rng.integers(8, 16385)))):
+            args = (torch.from_numpy(cand).to(cuda), torch.from_numpy(edge).to(cuda), n,
+                    torch.tensor(n_valid, device=cuda), gap)
+            s_k, k_k = db.debounce(*args)
+            s_p, k_p = db.debounce_plain(*args)
+            assert torch.equal(s_k, s_p) and int(k_k) == int(k_p), (ns, trial)
+
+
+def test_debounce_raises_past_one_blocks_shared_memory(cuda):
+    """A table whose shared memory one block cannot hold raises in the
+    wrapper, and the next launch is unaffected."""
+    from loam_livox_tpu_torch.ops import debounce as db
+
+    ns = 1 << 15                                # ~0.6 MB of tables
+    cand = torch.arange(ns, dtype=torch.int64, device=cuda)
+    edge = torch.zeros(ns, dtype=torch.bool, device=cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        db.debounce(cand, edge, ns, torch.tensor(ns, device=cuda), 3)
+    args = (cand[:512], edge[:512], 512, torch.tensor(512, device=cuda), 3)
+    s_k, k_k = db.debounce(*args)
+    s_p, k_p = db.debounce_plain(*args)
+    assert torch.equal(s_k, s_p) and int(k_k) == int(k_p)
 
 
 def test_loop_condition_kernel_equals_plain(cuda):
     from loam_livox_tpu_torch.ops import graph_cond as gc
 
-    for lanes in ([False], [True], [False, False, True], [False] * 9):
+    many = [False] * 1100
+    many[1099] = True
+    for lanes in ([False], [True], [False, False, True], [False] * 9, [False] * 40 + [True],
+                  [False] * 40, many, [False] * 1100):
         active = torch.tensor(lanes, device=cuda)
         for loops, max_loops in ((0, 15), (14, 15), (15, 15), (3, 0)):
             n = torch.tensor(loops, dtype=torch.int32, device=cuda)
             assert int(gc.loop_condition(active, n, max_loops)) == \
                 int(gc.loop_condition_plain(active, n, max_loops))
+
+
+def test_switch_index_kernel_equals_plain(cuda):
+    """The switch's condition kernel: the first set flag, or the number of
+    flags when none is set, for every row of one to three flags and a
+    row of 32."""
+    from itertools import product
+
+    from loam_livox_tpu_torch.ops import graph_cond as gc
+
+    rows = [list(r) for b in (1, 2, 3) for r in product((False, True), repeat=b)]
+    rows += [[False] * 32, [False] * 31 + [True]]
+    for row in rows:
+        flags = torch.tensor(row, device=cuda)
+        got, want = gc.switch_index(flags), gc.switch_index_plain(flags)
+        assert got.dtype == want.dtype == torch.int32 and int(got) == int(want), row
+
+
+def test_switch_node_runs_the_body_its_flags_pick(cuda):
+    """A frame graph of a segment and a SWITCH item of two bodies (each
+    adds its own amount to a counter) runs exactly the body the flags
+    pick: the first (rebuild), the second (append) or neither, and counts
+    one condition run a replay."""
+    from loam_livox_tpu_torch.ops import graph_cond as gc
+
+    total = torch.zeros((), dtype=torch.int64, device=cuda)
+    flags = torch.zeros(2, dtype=torch.bool, device=cuda)
+    gc.switch_index(flags)                      # the counter's first use, before capture
+    keep = []
+
+    def capture(amount):
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        with torch.cuda.graph(g):
+            total.add_(amount)
+        keep.append(g)
+        return g.raw_cuda_graph()
+
+    graph = gc.build_frame_graph(cuda, [gc.Item(gc.SEGMENT, capture(1)),
+                                        gc.Item(gc.SWITCH, (capture(10), capture(100)),
+                                                flags)])
+    assert graph.cond_nodes == 1
+    for row, body in (([True, False], 10), ([False, True], 100), ([False, False], 0),
+                      ([True, True], 10)):
+        flags.copy_(torch.tensor(row, device=cuda))
+        total.zero_()
+        gc.runs.reset()
+        gc.switch_runs.reset()
+        launches = gc.launches
+        graph.launch()
+        torch.cuda.synchronize()
+        assert int(total) == 1 + body, row
+        assert gc.switch_runs.read() == 1 and gc.runs.read() == 0 and gc.launches == launches
+    graph.close()
+    with pytest.raises(ValueError):             # one flag a body
+        gc.build_frame_graph(cuda, [gc.Item(gc.SWITCH, (keep[1].raw_cuda_graph(),), flags)])
 
 
 def _state_leaves(tree, prefix=""):
@@ -786,15 +871,15 @@ def test_while_node_runs_the_host_loops_passes(cuda):
 
 def test_run_counters_count_the_replays(cuda):
     """The kernels count their own runs on the card: in the replays, the
-    kNN kernel runs twice a pass, the debounce once a frame, and the
-    condition kernel once before each step's loop, once a pass and once
-    before each IF node (rebuild and append); captures run nothing."""
+    kNN kernel runs twice a pass, the debounce once a frame, the loop
+    condition once before each step's loop and once a pass, and the
+    switch condition once before each step's SWITCH node (rebuild or
+    append); captures run nothing."""
     from chip_smoke import on_device, simulate
     from loam_livox_tpu_torch.core.config import SlamConfig
     from loam_livox_tpu_torch.ops import debounce as db
     from loam_livox_tpu_torch.ops import graph_cond as gc
     from loam_livox_tpu_torch.ops import knn_fused as kf
-    from loam_livox_tpu_torch.runtime.odometry import append_mode, rebuild_interval
     from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
 
     cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
@@ -805,16 +890,15 @@ def test_run_counters_count_the_replays(cuda):
     pipe.process_raw(*frames[0][:3], mask=frames[0][3])      # the capture, and frame 0
     torch.cuda.synchronize()
     passes0 = pipe.loop_iterations
-    for counter in (kf.runs, db.runs, gc.runs):
+    for counter in (kf.runs, db.runs, gc.runs, gc.switch_runs):
         counter.reset()
     launches = (kf.launches, db.launches, gc.launches)
     for pts, inten, t0, mask in frames[1:]:
         pipe.process_raw(pts, inten, t0, mask=mask)
     pipe.flush()
     passes = pipe.loop_iterations - passes0
-    ifs = 1 + (append_mode(cfg) and rebuild_interval(cfg) > 1)
     assert passes > 0 and kf.runs.read() == 2 * passes
-    assert db.runs.read() == 5 and gc.runs.read() == passes + 5 * (1 + ifs)
+    assert db.runs.read() == 5 and gc.runs.read() == passes + 5 and gc.switch_runs.read() == 5
     assert (kf.launches, db.launches, gc.launches) == launches     # no launch from Python
 
 
