@@ -71,10 +71,17 @@ Phases, each printing JSON lines; any failure exits nonzero:
               capacities (``auto_schedule`` 0), the row the earlier
               slices' main path ran.  Then the debounce kernel against
               its plain version, bit for bit, on every main-path frame's
-              candidate table and on seeded tables of 1 to 4,096 slots
+              candidate table and on seeded tables of 1 to 32,768 slots
               (random, strictly alternating kinds, the longest chain of
-              one-step hops, one kept, empty and overfull), timed on the
-              path's last table; the loop condition kernel at each
+              one-step hops, one kept, empty and overfull; 16,384 and
+              32,768 slots past one block's shared memory, the kernel's
+              global-memory form), timed on the path's last table and
+              on the longest chain at 4,096, 16,384 and 32,768 slots; the
+              front end at ``max_splits`` 16,384 on the card against the
+              CPU's, and the registration's kNN searcher over 2,000,000
+              rows (past the kernel's largest operand: one launch a row
+              block, merged) against the plain search, bit for bit
+              (``repair`` lines); the loop condition kernel at each
               outcome and on lane axes of up to 1,100 lanes, and the
               switch index at each outcome (rebuild, append, neither),
               against their plain versions, with their times and bounds;
@@ -97,9 +104,16 @@ Phases, each printing JSON lines; any failure exits nonzero:
               points padded on the card beforehand: the shipped precision
               and realtime profiles (3 pieces a frame, on the frame
               program: three WHILE nodes a graph), realtime racing
-              (3 raw frames x 3 pieces a group) and chunked dispatch (8
-              frames), each with the schedule on as the JAX package runs
-              them.  Frames/s, registrations (trajectory rows)/s, ATE,
+              (3 raw frames x 3 pieces a group, one graph launch a raced
+              group: one 9-lane WHILE node and 9 SWITCH nodes) and
+              chunked dispatch (8 frames, one graph launch a chunk: the
+              frame's captured pieces placed 8 times), each with the
+              schedule on as the JAX package runs them, then each
+              through the plain program on the card (``racing_plain``,
+              ``chunked_plain``), rows, iterations, loop passes and every
+              state tensor bit-equal to the graph row's; on every graph
+              row the state read after its first unit is unchanged at
+              its end.  Frames/s, registrations (trajectory rows)/s, ATE,
               accepted rows, ICP iterations, launches (2 per ICP loop
               pass: a piece's iterations, a raced group's batched loop),
               raced and fallen-back groups, host syncs a frame by place,
@@ -562,7 +576,10 @@ def run_stream(cfg, sim, frames, device, split=None, plain=False):
     after that many frames, the seconds since the call are kept in
     ``pipe.split_wall_s`` and a copy of the state then in
     ``pipe.split_state``.  With ``plain``, the pipeline runs the plain
-    program where it would run the frame program."""
+    program where it would run the frame program.  On the frame program,
+    the state read after the first dispatch unit (a raw frame, a chunk or
+    a group) must be unchanged at the end, or it fails
+    (``pipe.state_read_held``)."""
     import torch
 
     from loam_livox_tpu_torch.eval.ate import ate_rmse
@@ -572,16 +589,29 @@ def run_stream(cfg, sim, frames, device, split=None, plain=False):
     pipe = OdometryPipeline(cfg, device=device)
     if plain:
         pipe.program = None
+    unit = max(pipe.frame_batch, pipe.dispatch_chunk)
+    feed(pipe, frames[:unit])
+    held = pipe.state if pipe.program is not None else None
+    kept = clone_state(held)
     if split is not None:
-        feed(pipe, frames[:split])
+        feed(pipe, frames[unit:split])
         torch.cuda.synchronize()
         pipe.split_wall_s = time.perf_counter() - t0
         pipe.split_state = clone_state(pipe.state)
         frames_rest = frames[split:]
     else:
-        frames_rest = frames
+        frames_rest = frames[unit:]
     feed(pipe, frames_rest)
     pipe.flush()
+    pipe.state_read_held = None
+    if held is not None:
+        a, b = state_tensors(held), state_tensors(kept)
+        changed = [k for k in a if not (torch.equal(a[k], b[k])
+                                        if isinstance(a[k], torch.Tensor) else a[k] == b[k])]
+        if changed:
+            raise AssertionError(f"a state read after the first unit changed under the "
+                                 f"next units: {changed}")
+        pipe.state_read_held = True
     est = pipe.trajectory.positions_array()
     gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
     rows = len(frames) * rows_per_frame(cfg)
@@ -648,37 +678,92 @@ def kernel_runs(kf) -> dict:
             {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches})
 
 
-def graph_row(label, pipe, n_frames, kf, syncs, graphs) -> dict:
-    """A row on the frame program: its graphs (one a shape key: the
-    tier's capacities, steps, SWITCH nodes, capture seconds, whether
-    still held) and the kernels' runs, counted on the card.  Fails unless
-    every frame was one graph launch, each key was captured once, no
-    kernel was launched from Python, the runs are what the replays hold
-    (``knn_fused`` twice an ICP pass, the debounce once a frame, the loop
-    condition once a pass and once before each step's loop, the switch
-    condition once before each step's SWITCH node: passes + 2 x steps a
-    frame together), the ICP
-    passes counted on the card equal the rows' iterations, and neither
+def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None) -> dict:
+    """A row on the frame program: its graphs (one a shape key: its kind
+    (a raw frame, a chunk or a racing group), the tier's capacities,
+    frames, steps, WHILE and SWITCH nodes a launch, capture seconds, the
+    device memory the capture took, launches, whether still held) and the
+    kernels' runs, counted on the card.  Fails unless every dispatch unit
+    was one graph launch (a raw frame, a chunk, a raced group, each frame
+    of a fallen-back group), each key was captured once, no kernel was
+    launched from Python, the runs are what the replays hold
+    (``knn_fused`` twice an ICP pass, the debounce once a raw frame, the
+    loop condition once a pass and once before each WHILE node, the
+    switch condition once before each SWITCH node), the ICP passes
+    counted on the card equal the rows' iterations (sequential units:
+    one lane a loop), every held frame or group key's graph pool holds
+    memory (its segments found in the allocator's snapshot), and neither
     the ICP exit nor the admission read the host (the front end has no
-    host read left)."""
+    host read left).  With ``wall``, the frames/s without the captures'
+    seconds too."""
     runs, from_python = kernel_runs(kf)
     keys = pipe.program.summary()
     passes = pipe.loop_iterations
-    steps, switches = (keys[0]["steps"], keys[0]["switches"]) if keys else (0, 0)
-    expected = {"knn_fused": 2 * passes, "debounce": n_frames,
-                "loop_cond": passes + steps * n_frames, "switch_cond": switches * n_frames}
+    expected = {"knn_fused": 2 * passes,
+                "debounce": sum(k["launches"] * k["frames"] for k in keys),
+                "loop_cond": passes + sum(k["launches"] * k["whiles"] for k in keys),
+                "switch_cond": sum(k["launches"] * k["switches"] for k in keys)}
+    by_kind = {kind: sum(k["launches"] for k in keys if k["kind"] == kind)
+               for kind in ("frame", "chunk", "group")}
+    units = {"frame": n_frames, "chunk": 0, "group": 0}
+    if pipe.dispatch_chunk > 1:
+        units = {"frame": 0, "chunk": -(-n_frames // pipe.dispatch_chunk), "group": 0}
+    elif pipe.frame_batch > 1:
+        raced = sum(k["launches"] * k["frames"] for k in keys if k["kind"] == "group")
+        units = {"frame": n_frames - raced, "chunk": 0, "group": pipe.raced_groups}
+    capture_s = sum(k["capture_s"] for k in keys)
     out = {"graphs": keys, "graph_counts": graphs, "kernel_runs": runs,
-           "capture_s": sum(k["capture_s"] for k in keys)}
+           "capture_s": capture_s, "launches_by_kind": by_kind,
+           "graph_pool_mb": sum(k["pool_mb"] for k in keys if k["held"]),
+           "graph_device_mb": sum(k["device_mb"] for k in keys if k["held"])}
+    if wall is not None:
+        out["fps_without_captures"] = n_frames / (wall - capture_s)
     reads = {p: syncs.get(p, 0) for p in ("icp_exit", "admit")}
-    if (runs != expected or any(from_python.values()) or graphs["graph_launch"] != n_frames
-            or graphs["graph_capture"] != len(keys) or passes != sum(pipe.iterations)
-            or len({(k["steps"], k["switches"]) for k in keys}) > 1 or any(reads.values())
-            or any(k["switches"] != k["steps"] for k in keys)):
+    sequential = by_kind["group"] == 0
+    if (runs != expected or any(from_python.values()) or by_kind != units
+            or expected["debounce"] != n_frames
+            or graphs["graph_launch"] != sum(by_kind.values())
+            or graphs["graph_capture"] != len(keys) or any(reads.values())
+            or (sequential and passes != sum(pipe.iterations))
+            or any(k["switches"] != k["steps"] for k in keys)
+            or any(k["pool_mb"] <= 0 for k in keys if k["held"] and k["kind"] != "chunk")):
         raise AssertionError(f"{label}: frame program off: kernel runs {runs} against "
-                             f"{expected}, launches from Python {from_python}, graphs "
-                             f"{graphs}, passes {passes} against {sum(pipe.iterations)}, "
-                             f"reads {reads}")
+                             f"{expected}, launches from Python {from_python}, launches "
+                             f"by kind {by_kind} against {units}, graphs {graphs}, passes "
+                             f"{passes} against {sum(pipe.iterations)}, reads {reads}")
     return out
+
+
+def assert_runs_equal(label, pipe, ref, n_frames=None) -> dict:
+    """Fail unless ``pipe``'s rows (times, positions, quaternions,
+    accepted), ICP iterations and loop passes (and, without ``n_frames``,
+    every state tensor) equal ``ref``'s, a plain-program run of the same
+    frames, bit for bit; ``n_frames`` compares ``pipe``'s first rows with
+    the state ``pipe`` kept after them (``split_state``).  Returns what
+    it compared."""
+    import torch
+
+    rows = len(ref.trajectory.times)
+    keys = ("times", "positions", "quaternions", "accepted")
+    rows_equal = (all(np.array_equal(np.asarray(getattr(ref.trajectory, k)),
+                                     np.asarray(getattr(pipe.trajectory, k)[:rows]))
+                      for k in keys)
+                  and ref.iterations == pipe.iterations[:rows])
+    state = pipe.split_state if n_frames is not None else pipe.state
+    a, b = state_tensors(ref.state), state_tensors(state)
+    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
+                                   else a[k] == b[k])]
+    passes = ({} if n_frames is not None else
+              {"loop_iterations": (pipe.loop_iterations, ref.loop_iterations),
+               "raced_loop_iterations": (pipe.raced_loop_iterations,
+                                         ref.raced_loop_iterations)})
+    passes_equal = all(x == y for x, y in passes.values())
+    if not rows_equal or differ or not passes_equal:
+        raise AssertionError(f"{label}: the frame program departs from the plain program: "
+                             f"rows equal {rows_equal}, state fields differing {differ}, "
+                             f"passes {passes}")
+    return {"rows_bit_equal": rows_equal, "state_fields_differing": differ,
+            "state_fields": len(a), "passes_equal": passes_equal}
 
 
 def debounce_inputs(cfg, frame, dev):
@@ -766,9 +851,10 @@ def debounce_tables(rng, ns, n):
 
 #: the table sizes of the debounce's seeded inputs: one thread's worth,
 #: just below and past one warp, the shipped 512, past one block of
-#: 1,024 threads, and a table of 4,096 (4 slots a thread, ~74 KB of
-#: shared memory)
-DEBOUNCE_SLOTS = (1, 31, 33, 512, 1000, 1025, 4096)
+#: 1,024 threads, a table of 4,096 (4 slots a thread, ~74 KB of shared
+#: memory), and two past one block's shared memory (the kernel's global
+#: form: ~0.3 and ~0.6 MB of tables)
+DEBOUNCE_SLOTS = (1, 31, 33, 512, 1000, 1025, 4096, 16384, 32768)
 
 
 def debounce_phase(cfg, frames, dev) -> dict:
@@ -786,13 +872,97 @@ def debounce_phase(cfg, frames, dev) -> dict:
         for cand, edge, n, n_valid, gap in debounce_tables(rng, ns, int(rng.integers(8, 16385))):
             cases.append((torch.from_numpy(cand).to(dev), torch.from_numpy(edge).to(dev), n,
                           torch.tensor(n_valid, device=dev), gap))
+    runs = DB.runs.read()
     for k, args in enumerate(cases):
         (s_k, n_k), (s_p, n_p) = DB.debounce(*args), DB.debounce_plain(*args)
         if not (torch.equal(s_k, s_p) and torch.equal(n_k, n_p)):
             raise AssertionError(f"debounce disagrees with its plain version on table {k} "
                                  f"({args[0].shape[0]} slots)")
+    kernel_runs = DB.runs.read() - runs
+    global_form = [ns for ns in DEBOUNCE_SLOTS if DB.scratch_bytes(ns, cases[0][0].device)]
+    if kernel_runs != len(cases) or global_form != [16384, 32768]:
+        raise AssertionError(f"debounce: {kernel_runs} kernel runs for {len(cases)} tables, "
+                             f"global form at {global_form} slots")
     return {"frame_tables": len(frames), "seeded_tables": len(cases) - len(frames),
-            "slots": list(DEBOUNCE_SLOTS)}
+            "slots": list(DEBOUNCE_SLOTS), "global_form_slots": global_form,
+            "kernel_runs": kernel_runs}
+
+
+def front_end_past_shared(frame, dev) -> dict:
+    """The Livox front end at ``max_splits`` 16,384 (the debounce's global
+    form) on a host raw frame, on the card against the CPU: the split
+    table, kept count and the first piece's features equal, bit for
+    bit."""
+    import torch
+
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.core.types import to_device
+    from loam_livox_tpu_torch.frontend import livox
+
+    cfg = SlamConfig().replace(capacity={"max_splits": 16384})
+    xyz, inten, t = frame[:3]
+    n_raw = cfg.capacity.max_raw_points
+    pts, it, msk = (np.zeros((n_raw, 3), np.float32), np.zeros(n_raw, np.float32),
+                    np.zeros(n_raw, bool))
+    pts[:len(xyz)], it[:len(xyz)], msk[:len(xyz)] = xyz, inten, True
+    out = {}
+    for where in ("cpu", dev):
+        seen = []
+        real = livox.debounce
+        livox.debounce = lambda *a: seen.append(real(*a)) or seen[-1]
+        try:
+            _, _, frames = livox.extract_frame(*(to_device(a, where) for a in (pts, it, msk)), t,
+                                               cfg.feature_extraction, cfg.capacity)
+        finally:
+            livox.debounce = real
+        out[str(where)] = seen[0], frames[0]
+    (s_c, k_c), fr_c = out["cpu"]
+    (s_g, k_g), fr_g = out[str(dev)]
+    equal = {"splits": torch.equal(s_g.cpu(), s_c), "kept": int(k_g) == int(k_c)}
+    for name in ("corners", "surface"):
+        a, b = getattr(fr_g, name), getattr(fr_c, name)
+        equal[name] = torch.equal(a.mask.cpu(), b.mask) and torch.equal(a.xyz.cpu(), b.xyz)
+    if not all(equal.values()):
+        raise AssertionError(f"the front end at 16,384 splits departs from the CPU's: {equal}")
+    return {"slots": int(s_c.shape[0]), "kept": int(k_c), "equal": equal}
+
+
+def split_search(dev, m=2_000_000, n_q=256) -> dict:
+    """The registration's kNN searcher over ``m`` rows, past the kernel's
+    largest operand (`ops.knn_fused.max_ref_rows`): one kernel launch a
+    row block, the blocks merged, against the plain search of the whole
+    buffer, bit for bit; with the searcher's time and the plain
+    version's."""
+    import torch
+
+    from loam_livox_tpu_torch.core.types import PointBatch
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+    from loam_livox_tpu_torch.ops.knn import knn
+    from loam_livox_tpu_torch.registration import icp
+
+    rng = np.random.default_rng(21)
+    xyz = rng.uniform(-30, 30, (m, 3)).astype(np.float32)
+    mask = rng.random(m) < 0.3
+    q = (xyz[rng.integers(0, m, n_q)] + rng.normal(0, 0.5, (n_q, 3))).astype(np.float32)
+    ref = PointBatch(xyz=torch.from_numpy(xyz).to(dev), time=torch.zeros(m, device=dev),
+                     mask=torch.from_numpy(mask).to(dev))
+    q = torch.from_numpy(q).to(dev)
+    count = torch.tensor(n_q - 16, dtype=torch.int32, device=dev)
+    search = icp._searcher("pallas", ref, None, 5, 2.0, 1024)
+    runs = kf.runs.read()
+    d, i = search(q, count)
+    blocks = kf.runs.read() - runs
+    dp, ip = knn(q, ref.xyz, ref.mask, k=5, query_count=n_q - 16, max_radius=2.0)
+    err = float((d.double() - dp.double()).abs().max())
+    ok = torch.equal(d, dp) and torch.equal(i, ip) and blocks == -(-m // kf.max_ref_rows(5))
+    if not ok:
+        raise AssertionError(f"the split search departs from the plain search: blocks "
+                             f"{blocks}, max_abs_err {err}")
+    return {"rows": m, "queries": n_q, "max_rows": kf.max_ref_rows(5), "blocks": blocks,
+            "max_abs_err": err, "beyond_first_block": bool((i >= kf.max_ref_rows(5)).any()),
+            "ms": time_ms(lambda: search(q, count), 5),
+            "plain_ms": time_ms(lambda: knn(q, ref.xyz, ref.mask, k=5, query_count=n_q - 16,
+                                            max_radius=2.0), 2)}
 
 
 def node_floor(nodes=64, reps=20) -> dict:
@@ -949,7 +1119,8 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, kerne
     # frames run the plain program's step)
     on_graphs = pipe.program is not None and bool(pipe.program.summary())
     if on_graphs:
-        extra.update(graph_row(label, pipe, n_frames, kf, syncs, P.graph_counts()))
+        extra.update(graph_row(label, pipe, n_frames, kf, syncs, P.graph_counts(), wall),
+                     state_read_held=getattr(pipe, "state_read_held", None))
         launches = extra["kernel_runs"]["knn_fused"]
     rows = len(pipe.trajectory.times)
     emit("path", path=label, frames=n_frames, rows=rows, fps=n_frames / wall,
@@ -968,6 +1139,47 @@ def path_line(label, pipe, n_frames, wall, ate, accepted, launches, syncs, kerne
     if launches != expected or pipe.loop_iterations <= 0:
         raise AssertionError(f"{label}: knn_fused launched {launches} times for "
                              f"{pipe.loop_iterations} ICP loop passes")
+    return launches
+
+
+def path_row(label, pipe, n_path, wall, ate, acc, kf, P, **extra) -> int:
+    """Emit a bench.py row's ``path`` line (a row on the frame program
+    with `graph_row`'s fields); fail unless its ICP passes are the rows'
+    iterations on the sequential paths, ``knn_fused`` ran twice a pass
+    (a raced group's batched loop once, plus its fallen-back frames'),
+    and ATE and accepted rows meet the golden.  Returns the kernel's
+    launches (runs on the frame program)."""
+    launches = kf.launches
+    syncs = P.host_syncs()
+    rows = len(pipe.trajectory.times)
+    fallback_iters = pipe.loop_iterations - pipe.raced_loop_iterations
+    graph = ({} if pipe.program is None else
+             graph_row(label, pipe, n_path, kf, syncs, P.graph_counts(), wall))
+    if graph:
+        launches = graph["kernel_runs"]["knn_fused"]
+    emit("path", path=label, frames=n_path, rows=rows, fps=n_path / wall,
+         registrations_per_s=rows / wall, wall_s=wall, ate_aligned=ate,
+         accepted=acc, icp_iterations=sum(pipe.iterations),
+         loop_iterations=pipe.loop_iterations, knn_fused_launches=launches,
+         raced_groups=pipe.raced_groups, fallback_groups=pipe.fallback_groups,
+         raced_loop_iterations=pipe.raced_loop_iterations,
+         fallback_iterations=fallback_iters,
+         host_syncs_per_frame=sum(syncs.values()) / n_path,
+         host_syncs={k: v / n_path for k, v in syncs.items()},
+         map_surface_fill=int(pipe.state.map_surface.mask.sum()),
+         map_surface_capacity=pipe.state.map_surface.capacity,
+         schedule=schedule_info(pipe), state_read_held=pipe.state_read_held,
+         **graph, **extra)
+    # each ICP pass searches corners and surfaces once: a piece's
+    # iterations on the sequential paths, the batched loop of a raced
+    # group plus the iterations of fallen-back frames on racing
+    if pipe.raced_groups == 0 and pipe.loop_iterations != sum(pipe.iterations):
+        raise AssertionError(f"{label}: loop passes differ from the rows' iterations")
+    if launches != 2 * pipe.loop_iterations or launches <= 0:
+        raise AssertionError(f"{label}: knn_fused launched {launches} times for "
+                             f"{pipe.loop_iterations} ICP loop passes")
+    if not (ate < 0.35 and acc >= rows // 2):
+        raise AssertionError(f"{label} path off: ATE {ate}, accepted {acc}/{rows}")
     return launches
 
 
@@ -1811,7 +2023,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     iters = sum(pipe.iterations)
     # the frame program's row: one graph launch a frame, the kernels' runs
     # counted on the card (graph_row fails otherwise)
-    graph_main = graph_row("main", pipe, n, kf, syncs, P.graph_counts())
+    graph_main = graph_row("main", pipe, n, kf, syncs, P.graph_counts(), wall)
     launches = graph_main["kernel_runs"]["knn_fused"]
     emit("main", frames=n, fps=n / wall, wall_s=wall, accepted=accepted, ate_aligned=ate,
          fps_first_20=n_fixed / pipe.split_wall_s,
@@ -1823,7 +2035,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
          map_surface_fill=int(pipe.state.map_surface.mask.sum()),
          map_corner_fill=int(pipe.state.map_corners.mask.sum()),
          map_surface_capacity=pipe.state.map_surface.capacity,
-         map_corner_capacity=pipe.state.map_corners.capacity, **graph_main)
+         map_corner_capacity=pipe.state.map_corners.capacity,
+         state_read_held=pipe.state_read_held, **graph_main)
     if not (ate < 0.35 and accepted >= n // 2):
         raise AssertionError(f"main path off: ATE {ate}, accepted {accepted}/{n}")
     if pipe.scheduler is None or syncs["schedule"] <= 0:
@@ -1839,20 +2052,9 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     torch.cuda.synchronize()
     wall_pl = time.perf_counter() - t0
     launches_by_path["main_plain"] = kf.launches
-    keys = ("times", "positions", "quaternions", "accepted")
-    rows_equal = (all(np.array_equal(np.asarray(getattr(pipe_pl.trajectory, k)),
-                                     np.asarray(getattr(pipe.trajectory, k)[:n_fixed]))
-                      for k in keys)
-                  and pipe_pl.iterations == pipe.iterations[:n_fixed])
-    a, b = state_tensors(pipe_pl.state), state_tensors(pipe.split_state)
-    differ = [k for k in a if not (torch.equal(a[k], b[k]) if isinstance(a[k], torch.Tensor)
-                                   else a[k] == b[k])]
+    held = assert_runs_equal("main", pipe, pipe_pl, n_fixed)
     path_line("main_plain", pipe_pl, n_fixed, wall_pl, ate_pl, acc_pl, kf.launches,
-              P.host_syncs(), rows_bit_equal_to_main=rows_equal,
-              state_fields_differing_from_main=differ, state_fields=len(a))
-    if not rows_equal or differ:
-        raise AssertionError(f"the frame program departs from the plain program: rows equal "
-                             f"{rows_equal}, state fields differing {differ}")
+              P.host_syncs(), **{f"{k}_to_main": v for k, v in held.items()})
 
     # the same frames at the configured capacities (the schedule off): the
     # fixed-capacity main row of the earlier slices, 20 frames
@@ -1915,6 +2117,28 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
                 kept=int(DB.debounce_plain(*db_args)[1]), held=db_held,
                 ptxas=ptxas_report(build.build_logs.get("debounce", ""), k=None))
     emit("kernel", kernel="debounce", search="main-path candidate table", **r_db)
+    # the two forms at larger tables: the longest chain (every slot kept)
+    # at 4,096 slots (shared memory) and past one block's shared memory
+    r_db_sizes = {}
+    for ns_big in (4096, 16384, 32768):
+        cand, edge, n_pts, n_valid, gap = debounce_tables(np.random.default_rng(ns_big),
+                                                          ns_big, 3 * ns_big)[8]
+        big = (torch.from_numpy(cand).to(dev), torch.from_numpy(edge).to(dev), n_pts,
+               torch.tensor(n_valid, device=dev), gap)
+        form = "global" if DB.scratch_bytes(ns_big, big[0].device) else "shared"
+        r_db_sizes[ns_big] = r_big = compare_small_kernel(
+            "debounce", DB.debounce, DB.debounce_plain, big,
+            bytes_=ns_big * 8 + ns_big + 8 + ns_big * 8 + 8, ops=4 * ns_big, reps=50)
+        emit("kernel", kernel="debounce", search=f"longest chain, {ns_big} slots, {form} form",
+             **r_big)
+    # the two sizes the card refused before: a front end past one block's
+    # shared memory, and a kNN buffer past the kernel's largest operand
+    emit("repair", what="front end at max_splits 16,384, card against CPU",
+         **front_end_past_shared(frames[n - 1], dev))
+    r_split = split_search(dev)
+    worst_err = max(worst_err, r_split["max_abs_err"])
+    emit("repair", what="kNN over 2,000,000 rows in row blocks, against the plain search",
+         **r_split)
     max_loops = cfg.optimization.icp_maximum_iteration
     r_cond = None
     for lanes, loops in ((1, 0), (1, max_loops - 1), (1, max_loops), (0, 3), (9, 0), (33, 0),
@@ -2005,39 +2229,22 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         pipe_p, ate_p, acc_p = run_stream(cfg_p, sim, dev_frames[:n_path], dev)
         torch.cuda.synchronize()
         wall_p = time.perf_counter() - t0
-        launches_p = kf.launches
-        syncs_p = P.host_syncs()
-        rows = len(pipe_p.trajectory.times)
-        fallback_iters = pipe_p.loop_iterations - pipe_p.raced_loop_iterations
-        graph_p = ({} if pipe_p.program is None else
-                   graph_row(label, pipe_p, n_path, kf, syncs_p, P.graph_counts()))
-        if graph_p:
-            launches_p = graph_p["kernel_runs"]["knn_fused"]
-        emit("path", path=label, frames=n_path, rows=rows, fps=n_path / wall_p,
-             registrations_per_s=rows / wall_p, wall_s=wall_p, ate_aligned=ate_p,
-             accepted=acc_p, icp_iterations=sum(pipe_p.iterations),
-             loop_iterations=pipe_p.loop_iterations, knn_fused_launches=launches_p,
-             raced_groups=pipe_p.raced_groups, fallback_groups=pipe_p.fallback_groups,
-             raced_loop_iterations=pipe_p.raced_loop_iterations,
-             fallback_iterations=fallback_iters,
-             host_syncs_per_frame=sum(syncs_p.values()) / n_path,
-             host_syncs={k: v / n_path for k, v in syncs_p.items()},
-             map_surface_fill=int(pipe_p.state.map_surface.mask.sum()),
-             map_surface_capacity=pipe_p.state.map_surface.capacity,
-             schedule=schedule_info(pipe_p), **graph_p)
-        # each ICP pass searches corners and surfaces once: a piece's
-        # iterations on the sequential paths, the batched loop of a raced
-        # group plus the iterations of fallen-back frames on racing
-        if pipe_p.raced_groups == 0 and pipe_p.loop_iterations != sum(pipe_p.iterations):
-            raise AssertionError(f"{label}: loop passes differ from the rows' iterations")
-        if pipe_p.program is None and (
-                launches_p != 2 * (pipe_p.raced_loop_iterations + fallback_iters)
-                or launches_p <= 0):
-            raise AssertionError(f"{label}: knn_fused launched {launches_p} times for "
-                                 f"{pipe_p.loop_iterations} ICP loop passes")
-        if not (ate_p < 0.35 and acc_p >= rows // 2):
-            raise AssertionError(f"{label} path off: ATE {ate_p}, accepted {acc_p}/{rows}")
+        launches_p = path_row(label, pipe_p, n_path, wall_p, ate_p, acc_p, kf, P)
         launches_by_path[label] = launches_p
+        if label in ("racing", "chunked"):
+            # the same frames through the plain program on the card: the
+            # frame program's chunk and group graphs replay it, bit for bit
+            torch.cuda.synchronize()
+            reset_counts(kf, P)
+            t0 = time.perf_counter()
+            pipe_pl, ate_pl, acc_pl = run_stream(cfg_p, sim, dev_frames[:n_path], dev,
+                                                 plain=True)
+            torch.cuda.synchronize()
+            wall_pl = time.perf_counter() - t0
+            held = assert_runs_equal(label, pipe_p, pipe_pl)
+            launches_by_path[f"{label}_plain"] = path_row(
+                f"{label}_plain", pipe_pl, n_path, wall_pl, ate_pl, acc_pl, kf, P,
+                **{f"{k}_to_{label}": v for k, v in held.items()})
         if label == "precision":
             sync_check(label, pipe_p, dev_frames[n_path:n_path + 3])
         if label == "racing":
@@ -2238,7 +2445,9 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         "ms": r_db["ms"], "kernel_ms": r_db["kernel_ms"], "plain_ms": r_db["plain_ms"],
         "bound_ms": r_db["bound_ms"], "bound_by": r_db["bound_by"], "library_ms": None,
         "node_floor_ms": floor["kernel_ms"], "baseline_ms": r_db.get("baseline_ms"),
-        "baseline_kernel_ms": r_db.get("baseline_kernel_ms")}, {
+        "baseline_kernel_ms": r_db.get("baseline_kernel_ms"),
+        **{f"chain_{ns_big}_{k}": r_big[k] for ns_big, r_big in r_db_sizes.items()
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")}}, {
         "name": "graph_cond", "route": "cuda",
         "source": "loam_livox_tpu_torch/csrc/graph_cond.cu",
         "replaces": "loam_livox_tpu/registration/icp.py:327 (lax.while_loop) and "

@@ -21,8 +21,13 @@
 // jump table, one barrier a round, ceil(log2 ns) rounds.  The kept
 // indices are then ascending in slot order, so a block-wide exclusive
 // scan places them in the table and the terminator goes in at its rank:
-// no sort.  The tables are int32 in shared memory (the wrapper checks
-// n < 2^31): ~9 KB for the shipped 512 slots.
+// no sort.  The tables are int32 (the wrapper checks n < 2^31) in shared
+// memory: ~9 KB for the shipped 512 slots.  A table past one block's
+// opt-in shared memory (~11,900 slots on the H100) takes the second
+// launch form of the same kernel: the same block and rounds, its tables
+// in a global-memory scratch that the wrapper allocates (a barrier
+// orders a block's global accesses as it does its shared ones), so both
+// forms compute the same bits.
 //
 // Bound: neither bytes (~9 KB in and out) nor operations (~40 a slot)
 // bound it on this card (nanoseconds at the memory and float32 rates).
@@ -47,12 +52,12 @@ __host__ __device__ inline int chain_length(int ns) {
   return p;
 }
 
-// the shared memory of an ns-slot table: 32 ints of reduction scratch,
-// the indices (ns), two jump tables (ns + 1, the sink ns included), the
-// chain, then the kinds and the chain marks (ns + 1 bytes each)
-__host__ __device__ inline size_t shared_bytes(int ns) {
+// the tables of an ns-slot table: the indices (ns), two jump tables
+// (ns + 1, the sink ns included), the chain, then the kinds and the chain
+// marks (ns + 1 bytes each)
+__host__ __device__ inline size_t table_bytes(int ns) {
   const size_t s = static_cast<size_t>(ns);
-  return sizeof(int) * (32 + s + 2 * (s + 1) + chain_length(ns)) + 2 * (s + 1);
+  return sizeof(int) * (s + 2 * (s + 1) + chain_length(ns)) + 2 * (s + 1);
 }
 
 // the threads of the one block: a warp for every 32 slots, at most 1,024
@@ -100,15 +105,18 @@ __device__ int block_exclusive_scan(int v, int* scratch, int* total) {
   return before + x - v;
 }
 
+// kGlobal false: the tables in dynamic shared memory (table_bytes(ns));
+// true: in `tables`, a global scratch of table_bytes(ns) bytes
+template <bool kGlobal>
 __global__ void __launch_bounds__(kMaxThreads)
     debounce_kernel(const long long* __restrict__ cand_idx,
                     const bool* __restrict__ cand_is_edge, int ns, long long n,
                     const long long* __restrict__ n_valid, long long gap,
                     long long* __restrict__ splits, long long* __restrict__ n_accepted,
-                    unsigned long long* __restrict__ runs) {
+                    unsigned long long* __restrict__ runs, int* tables) {
   extern __shared__ int smem[];
-  int* scratch = smem;
-  int* idx = scratch + 32;
+  __shared__ int scratch[32];
+  int* idx = kGlobal ? tables : smem;
   int* cur = idx + ns;        // jump^(2^r), slot ns the sink
   int* nxt = cur + ns + 1;
   int* chain = nxt + ns + 1;  // chain[m] = jump^m(0)
@@ -217,29 +225,59 @@ __global__ void __launch_bounds__(kMaxThreads)
 
 extern "C" {
 
+// The bytes of an ns-slot table's tables (0 for ns <= 0): the dynamic
+// shared memory of the shared form, the global scratch of the other.
+long long debounce_table_bytes(int ns) {
+  return ns > 0 ? static_cast<long long>(table_bytes(ns)) : 0;
+}
+
+// out[0] = one block's opt-in shared memory on `device`, out[1] = the
+// kernel's static shared memory: the shared form fits where
+// out[1] + debounce_table_bytes(ns) <= out[0].  Returns a CUDA error code.
+int debounce_shared_limits(int device, long long* out) {
+  int optin = 0;
+  cudaError_t e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, device);
+  cudaFuncAttributes attr;
+  if (e == cudaSuccess) e = cudaFuncGetAttributes(&attr, debounce_kernel<false>);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  out[0] = optin;
+  out[1] = static_cast<long long>(attr.sharedSizeBytes);
+  return 0;
+}
+
 // cand_idx (ns,) int64 ascending, padded with n (0 <= n < 2^31), and
 // cand_is_edge (ns,) bool on the card, n_valid a device int64 scalar;
 // writes splits (ns,) int64 and n_accepted (an int64 scalar); `runs` (a
 // device counter, or null) gains one each time the launch runs, in a CUDA
-// graph at every replay.  Returns a CUDA error code, 0 on a launch
-// accepted; a table past the card's opt-in shared memory for one block
-// returns the error of raising the kernel's limit.
+// graph at every replay.  `tables` null launches the shared form; else it
+// is a device scratch of debounce_table_bytes(ns) bytes, 4-byte aligned,
+// that the global form keeps its tables in.  Returns a CUDA error code, 0
+// on a launch accepted; a shared form past the card's opt-in shared
+// memory for one block returns the error of raising the kernel's limit.
 int debounce_launch(const long long* cand_idx, const bool* cand_is_edge, int ns, long long n,
                     const long long* n_valid, long long gap, long long* splits,
-                    long long* n_accepted, unsigned long long* runs, void* stream) {
+                    long long* n_accepted, unsigned long long* runs, int* tables,
+                    void* stream) {
   if (ns <= 0 || n < 0 || n > INT_MAX) return cudaErrorInvalidValue;
-  const size_t bytes = shared_bytes(ns);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tables != nullptr) {
+    debounce_kernel<true><<<1, block_threads(ns), 0, s>>>(
+        cand_idx, cand_is_edge, ns, n, n_valid, gap, splits, n_accepted, runs, tables);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const size_t bytes = table_bytes(ns);
   if (bytes > INT_MAX) return cudaErrorInvalidValue;
   if (bytes > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
-        debounce_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(bytes));
+        debounce_kernel<false>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(bytes));
     if (e != cudaSuccess) {
       cudaGetLastError();  // not left for the next launch's check
       return static_cast<int>(e);
     }
   }
-  debounce_kernel<<<1, block_threads(ns), bytes, static_cast<cudaStream_t>(stream)>>>(
-      cand_idx, cand_is_edge, ns, n, n_valid, gap, splits, n_accepted, runs);
+  debounce_kernel<false><<<1, block_threads(ns), bytes, s>>>(
+      cand_idx, cand_is_edge, ns, n, n_valid, gap, splits, n_accepted, runs, nullptr);
   return static_cast<int>(cudaGetLastError());
 }
 

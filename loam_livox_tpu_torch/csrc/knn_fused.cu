@@ -86,9 +86,11 @@
 //
 // Capacity ceiling.  The list of near groups lives in shared memory, 36
 // bytes (box and index) per 256-reference group of the capacity, beside
-// the ring and the merge buffers.  Within sm_90's 227 KB opt-in limit an
-// operand holds at most knn_fused_max_rows(k) rows: 1,463,296 at k = 5,
-// 1,419,520 at k = 8.  The wrapper refuses a larger one.  The shipped
+// the ring and the merge buffers.  Within sm_90's 227 KB opt-in limit,
+// less the kernel's static shared memory, an operand holds at most
+// knn_fused_max_rows(k) rows: 1,461,504 at k = 5.  The wrapper refuses a
+// larger one, and the registration's searcher splits a larger buffer
+// into row blocks (registration/icp.py).  The shipped
 // buffers (at most 65,536 rows) need 35,872 bytes at k = 5.
 //
 // Bound.  ops/knn_fused.py: search_work counts, whatever the tiling, 8
@@ -614,9 +616,18 @@ int info(int mp, int* out) {
   return 0;
 }
 
+// The kernel's static shared memory (256 bytes at k = 5) counts against
+// the same opt-in limit as the dynamic: read once, at the first call (0
+// rows where the card cannot say).
 template <int K>
 int max_rows() {
-  return (kSmemOptIn - Smem<K>::kList) / Smem<K>::kPerGroup * kGroup;
+  static const int rows = [] {
+    cudaFuncAttributes attr;
+    if (cudaFuncGetAttributes(&attr, knn_fused_kernel<K>) != cudaSuccess) return 0;
+    const int room = kSmemOptIn - static_cast<int>(attr.sharedSizeBytes) - Smem<K>::kList;
+    return room / Smem<K>::kPerGroup * kGroup;
+  }();
+  return rows;
 }
 
 }  // namespace

@@ -1,6 +1,7 @@
 """The Livox split debounce: the hand-written CUDA kernel
-``csrc/debounce.cu`` (one block of pointer doubling in shared memory) on
-the card, its plain version on the CPU.
+``csrc/debounce.cu`` (one block of pointer doubling in shared memory, or,
+for a table past one block's shared memory, in a global scratch
+allocated here) on the card, its plain version on the CPU.
 
 It ports the JAX package's greedy ``lax.scan`` over the turning-point
 candidates (``loam_livox_tpu/frontend/livox.py:186-205``; reference
@@ -66,9 +67,36 @@ def _library() -> ctypes.CDLL:
     if fn.argtypes is None:
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_void_p, ctypes.c_void_p]
+                       ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
         fn.restype = ctypes.c_int
+        lib.debounce_table_bytes.argtypes = [ctypes.c_int]
+        lib.debounce_table_bytes.restype = ctypes.c_longlong
+        lib.debounce_shared_limits.argtypes = [ctypes.c_int, ctypes.c_void_p]
+        lib.debounce_shared_limits.restype = ctypes.c_int
     return lib
+
+
+#: device index -> (one block's opt-in shared bytes, the kernel's static
+#: shared bytes), read at a device's first launch (never under a capture)
+_limits: dict = {}
+
+
+def scratch_bytes(ns: int, device: torch.device) -> int:
+    """The global scratch an ``ns``-slot table takes on ``device``: 0 where
+    the kernel's tables fit one block's opt-in shared memory (the shared
+    form), else their bytes (the global form)."""
+    lib = _library()
+    if device.index not in _limits:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("debounce: launch it once on a device before capturing")
+        out = (ctypes.c_longlong * 2)()
+        err = lib.debounce_shared_limits(device.index, out)
+        if err != 0:
+            raise RuntimeError(f"debounce_shared_limits failed: CUDA error {err}")
+        _limits[device.index] = (out[0], out[1])
+    optin, static = _limits[device.index]
+    table = lib.debounce_table_bytes(ns)
+    return 0 if static + table <= optin else table
 
 
 def debounce(cand_idx: torch.Tensor, cand_is_edge: torch.Tensor, n: int,
@@ -76,7 +104,8 @@ def debounce(cand_idx: torch.Tensor, cand_is_edge: torch.Tensor, n: int,
     """``(splits, n_accepted)``: (ns,) int64 sorted split table and an
     int64 scalar.  ``cand_idx`` (ns,) int64, ``cand_is_edge`` (ns,) bool
     and ``n_valid`` (a scalar tensor) on one device.  A CUDA tensor
-    launches the kernel; a CPU tensor runs the plain version."""
+    launches the kernel (its global form past one block's shared
+    memory); a CPU tensor runs the plain version."""
     if cand_idx.device.type == "cpu":
         return debounce_plain(cand_idx, cand_is_edge, n, n_valid, gap)
     if cand_idx.device.type != "cuda":
@@ -96,10 +125,13 @@ def debounce(cand_idx: torch.Tensor, cand_is_edge: torch.Tensor, n: int,
     nv = n_valid.to(torch.int64).reshape(())
     splits = torch.empty(ns, dtype=torch.int64, device=dev)
     kept = torch.empty((), dtype=torch.int64, device=dev)
+    n_scratch = scratch_bytes(ns, dev)
+    tables = (torch.empty(n_scratch, dtype=torch.uint8, device=dev) if n_scratch else None)
     global launches
     err = _library().debounce_launch(idx.data_ptr(), edge.data_ptr(), ns, n, nv.data_ptr(),
                                      gap, splits.data_ptr(), kept.data_ptr(),
                                      runs.address(dev),
+                                     None if tables is None else tables.data_ptr(),
                                      torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"debounce kernel launch failed: CUDA error {err}")

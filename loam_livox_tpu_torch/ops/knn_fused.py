@@ -130,6 +130,16 @@ def _library() -> ctypes.CDLL:
     return lib
 
 
+def max_ref_rows(k: int) -> int:
+    """The most reference rows (operand rows, a multiple of GROUP) one
+    launch takes at ``k`` on the current card: past it a caller splits
+    the references into blocks (`registration.icp`)."""
+    rows = _library().knn_fused_max_rows(k)
+    if rows <= 0:
+        raise RuntimeError(f"knn_fused: no operand size for k = {k} on this card")
+    return rows
+
+
 def launch_shape(k: int, mp: int) -> dict:
     """The kernel's launch shape on the current card for a k-search of an
     ``mp``-row operand: threads per block, cluster size, dynamic shared

@@ -14,9 +14,10 @@ radian angle with ``57.3 * minimum_icp_R_diff`` (:521), and the gate
 cost is normalised to the reference's residual-block budget, since this
 solver uses every residual.
 
-`register_frames` registers L frames at once against one matching
-buffer (the racing path; the counterpart of ``jax.vmap(register_frame)``
-in ``loam_livox_tpu/runtime/batched.py:76-85``): every tensor gains a
+`prepare_registration` registers L frames at once against one matching
+buffer (the racing path, `runtime.batched.prepare_group`; the
+counterpart of ``jax.vmap(register_frame)`` in
+``loam_livox_tpu/runtime/batched.py:76-85``): every tensor gains a
 leading lane axis, the kNN kernel takes all lanes in one launch, and
 the 6×6 solves are batched.  As under ``vmap``, the loop runs until
 every lane has converged, and a lane that has converged (or never ran)
@@ -30,14 +31,17 @@ buffer (`ops.bucket_grid`), when the state carries them; ``dense`` (and
 ``grid`` without grids) with `ops.knn.knn_dense`, which ranks as the JAX
 package's dense engine does.  Under a product mesh
 (`parallel.mesh.active_mesh`) the kernel's search runs sharded over the
-ranks (`parallel.sharded.knn_sharded`), bit for bit the same result.
+ranks (`parallel.sharded.knn_sharded`), bit for bit the same result;
+a buffer past the kernel's largest operand is searched in row blocks,
+merged the same way (`_searcher`).
 
 The outer loop is the JAX package's ``lax.while_loop``: a pass is a
 function of a carry of tensors (`prepare_registration` returns the pass,
 the first carry and the gates after the loop), and passes run while
-any lane is active, at most ``icp_maximum_iteration``.  `register_frames`
-runs them under a host loop that reads ``active`` before each pass (at
-most ``icp_maximum_iteration`` + 1 device syncs a registration, `SYNCS`
+any lane is active, at most ``icp_maximum_iteration``.  The plain
+program runs them under a host loop (`run_host_loop`) that reads
+``active`` before each pass (at most ``icp_maximum_iteration`` + 1
+device syncs a registration, `SYNCS`
 counts them; none when host flags enable no lane).  The frame program
 (`runtime.frame_program`) runs the same pass as the body of a CUDA graph
 WHILE node, whose condition kernel reads ``active`` on the card.
@@ -54,7 +58,7 @@ from ..core.config import SlamConfig
 from ..core.types import PointBatch, to_device
 from ..ops.bucket_grid import BucketGrid, grid_knn
 from ..ops.knn import knn_dense
-from ..ops.knn_fused import build_ref_operand, knn_fused
+from ..ops.knn_fused import build_ref_operand, knn_fused, max_ref_rows
 from ..ops.masked import random_keep_mask
 from ..parallel import mesh
 from . import residuals as res
@@ -105,9 +109,15 @@ def resolve_correspondence_engine(opt, grids: bool) -> str:
 
 
 def _searcher(engine: str, ref: PointBatch, grid: BucketGrid | None, k: int,
-              radius: float, query_tile: int):
+              radius: float, query_tile: int, max_rows: int | None = None):
     """``search(queries, counts)`` over one matching buffer: its kernel
-    operand (or the rank's shard of it) is built once a registration."""
+    operand (or the rank's shard of it) is built once a registration.  A
+    buffer past ``max_rows`` rows (default: the kernel's largest operand
+    on the card, `ops.knn_fused.max_ref_rows`; no limit on the CPU) is
+    searched in row blocks of at most ``max_rows``, one operand and one
+    kernel launch a block, their candidates merged by (distance, index)
+    as `parallel.sharded.knn_sharded` merges its ranks': bit for bit the
+    search of the whole buffer."""
     if engine == "grid":
         return lambda q, counts: grid_knn(q, grid, k=k)
     if engine == "dense":
@@ -122,9 +132,27 @@ def _searcher(engine: str, ref: PointBatch, grid: BucketGrid | None, k: int,
         return lambda q, counts: knn_sharded(q, ref.xyz, ref.mask, group, k=k,
                                              query_count=counts, max_radius=radius,
                                              ref_op=ref_op)
-    ref_op = build_ref_operand(ref.xyz, ref.mask)
-    return lambda q, counts: knn_fused(q, ref.xyz, ref.mask, k=k, ref_op=ref_op,
-                                       query_count=counts, max_radius=radius)
+    if max_rows is None and ref.xyz.device.type == "cuda":
+        max_rows = max_ref_rows(k)
+    if max_rows is None or ref.capacity <= max_rows:
+        ref_op = build_ref_operand(ref.xyz, ref.mask)
+        return lambda q, counts: knn_fused(q, ref.xyz, ref.mask, k=k, ref_op=ref_op,
+                                           query_count=counts, max_radius=radius)
+    from ..ops.knn import finish
+    from ..parallel.sharded import merge_candidates
+
+    blocks = [slice(lo, min(lo + max_rows, ref.capacity))
+              for lo in range(0, ref.capacity, max_rows)]
+    ops = [build_ref_operand(ref.xyz[b], ref.mask[b]) for b in blocks]
+
+    def search(q, counts):
+        parts = [knn_fused(q, ref.xyz[b], ref.mask[b], k=k, ref_op=op, query_count=counts,
+                           max_radius=radius) for b, op in zip(blocks, ops)]
+        d, i = merge_candidates(torch.cat([d for d, _ in parts], dim=-1),
+                                torch.cat([i + b.start for b, (_, i) in zip(blocks, parts)],
+                                          dim=-1), k)
+        return finish(d, i, None)
+    return search
 
 
 class ICPCarry(NamedTuple):
@@ -167,7 +195,14 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
                          rng: torch.Generator | None = None,
                          grid_corners: BucketGrid | None = None,
                          grid_surface: BucketGrid | None = None):
-    """Everything of `register_frames` around its loop: returns
+    """A lane-batched registration of L feature frames (every tensor with
+    a leading lane axis: frames (L, N, ...), start poses (L, 4) / (L, 3),
+    times (L,)) against one matching buffer, up to its loop.  ``enabled``
+    holds one flag a lane (host bools, or bool tensors: an (L,) tensor
+    or a list of scalars); a lane that is not enabled (init window)
+    keeps its start pose.  ``rng`` draws the uniforms of residual
+    subsampling, when that is on.  The bucket grids over the buffer
+    serve the ``grid`` engine.  Returns
     ``(icp_pass, carry, finish)``, the pass ``ICPCarry -> ICPCarry``,
     the carry before the first pass and ``finish(carry) ->
     RegistrationResult``, the gates after the last.  Neither reads a
@@ -317,35 +352,6 @@ def run_host_loop(icp_pass, carry: ICPCarry, max_loops: int) -> Tuple[ICPCarry, 
         carry = icp_pass(carry)
         loops += 1
     return carry, loops
-
-
-def register_frames(frame_corners: PointBatch, frame_surface: PointBatch,
-                    map_corners: PointBatch, map_surface: PointBatch,
-                    q_last, t_last, time_min, time_max, enabled,
-                    cfg: SlamConfig, q_incre_init=None, t_incre_init=None,
-                    rng: torch.Generator | None = None,
-                    grid_corners: BucketGrid | None = None,
-                    grid_surface: BucketGrid | None = None):
-    """Register L feature frames (every tensor with a leading lane axis:
-    frames (L, N, ...), start poses (L, 4) / (L, 3), times (L,)) against
-    one matching buffer.  ``enabled`` holds one flag a lane (host bools,
-    or bool tensors: an (L,) tensor or a list of scalars); a lane that is
-    not enabled (init window) keeps its start pose.  ``rng`` draws the
-    uniforms of residual subsampling, when that is on.  The bucket grids
-    over the buffer serve the ``grid`` engine.
-
-    Returns ``(result, loops)``: the result with a lane axis on every
-    field (``iterations`` an (L,) tensor) and the number of loop passes,
-    each of which launched the kNN kernel twice.
-    """
-    icp_pass, carry, finish = prepare_registration(
-        frame_corners, frame_surface, map_corners, map_surface, q_last, t_last,
-        time_min, time_max, enabled, cfg, q_incre_init, t_incre_init, rng,
-        grid_corners, grid_surface)
-    loops = 0
-    if not _none_enabled(enabled):
-        carry, loops = run_host_loop(icp_pass, carry, cfg.optimization.icp_maximum_iteration)
-    return finish(carry), loops
 
 
 def lane(result: RegistrationResult, k: int) -> RegistrationResult:

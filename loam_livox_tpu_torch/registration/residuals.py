@@ -17,7 +17,7 @@ squared distance) and ``:351-424`` (planes through neighbours
 
 Every function also takes a leading lane axis: points (L, N, 3) with
 one pose per lane, (L, 4) and (L, 3), as the racing path registers L
-frames at once (`registration.icp.register_frames`).
+frames at once (`registration.icp.prepare_registration`).
 """
 from __future__ import annotations
 

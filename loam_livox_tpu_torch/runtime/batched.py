@@ -7,35 +7,54 @@ L = G·P piece frames (G raw frames, P pieces each, lane k·P + q = frame
 k, piece q) register against the shared matching buffer, each from a
 constant-velocity coast of the state's pose (lane k starts k steps
 ahead, the staleness of the reference's racing workers), then commit in
-time order.  One `registration.icp.register_frames` call does the
-registration: every lane's kNN in one kernel launch per search, the
-solves batched.  The input voxel filter and the commits loop over the
-lanes on the host.
+time order.  One lane-batched registration does the registration: every
+lane's kNN in one kernel launch per search, the solves batched.  The
+input voxel filter and the commits loop over the lanes on the host.
+
+The step is split as the sequential one is (`odometry.prepare_step`,
+`odometry.commit_history`): `prepare_group` up to the ICP loop,
+`commit_lane` a lane's commit up to its matching-buffer update.  The
+plain program (`odometry_step_batched`) runs the loop on the host and
+applies each update by selecting; the frame program
+(`runtime.frame_program`) captures the same functions into one CUDA
+graph a group, the loop as a WHILE node and each update as a SWITCH node.
 """
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Callable, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from ..core import se3
 from ..core.config import SlamConfig
 from ..core.types import FeatureFrame, PointBatch
-from ..registration.icp import RegistrationResult, lane, register_frames
-from .odometry import OdometryState, commit_frame, input_downsample
+from ..registration.icp import (ICPCarry, RegistrationResult, lane, prepare_registration,
+                                run_host_loop)
+from .odometry import (MatchingUpdate, OdometryState, commit_history, input_downsample,
+                       update_matching)
 
 
 def stack_batches(batches: List[PointBatch]) -> PointBatch:
     return PointBatch(*(torch.stack(parts) for parts in zip(*batches)))
 
 
-def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
-                          cfg: SlamConfig
-                          ) -> Tuple[OdometryState, List[RegistrationResult], int]:
-    """Register ``frames`` (time order) in one lane-batched solve against
-    the current matching buffer, then commit them in order.  Returns the
-    state, one result per lane (``iterations`` a device scalar) and the
-    registration's loop passes."""
+class Group(NamedTuple):
+    """A racing group up to its ICP loop (`prepare_group`)."""
+    q_inits: List[torch.Tensor]     # each lane's coasted start pose
+    t_inits: List[torch.Tensor]
+    enabled: torch.Tensor           # (L,) bool: the lane's step is past the init window
+    inputs: list                    # each lane's (corner_in, surf_in) input filters
+    icp_pass: Callable[[ICPCarry], ICPCarry]
+    carry: ICPCarry                 # before the first pass
+    finish: Callable[[ICPCarry], RegistrationResult]
+
+
+def prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamConfig) -> Group:
+    """The lanes' coasted start poses, their enabled flags (device bools
+    from ``state.frame_count + k``), input filters, and the lane-batched
+    registration's pass, first carry and gates
+    (`registration.icp.prepare_registration`).  Reads nothing on the
+    host."""
     n_lanes = len(frames)
     # worker start poses: constant-velocity coast of the entry pose
     q_inits, t_inits = [], []
@@ -45,28 +64,54 @@ def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
         t_inits.append(tk)
         tk = se3.quat_rotate(qk, state.last_t_incre) + tk
         qk = se3.quat_normalize(se3.quat_multiply(qk, state.last_q_incre))
-    enabled = [state.frame_count + k >= cfg.mapping.init_accumulate_frames
-               for k in range(n_lanes)]
-
+    enabled = torch.stack([state.frame_count + k >= cfg.mapping.init_accumulate_frames
+                           for k in range(n_lanes)])
     inputs = [input_downsample(f, cfg) for f in frames]
-    regs, loops = register_frames(
+    icp_pass, carry, finish = prepare_registration(
         stack_batches([c for c, _ in inputs]), stack_batches([s for _, s in inputs]),
         state.map_corners, state.map_surface, torch.stack(q_inits), torch.stack(t_inits),
         torch.stack([f.time_min for f in frames]), torch.stack([f.time_max for f in frames]),
         enabled, cfg, rng=state.rng, grid_corners=state.grid_corners,
         grid_surface=state.grid_surface)
+    return Group(q_inits, t_inits, enabled, inputs, icp_pass, carry, finish)
 
+
+def commit_lane(state: OdometryState, k: int, frame: FeatureFrame, group: Group,
+                regs: RegistrationResult, cfg: SlamConfig
+                ) -> Tuple[OdometryState, RegistrationResult, Optional[MatchingUpdate]]:
+    """Lane ``k``'s commit onto ``state`` (the state after lanes 0..k-1):
+    a rejected lane frozen at the committed pose, then
+    `odometry.commit_history` from the lane's coasted start.  Returns the
+    new state (its matching buffer as it was), the lane's result and the
+    `MatchingUpdate` to apply (None with cell maps, whose commit is
+    whole)."""
+    reg = lane(regs, k)
+    # a rejected lane freezes at the last committed pose, not at its
+    # coasted start (committing the coast would integrate it open-loop)
+    rejected = (reg.enabled & ~reg.accepted)[None]
+    reg = reg._replace(q_w=torch.where(rejected, state.q_w, reg.q_w),
+                       t_w=torch.where(rejected, state.t_w, reg.t_w))
+    return commit_history(state, frame, *group.inputs[k], reg, cfg,
+                          q_base=group.q_inits[k], t_base=group.t_inits[k])
+
+
+def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
+                          cfg: SlamConfig
+                          ) -> Tuple[OdometryState, List[RegistrationResult], int]:
+    """Register ``frames`` (time order) in one lane-batched solve against
+    the current matching buffer, then commit them in order.  Returns the
+    state, one result per lane (``iterations`` a device scalar) and the
+    registration's loop passes."""
+    group = prepare_group(state, frames, cfg)
+    carry, loops = run_host_loop(group.icp_pass, group.carry,
+                                 cfg.optimization.icp_maximum_iteration)
+    regs = group.finish(carry)
     out = []
     touched = None
     for k, frame in enumerate(frames):
-        reg = lane(regs, k)
-        # a rejected lane freezes at the last committed pose, not at its
-        # coasted start (committing the coast would integrate it open-loop)
-        rejected = (reg.enabled & ~reg.accepted)[None]
-        reg = reg._replace(q_w=torch.where(rejected, state.q_w, reg.q_w),
-                           t_w=torch.where(rejected, state.t_w, reg.t_w))
-        state, reg = commit_frame(state, frame, *inputs[k], reg, cfg,
-                                  q_base=q_inits[k], t_base=t_inits[k])
+        state, reg, upd = commit_lane(state, k, frame, group, regs, cfg)
+        if upd is not None:
+            state = update_matching(state, upd, cfg)
         if state.last_touched is not None:
             touched = (state.last_touched if touched is None
                        else touched | state.last_touched)

@@ -235,7 +235,7 @@ def save_pipeline(pipe, directory: str) -> None:
     (`parallel.layout.gather_state`), rank 0 writes, and every rank
     returns once the files are there."""
     pipe.flush()
-    state = pipe.state
+    state = pipe._live()
     if pipe.mesh is None or pipe.mesh.rank == 0:
         os.makedirs(directory, exist_ok=True)
         save_state(state, os.path.join(directory, "odometry"))
@@ -271,7 +271,7 @@ def load_pipeline(directory: str, cfg: SlamConfig, device=None, mesh=None):
     loop_path = os.path.join(directory, "loop_state.npz")
     if pipe.loop_closer is not None and os.path.exists(loop_path):
         pipe.loop_closer.shutdown()
-        pipe.loop_closer = load_loop_state(loop_path, cfg, cell_map=pipe.state.cell_full,
+        pipe.loop_closer = load_loop_state(loop_path, cfg, cell_map=pipe._live().cell_full,
                                            device=pipe.device)
     # frame_count counts odometry steps (pieces); the pipeline's frame
     # index counts raw frames (the JAX rule, checkpoint.py:240-247)
@@ -279,5 +279,5 @@ def load_pipeline(directory: str, cfg: SlamConfig, device=None, mesh=None):
     pieces = (1 if (c.if_motion_deblur or c.odom_mode == 0 or c.lidar_type == "velodyne")
               else max(1, c.piecewise_number))
     accounting.count(SYNCS, "resume")
-    pipe._frame_idx = int(pipe.state.frame_count) // pieces
+    pipe._frame_idx = int(pipe._live().frame_count) // pieces
     return pipe

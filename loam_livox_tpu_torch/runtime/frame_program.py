@@ -1,15 +1,24 @@
-"""The frame program: a raw frame as one CUDA graph launch on the card,
-the counterpart of the JAX package's ``jax.jit(process_raw_frame)``
-(``loam_livox_tpu/runtime/pipeline.py:50-60, 136-138``), whose point is
-one dispatch a frame: launches one by one from Python would dominate at
-real-time rates.
+"""The frame program: a dispatch unit as one CUDA graph launch on the
+card, the counterpart of the JAX package's one jitted program a unit
+(``loam_livox_tpu/runtime/pipeline.py:50-60, 136-238``), whose point is
+one dispatch a unit: launches one by one from Python would dominate at
+real-time rates.  A unit is one of three kinds:
 
-`FrameProgram.run` runs what the plain program (`pipeline.process_raw_frame`)
-runs, the same functions in the same order on the same inputs, so its
-rows and state equal the plain program's bit for bit.  Per shape key
-(the active configuration, whose capacities the schedule sets, and the
-padded input length: jit's static arguments and shapes) it captures,
-at the key's first use:
+* a raw frame (``process_raw_frame``);
+* a chunk of K raw frames run back to back
+  (``process_raw_frames_chunked``, a ``lax.scan`` of the frame body);
+* a racing group of G raw frames, their L = G·P pieces registered in one
+  lane-batched solve (``process_raw_frames_batched``).
+
+Each runs what the plain program (`pipeline.process_raw_frame`,
+`batched.odometry_step_batched`) runs, the same functions in the same
+order on the same inputs, so its rows and state equal the plain
+program's bit for bit.  Per shape key, ``(kind, configuration, padded
+input length)`` and for a chunk or group its frame count (jit's static
+arguments and shapes; the schedule sets the configuration's
+capacities), it captures at the key's first use, each piece a
+``torch.cuda.CUDAGraph(keep_graph=True)`` capture into the key's memory
+pool, in the order they replay.  A frame:
 
     segment 0   front end, source filter, the first step's input filter
                 and registration set-up, its ICP carry written to a
@@ -26,37 +35,55 @@ at the key's first use:
                 configuration appends between rebuilds
     segment k+1 step k+1's set-up
 
-each a ``torch.cuda.CUDAGraph(keep_graph=True)`` capture into one
-memory pool, in the order they replay; `ops.graph_cond.build_frame_graph`
-joins them into ``segment 0 → WHILE{body 0} → commit 0 →
-SWITCH{rebuild 0 | append 0} → segment 1 → …``.  Each WHILE node's
-condition kernel (``csrc/graph_cond.cu``) reads the carry's ``active``
-and pass count on the card: the ``lax.while_loop`` of
-``loam_livox_tpu/registration/icp.py:324-331``.  Each SWITCH node's
-condition kernel picks the first set of the step's two exclusive flags
-(or neither), so only the update taken runs, after one condition launch:
-the ``lax.cond`` of ``loam_livox_tpu/runtime/odometry.py:421-458``,
-where the plain program computes both and selects
-(`runtime.odometry.update_matching`).  Without appends the switch has
-the rebuild alone.
+`ops.graph_cond.build_frame_graph` joins them into ``segment 0 →
+WHILE{body 0} → commit 0 → SWITCH{rebuild 0 | append 0} → segment 1 →
+…``.  Each WHILE node's condition kernel (``csrc/graph_cond.cu``) reads
+the carry's ``active`` and pass count on the card: the
+``lax.while_loop`` of ``loam_livox_tpu/registration/icp.py:324-331``.
+Each SWITCH node's condition kernel picks the first set of the step's
+two exclusive flags (or neither), so only the update taken runs, after
+one condition launch: the ``lax.cond`` of
+``loam_livox_tpu/runtime/odometry.py:421-458``, where the plain program
+computes both and selects (`runtime.odometry.update_matching`).
+Without appends the switch has the rebuild alone.
 
-Everything a frame reads lives in static buffers that the graph's
+A chunk reuses the frame key's captured pieces: its graph places them K
+times, each placement between two small captures of its own, ``load k``
+(the chunk's input slot k copied into the frame's static inputs) and
+``store k`` (the frame's rows copied into the chunk's).  The assembly
+clones every piece and creates a conditional handle for each WHILE and
+SWITCH node it places, so one capture serves K placements; a chunk
+costs one frame capture and 2K small ones.  A group is captured whole:
+
+    segment 0   the G front ends (`pipeline.extract_pieces`) over the
+                group's input slots and `batched.prepare_group`, its
+                L-lane ICP carry written to a static carry
+    body        one L-lane ICP pass, under one WHILE node whose
+                condition votes over the L lanes (every lane re-runs
+                until all have converged, as under ``vmap``)
+    commit k    lane k's commit (`batched.commit_lane`; lane 0's first
+                the gates over the loop's result), its row and flags,
+                then its SWITCH node, k = 0 .. L-1
+
+Everything a unit reads lives in static buffers that the graph's
 addresses point at: the padded points, intensities, mask and the base
-time (a float64 device scalar, so no time is fixed at capture), and the
-state, whose tensors the graph updates in place.  So the state a
-pipeline holds on this path is the program's: a frame changes it where
-it lies (clone it to keep a snapshot).  A capacity growth re-pads the
-state between frames; the next frame's key is new and is captured then,
-and the keys it supersedes (the same configuration and input length at
-other capacities: the schedule only grows) are freed.
+time (a float64 device scalar, so no time is fixed at capture), a slot
+each for a chunk's or group's frames, and the state, whose tensors the
+graph updates in place.  The pipeline reads that state without a copy
+and hands others a copy (`pipeline.OdometryPipeline.state`).  A capacity
+growth re-pads the state between units; the next unit's key is new and
+is captured then, and the keys it supersedes (the same kind,
+configuration, input length and frame count at other capacities: the
+schedule only grows) are freed.
 
 Captures, their seconds and the launches count in
-`core.accounting.GRAPHS`.  A capture or build that fails raises: the
-card never falls back to the plain program for a configuration on the
-slice (`on_slice`).
+`core.accounting.GRAPHS`, in all and by kind.  A capture or build that
+fails raises: the card never falls back to the plain program for a
+configuration on the slice (`on_slice`).
 """
 from __future__ import annotations
 
+import gc
 import time
 from typing import Dict, List, NamedTuple, Tuple
 
@@ -68,19 +95,20 @@ from ..ops import debounce as debounce_op
 from ..ops import graph_cond
 from ..ops import knn_fused as knn_op
 from ..registration.icp import ICPCarry
-from .odometry import (OdometryState, appended_matching, commit_history, prepare_step,
-                       rebuilt_matching)
+from .batched import commit_lane, prepare_group
+from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_history,
+                       prepare_step, rebuilt_matching)
 
 
 def on_slice(cfg: SlamConfig, device: torch.device, mesh=None) -> bool:
     """Whether the frame program runs a pipeline's raw frames: on the
-    card, sequential dispatch, the Livox front end, history matching,
-    the ``knn_fused`` engine, loop closure off, no residual subsampling
-    (its generator is not replayed), no product mesh.  Everything else
-    runs the plain program (`ROADMAP.md` lists those paths)."""
+    card, the Livox front end, history matching, the ``knn_fused``
+    engine, loop closure off, no residual subsampling (its generator is
+    not replayed), no product mesh; sequential, chunked or racing
+    dispatch.  Everything else runs the plain program (`ROADMAP.md`
+    lists those paths)."""
     c, o, p = cfg.common, cfg.optimization, cfg.parallel
     return (device.type == "cuda" and mesh is None and int(p.mesh_devices) <= 1
-            and int(p.frame_batch) <= 1 and int(p.dispatch_chunk) <= 1
             and c.lidar_type == "livox" and int(cfg.mapping.matching_mode) == 0
             and not cfg.loop_closure.if_enable_loop_closure
             and o.correspondence in ("auto", "pallas") and int(o.subsample_residuals) == 0)
@@ -95,12 +123,12 @@ def _leaves(tree) -> List[torch.Tensor]:
     return []
 
 
-def _map(fn, tree):
+def map_tensors(fn, tree):
     """``fn`` over the tensors of a NamedTuple tree (host fields shared)."""
     if isinstance(tree, torch.Tensor):
         return fn(tree)
     if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map(fn, x) for x in tree))
+        return type(tree)(*(map_tensors(fn, x) for x in tree))
     return tree
 
 
@@ -147,10 +175,28 @@ def _warm_up(device: torch.device) -> None:
 
 
 class _Inputs(NamedTuple):
-    pts: torch.Tensor        # (N, 3) float32
-    inten: torch.Tensor      # (N,) float32
-    mask: torch.Tensor       # (N,) bool
-    base_time: torch.Tensor  # () float64
+    pts: torch.Tensor        # (..., N, 3) float32
+    inten: torch.Tensor      # (..., N) float32
+    mask: torch.Tensor       # (..., N) bool
+    base_time: torch.Tensor  # (...) float64
+
+
+def _inputs(device, n_raw: int, lead: tuple = ()) -> _Inputs:
+    """Static input buffers: one raw frame, or with ``lead`` = (K,) a slot
+    a frame."""
+    return _Inputs(torch.zeros(lead + (n_raw, 3), dtype=torch.float32, device=device),
+                   torch.zeros(lead + (n_raw,), dtype=torch.float32, device=device),
+                   torch.zeros(lead + (n_raw,), dtype=torch.bool, device=device),
+                   torch.zeros(lead, dtype=torch.float64, device=device))
+
+
+def _load_slots(slots: _Inputs, frames) -> None:
+    """Copy raw frames ``(pts, inten, mask, base_time)`` into the slots."""
+    for k, (pts, inten, mask, base_time) in enumerate(frames):
+        slots.pts[k].copy_(pts)
+        slots.inten[k].copy_(inten)
+        slots.mask[k].copy_(mask)
+        slots.base_time[k].fill_(float(base_time))
 
 
 def _matching(state: OdometryState) -> tuple:
@@ -158,36 +204,30 @@ def _matching(state: OdometryState) -> tuple:
     return (state.map_corners, state.map_surface, state.grid_corners, state.grid_surface)
 
 
-class _KeyGraph:
-    """The captured graphs of one shape key and their static buffers."""
+class _Pool:
+    """Captures into one graph memory pool, in the order they replay, kept
+    alive with the key that owns them."""
 
-    def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 n_raw: int, n_steps: int):
-        from .pipeline import extract_pieces, trajectory_rows
+    def __init__(self, program: "FrameProgram"):
+        self.program = program
+        self.handle = torch.cuda.graph_pool_handle()
+        self.keep: list = []
 
-        dev = program.device
-        self.inputs = _Inputs(torch.zeros((n_raw, 3), dtype=torch.float32, device=dev),
-                              torch.zeros(n_raw, dtype=torch.float32, device=dev),
-                              torch.zeros(n_raw, dtype=torch.bool, device=dev),
-                              torch.zeros((), dtype=torch.float64, device=dev))
-        self.state = _map(torch.clone, state)
-        self.rows = torch.zeros((n_steps, 10), dtype=torch.float32, device=dev)
-        #: each step's matching-buffer update: (rebuild, append) flags
-        flags = torch.zeros((n_steps, 2), dtype=torch.bool, device=dev)
-        self.last_reg = None
-        #: the captured graphs and all they read, kept alive with the program
-        self._keep: list = []
-        pool = torch.cuda.graph_pool_handle()
-        side = program.stream
-        cur = torch.cuda.current_stream(dev)
-        max_loops = cfg.optimization.icp_maximum_iteration
-        t0 = time.perf_counter()
-
-        def capture(fn):
-            g = torch.cuda.CUDAGraph(keep_graph=True)
-            side.wait_stream(cur)
+    def capture(self, fn) -> int:
+        """Capture ``fn`` on the program's side stream; returns the raw
+        ``cudaGraph_t`` (`graph_cond.Item`'s graph).  The cyclic garbage
+        collector waits until the capture ends: an unreachable graph or
+        pipeline torn down under a capture (a graph destroyed, a pool's
+        memory returned) would invalidate it."""
+        g = torch.cuda.CUDAGraph(keep_graph=True)
+        side = self.program.stream
+        cur = torch.cuda.current_stream(self.program.device)
+        side.wait_stream(cur)
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
             with torch.cuda.stream(side):
-                g.capture_begin(pool=pool, capture_error_mode="thread_local")
+                g.capture_begin(pool=self.handle, capture_error_mode="thread_local")
                 try:
                     fn()
                 except BaseException:
@@ -197,18 +237,66 @@ class _KeyGraph:
                         pass
                     raise
                 g.capture_end()
-            cur.wait_stream(side)
-            self._keep.append(g)
-            return g.raw_cuda_graph()
+        finally:
+            if collecting:
+                gc.enable()
+        cur.wait_stream(side)
+        self.keep.append(g)
+        return g.raw_cuda_graph()
 
-        inp = self.inputs
-        ctx: Dict[str, object] = {}
+
+def _set_flags(flags: torch.Tensor, upd: MatchingUpdate) -> None:
+    """A step's (rebuild, append) row, read by its SWITCH node."""
+    flags[0].copy_(upd.rebuild)
+    if upd.append is not None:
+        flags[1].copy_(upd.append)
+
+
+def _update_switch(pool: _Pool, state: OdometryState, flags: torch.Tensor,
+                   upd: MatchingUpdate, cfg: SlamConfig) -> graph_cond.Item:
+    """The SWITCH item of one step's matching-buffer update over the
+    static ``state``: body 0 the rebuild, body 1 the append of ``upd``'s
+    points where appends run."""
+    def rebuild() -> None:
+        _assign(_matching(state), rebuilt_matching(state, cfg))
+
+    def append() -> None:
+        _assign(_matching(state)[:2], appended_matching(state, upd))
+
+    bodies = (pool.capture(rebuild),)
+    if upd.append is not None:
+        bodies += (pool.capture(append),)
+    return graph_cond.Item(graph_cond.SWITCH, bodies, flags[:len(bodies)])
+
+
+class _FrameKey:
+    """A raw frame's captured pieces at one shape key, their static
+    buffers, and its frame graph, built at its first launch alone (a key
+    captured for a chunk only never builds it)."""
+    kind = "frame"
+
+    def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
+                 n_raw: int, n_steps: int):
+        from .pipeline import extract_pieces, trajectory_rows
+
+        t0 = time.perf_counter()
+        dev = program.device
+        self.device = dev
+        self.pool = pool = _Pool(program)
+        self.inputs = inp = _inputs(dev, n_raw)
+        self.state = map_tensors(torch.clone, state)
+        self.rows = torch.zeros((n_steps, 10), dtype=torch.float32, device=dev)
+        #: each step's matching-buffer update: (rebuild, append) flags
+        flags = torch.zeros((n_steps, 2), dtype=torch.bool, device=dev)
+        self.last_reg = None
+        max_loops = cfg.optimization.icp_maximum_iteration
+        ctx: Dict[object, object] = {}
         carries: List[ICPCarry] = []
 
         def begin(k: int) -> None:
             frame = ctx["frames"][k]
             corner_in, surf_in, icp_pass, carry, finish = prepare_step(self.state, frame, cfg)
-            static = _map(torch.empty_like, carry)
+            static = map_tensors(torch.empty_like, carry)
             carries.append(static)
             _assign(static, carry)
             ctx[k] = (frame, corner_in, surf_in, icp_pass, finish)
@@ -231,108 +319,297 @@ class _KeyGraph:
                 self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
                 program.loop_total.add_(carries[k].loops)
                 _assign(self.state, new)
-                flags[k, 0].copy_(upd.rebuild)
-                if upd.append is not None:
-                    flags[k, 1].copy_(upd.append)
+                _set_flags(flags[k], upd)
                 ctx["upd", k] = upd
                 self.last_reg = reg
             return run
 
-        def rebuild() -> None:
-            _assign(_matching(self.state), rebuilt_matching(self.state, cfg))
-
-        def append(k: int):
-            def run() -> None:
-                _assign(_matching(self.state)[:2], appended_matching(self.state, ctx["upd", k]))
-            return run
-
-        def segment(k: int):
-            return lambda: begin(k)
-
         G = graph_cond
-        items = [G.Item(G.SEGMENT, capture(seg0))]
+        items = [G.Item(G.SEGMENT, pool.capture(seg0))]
         for k in range(n_steps):
-            items.append(G.Item(G.WHILE, capture(body(k)), carries[k].active, carries[k].loops,
-                                max_loops))
-            items.append(G.Item(G.SEGMENT, capture(commit(k))))
-            # body 0 the rebuild, body 1 the append where appends run
-            bodies = (capture(rebuild),)
-            if ctx["upd", k].append is not None:
-                bodies += (capture(append(k)),)
-            items.append(G.Item(G.SWITCH, bodies, flags[k, :len(bodies)]))
+            items.append(G.Item(G.WHILE, pool.capture(body(k)), carries[k].active,
+                                carries[k].loops, max_loops))
+            items.append(G.Item(G.SEGMENT, pool.capture(commit(k))))
+            items.append(_update_switch(pool, self.state, flags[k], ctx["upd", k], cfg))
             if k + 1 < n_steps:
-                items.append(G.Item(G.SEGMENT, capture(segment(k + 1))))
-        #: SWITCH nodes a frame (one a step: the matching update)
-        self.switches = sum(it.kind == G.SWITCH for it in items)
-        self._keep += [ctx, carries, flags]
-        self.graph = G.build_frame_graph(dev, items)
+                items.append(G.Item(G.SEGMENT, pool.capture(lambda k=k: begin(k + 1))))
+        pool.keep += [ctx, carries, flags]
+        #: the pieces in replay order, placed by a frame graph or a chunk's
+        self.items = items
+        self.frames, self.steps = 1, n_steps
+        self.whiles = self.switches = n_steps
+        self._graph = None
         self.capture_s = time.perf_counter() - t0
 
+    @property
+    def graph(self) -> graph_cond.FrameGraph:
+        if self._graph is None:
+            t0 = time.perf_counter()
+            self._graph = graph_cond.build_frame_graph(self.device, self.items)
+            self.capture_s += time.perf_counter() - t0
+        return self._graph
+
+    def load_state(self, state: OdometryState) -> None:
+        """The caller's state into the static state, where it is not
+        already the program's."""
+        if state is not self.state:
+            _assign(self.state, state)
+
     def load(self, state: OdometryState, pts, inten, mask, base_time: float) -> None:
-        """Point the static buffers at this frame: its inputs, and the
-        caller's state where it is not already the program's."""
+        """Point the static buffers at this frame: its inputs and state."""
         inp = self.inputs
         inp.pts.copy_(pts)
         inp.inten.copy_(inten)
         inp.mask.copy_(mask)
         inp.base_time.fill_(float(base_time))
+        self.load_state(state)
+
+    def close(self) -> None:
+        if self._graph is not None:
+            self._graph.close()
+
+
+class _ChunkKey:
+    """K raw frames as one graph: the frame key's pieces placed K times
+    (module doc), with the chunk's input slots and rows."""
+    kind = "chunk"
+
+    def __init__(self, frame: _FrameKey, n_frames: int):
+        t0 = time.perf_counter()
+        self.frame = frame
+        n_raw, n_steps = frame.inputs.pts.shape[0], frame.steps
+        self.slots = slots = _inputs(frame.device, n_raw, (n_frames,))
+        self.rows = torch.zeros((n_frames * n_steps, 10), dtype=torch.float32,
+                                device=frame.device)
+
+        def load(k: int):
+            def run() -> None:
+                for dst, src in zip(frame.inputs, slots):
+                    dst.copy_(src[k])
+            return run
+
+        def store(k: int):
+            return lambda: self.rows[k * n_steps:(k + 1) * n_steps].copy_(frame.rows)
+
+        G = graph_cond
+        items = []
+        for k in range(n_frames):
+            items.append(G.Item(G.SEGMENT, frame.pool.capture(load(k))))
+            items += frame.items
+            items.append(G.Item(G.SEGMENT, frame.pool.capture(store(k))))
+        self.frames, self.steps = n_frames, n_frames * n_steps
+        self.whiles, self.switches = n_frames * frame.whiles, n_frames * frame.switches
+        self.graph = G.build_frame_graph(frame.device, items)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, state: OdometryState, frames) -> None:
+        _load_slots(self.slots, frames)
+        self.frame.load_state(state)
+
+    def close(self) -> None:
+        self.graph.close()
+
+
+class _GroupKey:
+    """G raw frames as one racing group's graph (module doc)."""
+    kind = "group"
+
+    def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
+                 n_raw: int, n_frames: int):
+        from .pipeline import extract_pieces, trajectory_rows
+
+        t0 = time.perf_counter()
+        dev = program.device
+        self.pool = pool = _Pool(program)
+        self.slots = slots = _inputs(dev, n_raw, (n_frames,))
+        self.state = map_tensors(torch.clone, state)
+        self.last_reg = None
+        ctx: Dict[object, object] = {}
+
+        def seg0() -> None:
+            frames = [piece for g in range(n_frames)
+                      for piece in extract_pieces(slots.pts[g], slots.inten[g], slots.mask[g],
+                                                  slots.base_time[g], cfg)]
+            group = prepare_group(self.state, frames, cfg)
+            carry = map_tensors(torch.empty_like, group.carry)
+            _assign(carry, group.carry)
+            ctx.update(frames=frames, group=group, carry=carry)
+
+        def body() -> None:
+            _assign(ctx["carry"], ctx["group"].icp_pass(ctx["carry"]))
+
+        def commit(k: int):
+            def run() -> None:
+                group, carry, frame = ctx["group"], ctx["carry"], ctx["frames"][k]
+                if k == 0:
+                    ctx["regs"] = group.finish(carry)
+                    program.loop_total.add_(carry.loops)
+                    program.group_loop_total.add_(carry.loops)
+                new, reg, upd = commit_lane(self.state, k, frame, group, ctx["regs"], cfg)
+                self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
+                _assign(self.state, new)
+                _set_flags(flags[k], upd)
+                ctx["upd", k] = upd
+                self.last_reg = reg
+            return run
+
+        G = graph_cond
+        items = [G.Item(G.SEGMENT, pool.capture(seg0))]
+        n_lanes = len(ctx["frames"])
+        self.rows = torch.zeros((n_lanes, 10), dtype=torch.float32, device=dev)
+        flags = torch.zeros((n_lanes, 2), dtype=torch.bool, device=dev)
+        carry = ctx["carry"]
+        items.append(G.Item(G.WHILE, pool.capture(body), carry.active, carry.loops,
+                            cfg.optimization.icp_maximum_iteration))
+        for k in range(n_lanes):
+            items.append(G.Item(G.SEGMENT, pool.capture(commit(k))))
+            items.append(_update_switch(pool, self.state, flags[k], ctx["upd", k], cfg))
+        pool.keep += [ctx, flags]
+        self.frames, self.steps = n_frames, n_lanes
+        self.whiles, self.switches = 1, n_lanes
+        self.graph = G.build_frame_graph(dev, items)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, state: OdometryState, frames) -> None:
+        _load_slots(self.slots, frames)
         if state is not self.state:
             _assign(self.state, state)
 
+    def close(self) -> None:
+        self.graph.close()
+
 
 class FrameProgram:
-    """One pipeline's frame graphs, one a shape key (module doc)."""
+    """One pipeline's unit graphs, one a shape key (module doc)."""
 
     def __init__(self, device: torch.device):
         self.device = device
         self.stream = torch.cuda.Stream(device)
-        self._graphs: Dict[Tuple[SlamConfig, int], _KeyGraph] = {}
-        self._captured: List[Tuple[Tuple[SlamConfig, int], dict]] = []
+        self._graphs: Dict[tuple, object] = {}
+        self._captured: List[Tuple[tuple, dict]] = []
         #: ICP passes run by the replays, summed on the card
         self.loop_total = torch.zeros((), dtype=torch.int64, device=device)
+        #: the racing groups' share of them
+        self.group_loop_total = torch.zeros((), dtype=torch.int64, device=device)
 
     def run(self, state: OdometryState, pts, inten, mask, base_time: float, cfg: SlamConfig,
             n_steps: int) -> Tuple[OdometryState, torch.Tensor, object]:
         """One raw frame of ``n_steps`` odometry steps at ``cfg``:
         returns the new state (the program's static state), the frame's
         (n_steps, 10) trajectory rows (a copy) and its last registration
-        (valid until the next frame)."""
-        key = (cfg, pts.shape[0])
+        (the program's: the next unit overwrites it)."""
+        n_raw = pts.shape[0]
+        g = self._key(("frame", cfg, n_raw),
+                      lambda: _FrameKey(self, state, cfg, n_raw, n_steps), build=True)
+        g.load(state, pts, inten, mask, base_time)
+        self._launch(("frame", cfg, n_raw), g.graph)
+        return g.state, g.rows.clone(), g.last_reg
+
+    def run_chunk(self, state: OdometryState, frames, cfg: SlamConfig, n_steps: int
+                  ) -> Tuple[OdometryState, torch.Tensor, object]:
+        """K raw frames ``(pts, inten, mask, base_time)`` back to back, one
+        launch: the state, the (K·n_steps, 10) rows and the last
+        registration, as `run` returns them."""
+        n_raw = frames[0][0].shape[0]
+        key = ("chunk", cfg, n_raw, len(frames))
         g = self._graphs.get(key)
         if g is None:
             self._drop_superseded(key)
-            _warm_up(self.device)
-            g = _KeyGraph(self, state, cfg, pts.shape[0], n_steps)
-            self._graphs[key] = g
-            caps = cfg.capacity
-            self._captured.append((key, {
-                "map_surf_capacity": caps.map_surf_capacity,
-                "map_corner_capacity": caps.map_corner_capacity,
-                "hist_surf_capacity": caps.hist_surf_capacity,
-                "max_surface_ds": caps.max_surface_ds, "n_raw": pts.shape[0],
-                "steps": n_steps, "switches": g.switches, "capture_s": g.capture_s,
-                "cond_nodes": g.graph.cond_nodes}))
-            accounting.GRAPHS["graph_capture"] += 1
-            accounting.GRAPHS["graph_capture_s"] += g.capture_s
-        g.load(state, pts, inten, mask, base_time)
-        g.graph.launch()
-        accounting.GRAPHS["graph_launch"] += 1
+            frame = self._key(("frame", cfg, n_raw),
+                              lambda: _FrameKey(self, state, cfg, n_raw, n_steps))
+            g = self._key(key, lambda: _ChunkKey(frame, len(frames)))
+        g.load(state, frames)
+        self._launch(key, g.graph)
+        return g.frame.state, g.rows.clone(), g.frame.last_reg
+
+    def run_group(self, state: OdometryState, frames, cfg: SlamConfig
+                  ) -> Tuple[OdometryState, torch.Tensor, object]:
+        """G raw frames as one racing group, one launch: the state, the
+        (G·P, 10) rows and the last lane's registration, as `run` returns
+        them."""
+        n_raw = frames[0][0].shape[0]
+        key = ("group", cfg, n_raw, len(frames))
+        g = self._key(key, lambda: _GroupKey(self, state, cfg, n_raw, len(frames)))
+        g.load(state, frames)
+        self._launch(key, g.graph)
         return g.state, g.rows.clone(), g.last_reg
 
-    def _drop_superseded(self, key: Tuple[SlamConfig, int]) -> None:
-        """Free the keys of ``key``'s configuration and input length at
-        other capacities: the schedule only grows, so they never replay."""
-        cfg, n_raw = key
+    def _key(self, key: tuple, make, build: bool = False):
+        """The key's graphs, captured by ``make`` at its first use and
+        recorded: capacities, shape, nodes, capture seconds, and the
+        device memory the card gave up while it was made (new pool
+        segments, static buffers and the graph itself; memory the caching
+        allocator already held is reused unseen)."""
+        g = self._graphs.get(key)
+        if g is not None:
+            return g
+        self._drop_superseded(key)
+        _warm_up(self.device)
+        # the pool's segments, the static buffers and the graph's own
+        # memory are allocated before their calls return
+        free = torch.cuda.mem_get_info(self.device)[0]
+        g = make()
+        if build:
+            g.graph
+        used = free - torch.cuda.mem_get_info(self.device)[0]
+        self._graphs[key] = g
+        caps = key[1].capacity
+        self._captured.append((key, {
+            "kind": g.kind, "map_surf_capacity": caps.map_surf_capacity,
+            "map_corner_capacity": caps.map_corner_capacity,
+            "hist_surf_capacity": caps.hist_surf_capacity,
+            "max_surface_ds": caps.max_surface_ds, "n_raw": key[2], "frames": g.frames,
+            "steps": g.steps, "whiles": g.whiles, "switches": g.switches,
+            "capture_s": g.capture_s, "device_mb": used / 2 ** 20, "launches": 0}))
+        accounting.GRAPHS["graph_capture"] += 1
+        accounting.GRAPHS[f"capture_{g.kind}"] += 1
+        accounting.GRAPHS["graph_capture_s"] += g.capture_s
+        return g
+
+    def _launch(self, key: tuple, graph: graph_cond.FrameGraph) -> None:
+        graph.launch()
+        for k, entry in reversed(self._captured):
+            if k == key:
+                entry["launches"] += 1
+                break
+        accounting.GRAPHS["graph_launch"] += 1
+        accounting.GRAPHS[f"launch_{key[0]}"] += 1
+
+    def _drop_superseded(self, key: tuple) -> None:
+        """Free the keys of ``key``'s kind, configuration, input length
+        and frame count at other capacities: the schedule only grows, so
+        they never replay.  (A chunk key keeps the frame key it places
+        alive until it is freed itself.)"""
+        cfg = key[1]
         for old in [k for k in self._graphs
-                    if k[1] == n_raw and k[0].replace(capacity=cfg.capacity) == cfg]:
-            self._graphs.pop(old).graph.close()
+                    if k != key and k[0] == key[0] and k[2:] == key[2:]
+                    and k[1].replace(capacity=cfg.capacity) == cfg]:
+            self._graphs.pop(old).close()
 
     def loop_passes(self) -> int:
         """ICP passes the replays ran (one host read)."""
         return int(self.loop_total)
 
+    def group_passes(self) -> int:
+        """The racing groups' share of `loop_passes` (one host read)."""
+        return int(self.group_loop_total)
+
     def summary(self) -> List[dict]:
-        """Each key captured, in order: its capacities, input length,
-        steps, SWITCH nodes, capture seconds and condition kernels placed, and whether
-        it is still held (a superseded key is freed)."""
-        return [{**c, "held": key in self._graphs} for key, c in self._captured]
+        """Each key captured, in order: its kind, capacities, input length,
+        frames, steps, WHILE and SWITCH nodes a launch, capture seconds,
+        device memory (`_key`), launches, whether it is still held (a
+        superseded key is freed) and, where held, the bytes its graph
+        pool's segments hold now (from the allocator's snapshot; a chunk
+        places its frame key's pool and has none of its own)."""
+        pools = {}
+        for seg in torch.cuda.memory_snapshot():
+            pool = tuple(seg.get("segment_pool_id", ()))
+            pools[pool] = pools.get(pool, 0) + seg["total_size"]
+        out = []
+        for key, c in self._captured:
+            g = self._graphs.get(key)
+            pool = getattr(g, "pool", None)
+            out.append({**c, "held": g is not None,
+                        "pool_mb": (None if g is None else 0.0 if pool is None
+                                    else pools.get(tuple(pool.handle), 0) / 2 ** 20)})
+        return out

@@ -83,10 +83,13 @@ end, history matching, the ``knn_fused`` engine, loop closure off) runs
 each raw frame as one CUDA graph launch (`runtime.frame_program`), the
 counterpart of the JAX package's one jitted program a frame; its rows,
 state and iterations equal the plain program's (`process_raw_frame`)
-bit for bit.  The choice depends on the device and the configuration
-only.  Every other path, and every path on the CPU, runs the plain
-program.  The pipeline's `state` on the graph path is the program's
-static state: each frame updates it in place.
+bit for bit.  The frame program also runs a chunk (one graph launch a
+chunk of K frames) and a racing group (one launch a group).  The choice
+depends on the device and the configuration only.  Every other path,
+and every path on the CPU, runs the plain program.  On the graph path
+the program updates its static state in place; `state` hands a reader
+outside the pipeline a copy of it, so that a state once read stays as
+it was, as the JAX pipeline's new arrays do.
 
 Host-sync audit (a sync drains the launch queue):
 
@@ -154,7 +157,7 @@ from ..utils import logging as L
 from . import capacity_schedule, checkpoint, odometry
 from .batched import odometry_step_batched
 from .capacity_schedule import CapacityScheduler, schedule_active
-from .frame_program import FrameProgram, on_slice
+from .frame_program import FrameProgram, map_tensors, on_slice
 from .loop_service import LoopCloser
 from .odometry import OdometryState, init_state, odometry_step
 
@@ -355,7 +358,7 @@ class OdometryPipeline:
         self.program: Optional[FrameProgram] = (
             FrameProgram(self.device) if on_slice(cfg, self.device, mesh) else None)
         self.raced_groups = 0
-        self.raced_loop_iterations = 0    # the batched loops' share
+        self._raced_loop_iterations = 0   # the plain program's batched loops
         self.fallback_groups = 0
         self._frame_idx = 0               # raw frames run
         self.loop_closer: Optional[LoopCloser] = None
@@ -371,12 +374,30 @@ class OdometryPipeline:
         return self._loop_iterations + graph
 
     @property
-    def state(self) -> OdometryState:
-        """The odometry state; in product mode gathered from the ranks'
-        slices (a collective: every rank reads it at the same point)."""
+    def raced_loop_iterations(self) -> int:
+        """The racing groups' share of `loop_iterations`: one batched loop
+        a group (on the frame program summed on the card)."""
+        graph = self.program.group_passes() if self.program is not None else 0
+        return self._raced_loop_iterations + graph
+
+    def _live(self) -> OdometryState:
+        """The state as the pipeline's own code reads it: on the frame
+        program its static state itself, no copy; in product mode
+        gathered from the ranks' slices (a collective)."""
         if self.mesh is None:
             return self._state
         return gather_state(self._state, self._axes, self.mesh)
+
+    @property
+    def state(self) -> OdometryState:
+        """The odometry state; in product mode gathered from the ranks'
+        slices (a collective: every rank reads it at the same point).
+        Where the frame program holds it, a copy: the next frame updates
+        the program's static state in place, never a state read here.
+        A state set here is copied into the static state at the next
+        frame."""
+        state = self._live()
+        return state if self.program is None else map_tensors(torch.clone, state)
 
     @state.setter
     def state(self, state: OdometryState) -> None:
@@ -446,7 +467,7 @@ class OdometryPipeline:
         self._sched_countdown -= 1
         if self._sched_countdown > 0:
             return
-        self.state, self.cfg_active, grew = self.scheduler.maybe_grow(self.state)
+        self.state, self.cfg_active, grew = self.scheduler.maybe_grow(self._live())
         if grew:
             self.ladder.append((self._units, self.scheduler.scale))
             self._sched_interval = 4
@@ -464,10 +485,10 @@ class OdometryPipeline:
         returns its unit, not yet queued."""
         if self.program is not None:
             self.state, rows, last_reg = self.program.run(
-                self.state, pts, inten, mask, base_time, self.cfg_active,
+                self._live(), pts, inten, mask, base_time, self.cfg_active,
                 steps_per_frame(self.cfg_active))
             return self._unit(rows, last_reg)
-        self.state, regs, frames = process_raw_frame(self.state, pts, inten, mask,
+        self.state, regs, frames = process_raw_frame(self._live(), pts, inten, mask,
                                                      base_time, self.cfg_active)
         self._loop_iterations += sum(r.iterations for r in regs)
         return self._unit(trajectory_rows(regs, frames), regs[-1])
@@ -483,7 +504,7 @@ class OdometryPipeline:
         run (the JAX package parks one entry a frame, a chunk or a raced
         group, indexed by its first frame); then count the frames."""
         if self.loop_closer is not None and not self.loop_closer.closed:
-            st = self.state
+            st = self._live()
             self.loop_closer.on_frame(st.cell_full, st.last_touched, st.q_w, st.t_w,
                                       self._frame_idx)
         self._frame_idx += n_frames
@@ -494,29 +515,37 @@ class OdometryPipeline:
         like a raw frame's.  Frames given here bypass any chunk or group
         that `process_raw` is filling."""
         self._activate()
-        self.state, reg = odometry_step(self.state, frame, self.cfg_active)
+        self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
         self._loop_iterations += reg.iterations
         self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
         self._maybe_grow_capacity()
 
     def _dispatch_chunk(self) -> None:
-        """The buffered raw frames back to back; the loop service gets one
-        entry with the OR of their touched masks (the JAX package's chunk
-        scan, runtime/pipeline.py:162-178)."""
+        """The buffered raw frames back to back, on the card's frame
+        program as one graph launch; the loop service gets one entry with
+        the OR of their touched masks (the JAX package's chunk scan,
+        runtime/pipeline.py:162-178)."""
         buf, self._buf = self._buf, []
+        if self.program is not None:
+            self.state, rows, last_reg = self.program.run_chunk(
+                self._live(), buf, self.cfg_active, steps_per_frame(self.cfg_active))
+            self._pending.append(self._unit(rows, last_reg))
+            self._feed_loop(len(buf))
+            return
         touched = None          # stays None without loop closure
         units = []
         for frame in buf:
             units.append(self._run_frame(*frame))
-            mask = self.state.last_touched
+            mask = self._live().last_touched
             touched = mask if touched is None else touched | mask
-        self.state = self.state._replace(last_touched=touched)
+        self.state = self._live()._replace(last_touched=touched)
         self._pending.append(self._unit(torch.cat([u.rows for u in units]), units[-1].reg))
         self._feed_loop(len(buf))
 
     def _dispatch_group(self) -> None:
-        """The buffered raw frames as one racing group, or sequentially
-        when the motion guard trips."""
+        """The buffered raw frames as one racing group (on the card's frame
+        program one graph launch), or sequentially when the motion guard
+        trips."""
         buf, self._buf = self._buf, []
         guard = self.cfg.parallel.batch_motion_guard_t
         if guard > 0 and self._last_motion > guard:
@@ -526,10 +555,16 @@ class OdometryPipeline:
                 self._feed_loop(1)
             return
         self.raced_groups += 1
+        if self.program is not None:
+            self.state, rows, last_reg = self.program.run_group(self._live(), buf,
+                                                                self.cfg_active)
+            self._pending.append(self._unit(rows, last_reg))
+            self._feed_loop(len(buf))
+            return
         frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg_active)]
-        self.state, regs, loops = odometry_step_batched(self.state, frames, self.cfg_active)
+        self.state, regs, loops = odometry_step_batched(self._live(), frames, self.cfg_active)
         self._loop_iterations += loops
-        self.raced_loop_iterations += loops
+        self._raced_loop_iterations += loops
         self._pending.append(self._unit(trajectory_rows(regs, frames), regs[-1]))
         self._feed_loop(len(buf))
 
@@ -605,7 +640,7 @@ class OdometryPipeline:
         raises if no loop was accepted."""
         if self.loop_closer is None or self.loop_closer.result is None:
             raise RuntimeError("no accepted loop closure to refine from")
-        return self.loop_closer.corrected_map(self.state.cell_full, stride=stride,
+        return self.loop_closer.corrected_map(self._live().cell_full, stride=stride,
                                               resolution=resolution)
 
     def get_surround_map(self, radius: float | None = None) -> np.ndarray:
@@ -618,7 +653,7 @@ class OdometryPipeline:
 
         mp = self.cfg.mapping
         radius = radius or max(mp.maximum_search_range_surface, 100.0)
-        st = self.state
+        st = self._live()
         if st.cell_full is not None:
             batch = gather_cell_points(st.cell_full, cells_in_radius(st.cell_full, st.t_w, radius))
         else:

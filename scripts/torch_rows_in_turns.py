@@ -24,6 +24,15 @@ of the same configuration (the kernels' first launches):
                       branched on the host (one read of its flags a
                       step, the branch taken alone), where the checkout
                       computes both and selects: what that select costs
+    racing            the shipped racing profile (``realtime_racing_profile``:
+                      3 raw frames x 3 pieces a group, the motion guard
+                      on) at the configured capacities, one graph launch
+                      a raced group where the checkout has one
+    racing_plain      the same through the plain program
+    chunked           ``main_fixed`` in chunks of 8 frames
+                      (``parallel/dispatch_chunk``), one graph launch a
+                      chunk where the checkout has one
+    chunked_plain     the same through the plain program
 
 A row's time runs from the pipeline's construction to its flush, graph
 captures included.  Prints one JSON line a turn and a summary line with
@@ -43,7 +52,8 @@ import numpy as np
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_branched")
+ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_branched",
+        "racing", "racing_plain", "chunked", "chunked_plain")
 
 
 def child(root: str, n_frames: int, labels) -> dict:
@@ -53,6 +63,7 @@ def child(root: str, n_frames: int, labels) -> dict:
     from loam_livox_tpu_torch.core import config as C
     from loam_livox_tpu_torch.core.types import to_device
     from loam_livox_tpu_torch.io.simulator import LivoxSimulator, SimConfig, Trajectory
+    from loam_livox_tpu_torch.runtime import pipeline as P
     from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
 
     import loam_livox_tpu_torch
@@ -75,6 +86,7 @@ def child(root: str, n_frames: int, labels) -> dict:
 
     def run(cfg_row, plain, batch):
         torch.cuda.synchronize()
+        P.reset_host_syncs()
         t0 = time.perf_counter()
         pipe = OdometryPipeline(cfg_row, device=dev)
         if plain:
@@ -89,6 +101,11 @@ def child(root: str, n_frames: int, labels) -> dict:
             "dense": (cfg.replace(optimization={"correspondence": "dense"}), False),
             "grid": (cfg.replace(optimization={"correspondence": "grid"}), False),
             "main_fixed_plain_branched": (cfg, True)}
+    racing = C.realtime_racing_profile().replace(mapping={"init_accumulate_frames": 10},
+                                                 capacity={"auto_schedule": 0})
+    chunked = cfg.replace(parallel={"dispatch_chunk": 8})
+    rows.update(racing=(racing, False), racing_plain=(racing, True),
+                chunked=(chunked, False), chunked_plain=(chunked, True))
     out = {"root": root, "has_frame_program": hasattr(OdometryPipeline(cfg, device=dev),
                                                        "program")}
     from loam_livox_tpu_torch.runtime import odometry as O
@@ -122,7 +139,8 @@ def child(root: str, n_frames: int, labels) -> dict:
                 O.update_matching = selected
         out[label] = {"fps": n_frames / wall, "wall_s": wall,
                       "iterations": int(sum(pipe.iterations)),
-                      "accepted": int(sum(pipe.trajectory.accepted))}
+                      "accepted": int(sum(pipe.trajectory.accepted)),
+                      "graph_launches": P.graph_counts()["graph_launch"]}
     return out
 
 

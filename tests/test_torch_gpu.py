@@ -698,20 +698,92 @@ def test_debounce_kernel_equals_plain(cuda):
             assert torch.equal(s_k, s_p) and int(k_k) == int(k_p), (ns, trial)
 
 
-def test_debounce_raises_past_one_blocks_shared_memory(cuda):
-    """A table whose shared memory one block cannot hold raises in the
-    wrapper, and the next launch is unaffected."""
+@pytest.mark.parametrize("ns", [1 << 14, 1 << 15])
+def test_debounce_past_shared_memory_equals_plain(cuda, ns):
+    """A table whose tables one block's shared memory cannot hold (past
+    ~11,900 slots on the H100) runs the kernel's global-memory form, bit
+    for bit the plain version (`debounce_tables`: random, alternating
+    kinds, the longest chain, one kept, empty and overfull); the next
+    launch at 512 slots takes the shared form."""
     from loam_livox_tpu_torch.ops import debounce as db
 
-    ns = 1 << 15                                # ~0.6 MB of tables
-    cand = torch.arange(ns, dtype=torch.int64, device=cuda)
-    edge = torch.zeros(ns, dtype=torch.bool, device=cuda)
-    with pytest.raises(RuntimeError, match="launch failed"):
-        db.debounce(cand, edge, ns, torch.tensor(ns, device=cuda), 3)
-    args = (cand[:512], edge[:512], 512, torch.tensor(512, device=cuda), 3)
+    assert db.scratch_bytes(ns, cuda if cuda.index is not None
+                            else torch.device("cuda", torch.cuda.current_device())) > 0
+    rng = np.random.default_rng(ns)
+    for trial, (cand, edge, n, n_valid, gap) in enumerate(debounce_tables(rng, ns, 3 * ns)):
+        args = (torch.from_numpy(cand).to(cuda), torch.from_numpy(edge).to(cuda), n,
+                torch.tensor(n_valid, device=cuda), gap)
+        runs = db.runs.read()
+        s_k, k_k = db.debounce(*args)
+        s_p, k_p = db.debounce_plain(*args)
+        assert torch.equal(s_k, s_p) and int(k_k) == int(k_p), trial
+        assert db.runs.read() == runs + 1          # the kernel ran, not a plain route
+    cand = torch.arange(512, dtype=torch.int64, device=cuda)
+    args = (cand, torch.zeros(512, dtype=torch.bool, device=cuda), 512,
+            torch.tensor(512, device=cuda), 3)
     s_k, k_k = db.debounce(*args)
     s_p, k_p = db.debounce_plain(*args)
     assert torch.equal(s_k, s_p) and int(k_k) == int(k_p)
+
+
+def test_front_end_past_shared_memory_equals_cpu(cuda):
+    """The Livox front end at ``max_splits`` 16,384 (the debounce's global
+    form) on the card against the CPU: split table, kept count and the
+    selected features equal."""
+    from chip_smoke import simulate
+    from loam_livox_tpu_torch.frontend import livox
+
+    cfg = SlamConfig().replace(capacity={"max_splits": 1 << 14})
+    _, host = simulate(1, 10000, 2)
+    xyz, inten, t0 = host[0]
+    n = cfg.capacity.max_raw_points
+    pts, it, m = np.zeros((n, 3), np.float32), np.zeros(n, np.float32), np.zeros(n, bool)
+    pts[:len(xyz)], it[:len(xyz)], m[:len(xyz)] = xyz, inten, True
+    out = {}
+    for dev in ("cpu", cuda):
+        tables = []
+        real = livox.debounce
+        livox.debounce = lambda *a: tables.append(real(*a)) or tables[-1]
+        try:
+            _, _, frames = livox.extract_frame(
+                *(torch.from_numpy(a).to(dev) for a in (pts, it, m)), t0,
+                cfg.feature_extraction, cfg.capacity)
+        finally:
+            livox.debounce = real
+        out[str(dev)] = (tables[0], frames[0])
+    (s_c, k_c), fr_c = out["cpu"]
+    (s_g, k_g), fr_g = out[str(cuda)]
+    assert s_c.shape == (1 << 14,) and torch.equal(s_g.cpu(), s_c) and int(k_g) == int(k_c)
+    for name in ("corners", "surface"):
+        a, b = getattr(fr_g, name), getattr(fr_c, name)
+        assert torch.equal(a.mask.cpu(), b.mask) and torch.equal(a.xyz.cpu(), b.xyz), name
+
+
+def test_split_search_past_the_kernels_rows_equals_plain(cuda):
+    """A 2,000,000-row buffer, past `knn_fused.max_ref_rows(5)`: the
+    searcher runs the kernel on row blocks and merges them, bit for bit
+    the plain search of the whole buffer, with valid rows in every
+    block."""
+    from loam_livox_tpu_torch.parallel.mesh import set_active_mesh
+    from loam_livox_tpu_torch.registration import icp
+
+    set_active_mesh(None)           # no product mesh left by an earlier test
+    rng = np.random.default_rng(21)
+    m = 2_000_000
+    assert m > kf.max_ref_rows(5)
+    xyz = rng.uniform(-30, 30, (m, 3)).astype(np.float32)
+    mask = rng.random(m) < 0.3
+    q = (xyz[rng.integers(0, m, 256)] + rng.normal(0, 0.5, (256, 3))).astype(np.float32)
+    ref = PointBatch(xyz=torch.from_numpy(xyz).to(cuda), time=torch.zeros(m, device=cuda),
+                     mask=torch.from_numpy(mask).to(cuda))
+    q = torch.from_numpy(q).to(cuda)
+    count = torch.tensor(240, dtype=torch.int32, device=cuda)
+    runs = kf.runs.read()
+    d, i = icp._searcher("pallas", ref, None, 5, 2.0, 1024)(q, count)
+    assert kf.runs.read() - runs == 2            # one launch a block
+    dp, ip = knn(q, ref.xyz, ref.mask, k=5, query_count=240, max_radius=2.0)
+    assert torch.equal(d, dp) and torch.equal(i, ip)
+    assert (i >= kf.max_ref_rows(5)).any()
 
 
 def test_loop_condition_kernel_equals_plain(cuda):
@@ -923,6 +995,133 @@ def test_capture_makes_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode("default")
     pipe.flush()
     assert len(pipe.trajectory.times) == 5 and sum(pipe.iterations) > 0
+
+
+# ---- chunked and racing dispatch on the frame program -----------------------
+
+def _units(cfg, n_frames):
+    """Raw frames a pipeline of ``cfg`` dispatches as one unit."""
+    par = cfg.parallel
+    return max(int(par.frame_batch), int(par.dispatch_chunk), 1)
+
+
+def test_frame_program_chunked_equals_plain_across_a_growth(cuda):
+    """Chunks of 4 (22 frames: five chunks, then a tail of 2 at `flush`)
+    with the capacity schedule, which grows at the fourth chunk: one
+    graph launch a chunk, the frame captured once a tier and placed four
+    (or two) times, no ICP-exit or admission read, and rows, iterations
+    and every state tensor bit-equal to the plain program's."""
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 6},
+                               parallel={"dispatch_chunk": 4})
+    (g, sg, cg), (p, sp, cp) = _graph_and_plain(cuda, cfg, 22)
+    assert g.program is not None and len(g.ladder) == 1 and g.ladder == p.ladder
+    assert cg["graph_launch"] == cg["launch_chunk"] == 6 and cg["launch_frame"] == 0
+    keys = g.program.summary()
+    assert [(k["kind"], k["frames"]) for k in keys] == [
+        ("frame", 1), ("chunk", 4), ("frame", 1), ("chunk", 4), ("chunk", 2)]
+    assert [k["launches"] for k in keys] == [0, 4, 0, 1, 1]
+    assert cg["graph_capture"] == len(keys) and cg["capture_frame"] == 2
+    assert {k for k, v in sg.items() if v} == {"schedule", "drain"}
+    assert sp["icp_exit"] > 0 and cp["graph_launch"] == 0
+    _assert_runs_equal(g, p)
+
+
+def test_frame_program_racing_equals_plain_across_a_growth(cuda):
+    """The realtime racing profile (3 raw frames x 3 pieces a group, 9
+    lanes, the motion guard on) over 18 frames with the schedule, its
+    watermark lowered to 0.2 so that it grows at the fourth group (at
+    0.7 this stream's fills stay under it): one graph launch a raced
+    group (and one a fallen-back frame), the group's passes counted on
+    the card, no ICP-exit or admission read, and rows, iterations, passes
+    and every state tensor bit-equal to the plain program's."""
+    from loam_livox_tpu_torch.core.config import realtime_racing_profile
+
+    cfg = realtime_racing_profile().replace(mapping={"init_accumulate_frames": 4},
+                                            capacity={"schedule_watermark": 0.2})
+    (g, sg, cg), (p, sp, cp) = _graph_and_plain(cuda, cfg, 18)
+    assert g.program is not None and len(g.ladder) >= 1 and g.ladder == p.ladder
+    assert (g.raced_groups, g.fallback_groups) == (p.raced_groups, p.fallback_groups)
+    assert cg["launch_group"] == g.raced_groups > 0
+    assert cg["launch_frame"] == 3 * g.fallback_groups
+    assert g.raced_loop_iterations == p.raced_loop_iterations > 0
+    assert g.loop_iterations == p.loop_iterations
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0
+    assert sg["drain"] == sp["drain"] and sg["schedule"] == sp["schedule"]
+    _assert_runs_equal(g, p)
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["frame", "chunk", "group"])
+def test_unit_capture_makes_no_host_sync(cuda, parallel):
+    """Each kind of unit captured and replayed under torch's sync debug
+    mode "error": a read on the host anywhere in the unit would raise
+    (racing's own read of drained rows comes after the queue fills, past
+    these frames)."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0},
+                               common={"maximum_parallel_thread": 3}, parallel=parallel)
+    n = 4 * _units(cfg, 0) if parallel else 5
+    _, host = simulate(n, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    assert pipe.program is not None
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for pts, inten, t0, mask in frames[:3 * _units(cfg, 0)]:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for pts, inten, t0, mask in frames[3 * _units(cfg, 0):]:
+        pipe.process_raw(pts, inten, t0, mask=mask)
+    pipe.flush()
+    kind = "group" if "frame_batch" in parallel else "chunk" if parallel else "frame"
+    assert [k["kind"] for k in pipe.program.summary()][-1] == kind
+    assert len(pipe.trajectory.times) == len(frames)       # one piece a frame
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["frame", "chunk", "group"])
+def test_a_state_read_is_not_changed_by_the_next_unit(cuda, parallel):
+    """`pipe.state` read after one unit is a snapshot: the next unit
+    updates the program's static state in place, never the state read;
+    and a state set on the pipeline is what the next unit starts from."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    base = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                                capacity={"auto_schedule": 0})
+    # racing: the host reads each group's rows at once, and the motion
+    # guard is off, so both pipelines below run the same groups
+    cfg = base.replace(parallel={**parallel, "batch_motion_guard_t": 0.0},
+                       common={"maximum_parallel_thread": 1})
+    k = _units(cfg, 0)
+    _, host = simulate(3 * k, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    for f in frames[:2 * k]:
+        pipe.process_raw(f[0], f[1], f[2], mask=f[3])
+    held = pipe.state
+    copy = {n: v.clone() for n, v in _state_leaves(held).items()}
+    for f in frames[2 * k:]:
+        pipe.process_raw(f[0], f[1], f[2], mask=f[3])
+    pipe.flush()
+    after = _state_leaves(pipe.state)
+    assert int(pipe.state.frame_count) > int(copy[".frame_count"])
+    assert any(not torch.equal(after[n], copy[n]) for n in copy)
+    for n, v in _state_leaves(held).items():
+        assert torch.equal(v, copy[n]), n
+    # a state set from outside: the next unit starts from it
+    other = OdometryPipeline(cfg, device=cuda)
+    other.state = held
+    for f in frames[2 * k:]:
+        other.process_raw(f[0], f[1], f[2], mask=f[3])
+    other.flush()
+    for n, v in _state_leaves(other.state).items():
+        assert torch.equal(v, after[n]), n
 
 
 def test_failed_capture_raises(cuda, monkeypatch):

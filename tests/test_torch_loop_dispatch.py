@@ -72,14 +72,14 @@ def test_racing_group_touched_matches_jax(jax_groups, monkeypatch, g):
     cfg, groups = jax_groups
     before, group, after = groups[g]
     seen = []
-    commit = tbatched_mod.commit_frame
+    commit = tbatched_mod.commit_lane
 
     def keep(*args, **kw):
-        state, reg = commit(*args, **kw)
+        state, reg, upd = commit(*args, **kw)
         seen.append(state.last_touched.clone())
-        return state, reg
+        return state, reg, upd
 
-    monkeypatch.setattr(tbatched_mod, "commit_frame", keep)
+    monkeypatch.setattr(tbatched_mod, "commit_lane", keep)
     new, _, _ = tbatched_mod.odometry_step_batched(
         state_from_numpy(before, "cpu"), [to_port_frame(f) for f in group],
         config_from_dict(dataclasses.asdict(cfg)))
@@ -138,14 +138,14 @@ def test_chunk_entry_is_the_or_of_its_frames(monkeypatch):
 
 def test_raced_group_entry_is_the_or_of_its_lanes(monkeypatch):
     lanes = []
-    commit = tbatched_mod.commit_frame
+    commit = tbatched_mod.commit_lane
 
     def keep(*args, **kw):
-        state, reg = commit(*args, **kw)
+        state, reg, upd = commit(*args, **kw)
         lanes.append(state.last_touched.clone())
-        return state, reg
+        return state, reg, upd
 
-    monkeypatch.setattr(tbatched_mod, "commit_frame", keep)
+    monkeypatch.setattr(tbatched_mod, "commit_lane", keep)
     calls, pipe = run_recording(port_config(frame_batch=2), 8, monkeypatch)
     assert pipe.raced_groups == 4 and pipe.fallback_groups == 0
     assert [c[0] for c in calls] == [0, 2, 4, 6]

@@ -76,16 +76,17 @@ def to_port_frame(fr) -> FeatureFrame:
                         torch.from_numpy(np.array(fr.time_max)))
 
 
-def jax_pieces(cfg, n_frames):
-    """Every raw frame's P piece frames (time order), source voxel filter
-    applied."""
+def jax_piece_stream(cfg):
+    """Each raw frame's P piece frames (time order), source voxel filter
+    applied, frame after frame (the simulator's noise draws run in frame
+    order)."""
     fe, caps = cfg.feature_extraction, cfg.capacity
     rng = np.random.default_rng(3)
     sim = LivoxSimulator(SimConfig(points_per_frame=10000, seed=3),
                          scene=ConvexScene.random_room(rng, n_ridges=60),
                          traj=Trajectory(ramp_t0=0.5))
-    out = []
-    for i in range(n_frames):
+    i = 0
+    while True:
         xyz, inten, t0 = sim.frame(i)
         n = caps.max_raw_points
         pts = np.zeros((n, 3), np.float32)
@@ -94,28 +95,44 @@ def jax_pieces(cfg, n_frames):
         pts[:len(xyz)], it[:len(xyz)], m[:len(xyz)] = xyz, inten, True
         _, _, pieces = jlivox.extract_frame(jnp.asarray(pts), jnp.asarray(it), jnp.asarray(m),
                                             t0, fe, caps, piecewise_number=P)
-        out += [fr._replace(
+        yield [fr._replace(
             corners=jvoxel(fr.corners, fe.mapping_line_resolution, capacity=caps.max_corner),
             surface=jvoxel(fr.surface, fe.mapping_plane_resolution / 2.0,
                            capacity=caps.max_surface)) for fr in pieces]
-    return out
+        i += 1
+
+
+def jax_pieces(cfg, n_frames):
+    """Every raw frame's P piece frames (time order), source voxel filter
+    applied."""
+    stream = jax_piece_stream(cfg)
+    return [piece for _ in range(n_frames) for piece in next(stream)]
+
+
+class JaxGroups:
+    """(state before, lane frames, state after, lane results) of each
+    group of G raw frames, made in order at the first use of a group (a
+    file that reads the first groups only pays for those)."""
+
+    def __init__(self, cfg):
+        self.cfg, self.state, self.made = cfg, jinit_state(cfg), []
+        self.stream = jax_piece_stream(cfg)
+
+    def __getitem__(self, g):
+        while len(self.made) <= g:
+            lanes = [piece for _ in range(G) for piece in next(self.stream)]
+            stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *lanes)
+            new, regs = jbatched(self.state, stacked, self.cfg, G * P)
+            self.made.append((state_fields(self.state), lanes, state_fields(new), regs))
+            self.state = new
+        return self.made[g]
 
 
 @pytest.fixture(scope="module")
 def jax_groups():
-    """(state before, lane frames, state after, lane results) of every
-    group of G raw frames."""
+    """The configuration and the `JaxGroups` of its stream."""
     cfg = step_config()
-    pieces = jax_pieces(cfg, GROUPS * G)
-    st = jinit_state(cfg)
-    groups = []
-    for g in range(GROUPS):
-        lanes = pieces[g * G * P:(g + 1) * G * P]
-        stacked = jax.tree_util.tree_map(lambda *xs: jnp.stack(xs), *lanes)
-        new, regs = jbatched(st, stacked, cfg, G * P)
-        groups.append((state_fields(st), lanes, state_fields(new), regs))
-        st = new
-    return cfg, groups
+    return cfg, JaxGroups(cfg)
 
 
 def jax_knn_fused(q, ref, mask, k=5, ref_op=None, query_count=None, max_radius=None):
