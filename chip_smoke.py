@@ -80,8 +80,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
               front end at ``max_splits`` 16,384 on the card against the
               CPU's, and the registration's kNN searcher over 2,000,000
               rows (past the kernel's largest operand: one launch a row
-              block, merged) against the plain search, bit for bit
-              (``repair`` lines); the loop condition kernel at each
+              block, merged) against the plain search, bit for bit, with
+              each block's kernel alone, the bound of
+              `ops.knn_fused.search_work` and ``torch.cdist`` + ``topk``
+              over the same rows (``repair`` lines); the loop condition kernel at each
               outcome and on lane axes of up to 1,100 lanes, and the
               switch index at each outcome (rebuild, append, neither),
               against their plain versions, with their times and bounds;
@@ -129,9 +131,13 @@ Phases, each printing JSON lines; any failure exits nonzero:
               that one rank (``scaling``: the sharded kNN and sum against
               the plain ones at 4,096 x 65,536).  Then, at
               full width, the ``full_mapping`` scenario (60 frames of
-              10,000 points, cell matching, 8,192 cells x 32 points; ATE
-              < 0.40 m, >= 30 accepted; ``sync_check``; the kernel on its
-              cell-gathered buffer), ``mid100_trilidar`` (30 frames of 3
+              10,000 points, cell matching, 8,192 cells x 32 points, on
+              the frame program, its rebuild body gathering 262,144 rows;
+              ATE < 0.40 m, >= 30 accepted; ``sync_check``; the kernel on
+              its cell-gathered buffer) and ``full_mapping_plain`` (its
+              first 30 frames through the plain program, rows and every
+              state tensor, cell maps included, bit-equal to the frame
+              program's after 30 frames), ``mid100_trilidar`` (30 frames of 3
               heads x 8,192 points, 2 pieces a frame; ATE < 0.75 m, >= 30
               of 60 accepted) and 20 VLP-16 sweeps (16 x 720 points)
               along a known trajectory through ``process_raw`` with
@@ -141,19 +147,27 @@ Phases, each printing JSON lines; any failure exits nonzero:
               < 0.35 m, every sweep accepted); then the ``loop_closure`` scenario
               at its own configuration (170 frames of 10,000 points in
               the rich world, the loop service on its worker thread and
-              CUDA stream): frames/s, ATE, the loop's pair, score,
-              keyframes and payoff, the worker's ms a keyframe by stage,
-              frame-time percentiles with the worker busy and idle, the
-              odometry's and the loop's kernel launches apart, and the
-              card's eigh against the host's on the run's own rotations
-              (aligned ATE < 0.45 m and the loop closed, or it fails);
+              CUDA stream, the odometry on the frame program): frames/s,
+              ATE, the loop's pair, score, keyframes (and those dropped
+              from the waiting list) and payoff, the worker's ms a
+              keyframe by stage, frame-time percentiles with the worker
+              busy and idle, the odometry's and the loop's kernel
+              launches apart, and the card's eigh against the host's on
+              the run's own rotations (aligned ATE < 0.45 m and the loop
+              closed, or it fails); and ``loop_closure_plain`` (its first
+              40 frames, two keyframes, through the plain program: rows,
+              state and the loop service's entries, touched keys and
+              keyframe records' keys and poses, bit-equal);
 7. cli        the command line on the card (``python -m
               loam_livox_tpu_torch.cli.run_odometry``, a child process):
               24 simulator frames (seed 0, 10,000 points) written as a
               Livox CustomMsg bag (bz2), replayed at the default
               (precision) profile with registration after 10 frames, with
               ``--loop-closure``, ``--follow``, ``--save-poses``,
-              ``--save-map`` and ``--log-dir``: frames/s, registrations/s, aligned ATE (<
+              ``--save-map`` and ``--log-dir``, on the frame program (one
+              graph launch a raw frame, no ICP-exit or admission read,
+              the kernel's runs counted on the card in the child's
+              summary): frames/s, registrations/s, aligned ATE (<
               0.35 m), accepted rows (>= half), host syncs a frame by
               place (``drain`` and ``log`` included); the follow lines
               equal the pose file, one ``mapping`` line a raw frame, the
@@ -678,7 +692,7 @@ def kernel_runs(kf) -> dict:
             {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches})
 
 
-def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None) -> dict:
+def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=0) -> dict:
     """A row on the frame program: its graphs (one a shape key: its kind
     (a raw frame, a chunk or a racing group), the tier's capacities,
     frames, steps, WHILE and SWITCH nodes a launch, capture seconds, the
@@ -695,11 +709,13 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None) -> dict:
     memory (its segments found in the allocator's snapshot), and neither
     the ICP exit nor the admission read the host (the front end has no
     host read left).  With ``wall``, the frames/s without the captures'
-    seconds too."""
+    seconds too.  ``service_runs``: the loop service's ``knn_fused``
+    launches (from Python on its worker, one run each), which the kernel
+    counts with the replays'."""
     runs, from_python = kernel_runs(kf)
     keys = pipe.program.summary()
     passes = pipe.loop_iterations
-    expected = {"knn_fused": 2 * passes,
+    expected = {"knn_fused": 2 * passes + service_runs,
                 "debounce": sum(k["launches"] * k["frames"] for k in keys),
                 "loop_cond": passes + sum(k["launches"] * k["whiles"] for k in keys),
                 "switch_cond": sum(k["launches"] * k["switches"] for k in keys)}
@@ -958,11 +974,36 @@ def split_search(dev, m=2_000_000, n_q=256) -> dict:
     if not ok:
         raise AssertionError(f"the split search departs from the plain search: blocks "
                              f"{blocks}, max_abs_err {err}")
-    return {"rows": m, "queries": n_q, "max_rows": kf.max_ref_rows(5), "blocks": blocks,
-            "max_abs_err": err, "beyond_first_block": bool((i >= kf.max_ref_rows(5)).any()),
+    # each block's kernel alone (calls queued behind a spin kernel, timed by
+    # CUDA events: the profiler recorded none at these operands), the bound
+    # of the whole search (`ops.knn_fused.search_work` over one operand of
+    # all the rows), and torch.cdist + topk over the same rows (a 2 GB
+    # distance matrix)
+    rows = kf.max_ref_rows(5)
+    block_ms = []
+    for lo in range(0, m, rows):
+        b = slice(lo, min(lo + rows, m))
+        op = kf.build_ref_operand(ref.xyz[b], ref.mask[b])
+        block_ms.append(queued_ms(
+            lambda b=b, op=op: kf.knn_fused(q, ref.xyz[b], ref.mask[b], k=5, ref_op=op,
+                                            query_count=count, max_radius=2.0), 5))
+    pairs, bytes_ = kf.search_work(q, count, kf.build_ref_operand(ref.xyz, ref.mask), 2.0)
+    t_ops, t_bytes = pairs * FLOPS_PER_PAIR / PEAK_FP32_FLOPS, bytes_ / PEAK_BYTES
+
+    def library():
+        dist = torch.cdist(q[:n_q - 16], ref.xyz)
+        return torch.topk(dist.masked_fill(~ref.mask, float("inf")), 5, dim=-1, largest=False)
+
+    return {"rows": m, "queries": n_q, "max_rows": rows, "blocks": blocks,
+            "max_abs_err": err, "beyond_first_block": bool((i >= rows).any()),
             "ms": time_ms(lambda: search(q, count), 5),
+            "kernel_ms_by_block": block_ms, "kernel_ms": sum(block_ms),
+            "kernel_ms_by": "queued events", "pairs": pairs,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "plain_ms": time_ms(lambda: knn(q, ref.xyz, ref.mask, k=5, query_count=n_q - 16,
-                                            max_radius=2.0), 2)}
+                                            max_radius=2.0), 2),
+            "library_ms": time_ms(library, 3)}
 
 
 def node_floor(nodes=64, reps=20) -> dict:
@@ -1489,11 +1530,66 @@ def eigh_on_card(KF, records) -> dict:
             "min_similarity_card_vs_host_rotation": min(sims) if sims else None}
 
 
-def loop_path(S, P, kf, dev, host_frames) -> dict:
+def record_loop_entries(LS):
+    """Wrap `LoopCloser.on_frame` to keep every entry a service is handed,
+    by service: (frame index, the keys of its touched cells, ``EMPTY_KEY``
+    elsewhere, and the keyframe record it completed or None).  The records
+    are the service's own, read at the end: a record the next units
+    overwrote would show.  Returns (entries, restore)."""
+    import torch
+
+    from loam_livox_tpu_torch.map.cell_map import EMPTY_KEY
+
+    entries, real = {}, LS.LoopCloser.on_frame
+
+    def on_frame(self, cell_full, touched, q_w, t_w, frame_idx):
+        keys = torch.where(touched, cell_full.keys, torch.full_like(cell_full.keys, EMPTY_KEY))
+        rec = real(self, cell_full, touched, q_w, t_w, frame_idx)
+        entries.setdefault(id(self), []).append((frame_idx, keys, rec))
+        return rec
+
+    LS.LoopCloser.on_frame = on_frame
+
+    def restore():
+        LS.LoopCloser.on_frame = real
+
+    return entries, restore
+
+
+def assert_loop_entries_equal(label, entries, ref) -> dict:
+    """Fail unless the loop service's entries ``entries`` (cut to the
+    frames of ``ref``, a plain-program run's) equal ``ref``'s: frame
+    indices, touched keys, and each completed keyframe's member keys,
+    pose and ending frame, bit for bit."""
+    import torch
+
+    n = ref[-1][0] + 1 if ref else 0
+    got = [e for e in entries if e[0] < n]
+    keyframes = 0
+    equal = len(got) == len(ref)
+    for (fa, ka, ra), (fb, kb, rb) in zip(got, ref):
+        equal = equal and fa == fb and torch.equal(ka, kb) and (ra is None) == (rb is None)
+        if equal and ra is not None:
+            keyframes += 1
+            equal = (ra.ending_frame_idx == rb.ending_frame_idx
+                     and all(torch.equal(getattr(ra, f), getattr(rb, f))
+                             for f in ("keys", "q", "t")))
+    if not equal or not keyframes:
+        raise AssertionError(f"{label}: the loop service's entries depart from the plain "
+                             f"program's ({len(got)} against {len(ref)} entries, "
+                             f"{keyframes} keyframes equal)")
+    return {"loop_entries_equal": equal, "loop_entries": len(ref), "keyframes_equal": keyframes}
+
+
+def loop_path(S, P, kf, dev, host_frames, split=40) -> tuple:
     """The ``loop_closure`` scenario at its own configuration, nothing cut:
     170 frames of 10,000 points in the 56 m rich world, the service on
-    its worker thread and stream.  Each frame's time ends with the frame
-    stream's synchronisation.  Returns the path line's fields."""
+    its worker thread and stream; on the frame program (one graph launch
+    a frame, `graph_row`).  Each frame's time ends with the frame
+    stream's synchronisation.  After ``split`` frames a copy of the state
+    is kept (``pipe.split_state``, its seconds left out of the wall
+    time).  Returns (the path line's fields, the pipeline, the service's
+    entries (`record_loop_entries`))."""
     import torch
 
     from loam_livox_tpu_torch.eval.ate import ate_rmse
@@ -1507,6 +1603,7 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
     frames = on_device(host_frames, cfg.capacity.max_raw_points, dev)
     worker_rows, restore = time_loop_worker(LS)
     rotations, restore_kf = record_rotations(KF)
+    entries, restore_entries = record_loop_entries(LS)
     try:
         torch.cuda.synchronize()
         reset_counts(kf, P)
@@ -1514,7 +1611,8 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
         pipe = P.OdometryPipeline(cfg, device=dev)
         closer = pipe.loop_closer
         frame_ms, busy = [], []
-        for frame in frames:
+        split_s = 0.0
+        for i, frame in enumerate(frames):
             # busy: the worker was processing a keyframe at the frame's
             # start or end, or finished one in between
             was_busy, done = closer.busy, len(closer.keyframes)
@@ -1523,13 +1621,23 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
             torch.cuda.current_stream(dev).synchronize()
             frame_ms.append((time.perf_counter() - t) * 1e3)
             busy.append(was_busy or closer.busy or len(closer.keyframes) != done)
+            if i + 1 == split:
+                t = time.perf_counter()
+                pipe.split_state = clone_state(pipe.state)
+                split_s = time.perf_counter() - t
         pipe.flush()
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        wall = time.perf_counter() - t0 - split_s
     finally:
         restore()
         restore_kf()
+        restore_entries()
     launches, syncs = kf.launches, P.host_syncs()
+    graph = {}
+    if pipe.program is not None:
+        graph = graph_row("loop_closure", pipe, n, kf, syncs, P.graph_counts(), wall,
+                          service_runs=closer.counts["knn_fused"])
+        launches = graph["kernel_runs"]["knn_fused"] - closer.counts["knn_fused"]
     closer.shutdown()
     est = pipe.trajectory.positions_array()
     gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
@@ -1562,21 +1670,63 @@ def loop_path(S, P, kf, dev, host_frames) -> dict:
         host_syncs={k: v / n for k, v in syncs.items()},
         frame_ms_all=pct(np.ones(n, bool)), frame_ms_worker_busy=pct(busy),
         frame_ms_worker_idle=pct(~busy), eigh_card_vs_host=eigh_on_card(KF, rotations),
-        gate_trace=closer.gate_trace)
+        gate_trace=closer.gate_trace, **graph)
     if launches != 2 * pipe.loop_iterations or launches <= 0:
         raise AssertionError(f"loop_closure: knn_fused launched {launches} times for "
                              f"{pipe.loop_iterations} ICP loop passes")
-    return out
+    return out, pipe, entries.get(id(closer), [])
+
+
+def loop_plain(S, P, kf, dev, host_frames, n, graph_pipe, graph_entries) -> None:
+    """``loop_closure_plain``: the first ``n`` frames of the
+    ``loop_closure`` path through the plain program on the card (the
+    service on its worker, as there), held bit-equal to the frame
+    program's run (`assert_runs_equal` with its ``split_state``) and its
+    loop service's entries (`assert_loop_entries_equal`)."""
+    import torch
+
+    from loam_livox_tpu_torch.eval.ate import ate_rmse
+    from loam_livox_tpu_torch.runtime import loop_service as LS
+
+    cfg, kw = S.scenario_config("loop_closure")
+    sim = S.simulators(cfg, kw)[0]
+    frames = on_device(host_frames[:n], cfg.capacity.max_raw_points, dev)
+    entries, restore = record_loop_entries(LS)
+    try:
+        torch.cuda.synchronize()
+        reset_counts(kf, P)
+        t0 = time.perf_counter()
+        pipe = P.OdometryPipeline(cfg, device=dev)
+        pipe.program = None
+        feed(pipe, frames)
+        pipe.flush()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        restore()
+    pipe.loop_closer.shutdown()
+    held = assert_runs_equal("loop_closure", graph_pipe, pipe, n)
+    held.update(assert_loop_entries_equal("loop_closure", graph_entries,
+                                          entries.get(id(pipe.loop_closer), [])))
+    est = pipe.trajectory.positions_array()
+    gt = np.stack([sim.gt_pose_at(t)[1] for t in pipe.trajectory.times])
+    path_line("loop_closure_plain", pipe, n, wall, ate_rmse(est, gt),
+              int(sum(pipe.trajectory.accepted)), kf.launches, P.host_syncs(),
+              keyframes=len(pipe.loop_closer.keyframes),
+              dropped_keyframes=pipe.loop_closer.dropped_keyframes,
+              **{f"{k}_to_loop_closure": v for k, v in held.items()})
 
 
 def loop_fps_in_turns(host_frames, dev, card, rounds=2) -> dict:
-    """With ``--baseline``: the ``loop_closure`` path's frames/s, the
-    earlier checkout's package (loaded by `load_baseline`) against this
-    one's, in turns on this card: (baseline, this, this, baseline)
-    ``rounds`` times, after an untimed 20-frame run of each (library
-    loads, allocator growth).  Each package runs the scenario at its own
+    """With ``--baseline``: the ``loop_closure`` path's frames/s and frame
+    times with the worker busy and idle (p50 / p99), the earlier
+    checkout's package (loaded by `load_baseline`) against this one's, in
+    turns on this card: (baseline, this, this, baseline) ``rounds``
+    times, after an untimed 20-frame run of each (library loads,
+    allocator growth).  Each package runs the scenario at its own
     configuration on the same frames, padded on the card beforehand;
-    each run's time ends with a synchronisation after its flush."""
+    each frame's time ends with the frame stream's synchronisation, and
+    each run's with one after its flush."""
     import importlib
 
     import torch
@@ -1585,16 +1735,37 @@ def loop_fps_in_turns(host_frames, dev, card, rounds=2) -> dict:
         S = importlib.import_module(f"{pkg}.eval.scenarios")
         Pk = importlib.import_module(f"{pkg}.runtime.pipeline")
         cfg, _ = S.scenario_config("loop_closure")
+        Pk.reset_host_syncs()
         torch.cuda.synchronize()
         t = time.perf_counter()
         pipe = Pk.OdometryPipeline(cfg, device=dev)
-        feed(pipe, frames)
+        closer = pipe.loop_closer
+        frame_ms, busy = [], []
+        for frame in frames:
+            # each frame timed to the frame stream's synchronisation, the
+            # worker busy as `loop_path` counts it
+            was_busy, done = closer.busy, len(closer.keyframes)
+            t_f = time.perf_counter()
+            feed(pipe, [frame])
+            torch.cuda.current_stream(dev).synchronize()
+            frame_ms.append((time.perf_counter() - t_f) * 1e3)
+            busy.append(was_busy or closer.busy or len(closer.keyframes) != done)
         pipe.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        closer = pipe.loop_closer
+        ms, busy = np.asarray(frame_ms), np.asarray(busy)
+
+        def pct(sel):
+            return ({"n": int(sel.sum()), "p50": float(np.percentile(ms[sel], 50)),
+                     "p99": float(np.percentile(ms[sel], 99))} if sel.any() else None)
+
         row = {"package": pkg, "fps": len(frames) / wall, "wall_s": wall,
                "accepted": int(sum(pipe.trajectory.accepted)), "loop_closed": closer.closed,
+               "iterations": int(sum(pipe.iterations)),
+               "frame_ms_worker_busy": pct(busy), "frame_ms_worker_idle": pct(~busy),
+               "dropped_keyframes": closer.dropped_keyframes,
+               "graph_launches": Pk.graph_counts().get("graph_launch"),
+               "host_syncs": Pk.host_syncs(),
                "feature_cell_maps": pipe.state.cell_planes is not None}
         closer.shutdown()
         return row
@@ -1666,8 +1837,12 @@ def cli_phase(C, P, kf, dev, out_dir, card) -> int:
     follow_ok = (len(follow) == len(est)
                  and np.allclose([f["t"] for f in follow], est, rtol=0, atol=1e-6)
                  and np.allclose([f["q"] for f in follow], q, rtol=0, atol=1e-6))
-    syncs = summary["host_syncs"]
-    launches, passes = summary["knn_fused_launches"], summary["icp_loop_passes"]
+    syncs, graphs = summary["host_syncs"], summary["graphs"]
+    passes, service = summary["icp_loop_passes"], summary["loop_knn_fused_launches"]
+    # on the frame program: one graph launch a raw frame, the kernel's runs
+    # counted on the card (2 a pass, plus the loop service's launches)
+    runs = summary["knn_fused_runs"]
+    launches = runs - service
     emit("path", path="cli", command=" ".join(cmd[1:]), frames=summary["frames"],
          rows=summary["steps"], fps=summary["fps"],
          registrations_per_s=summary["steps"] / summary["wall_s"], wall_s=summary["wall_s"],
@@ -1676,8 +1851,13 @@ def cli_phase(C, P, kf, dev, out_dir, card) -> int:
          host_syncs={k: v / n for k, v in syncs.items()}, follow_lines=len(follow),
          follow_equal_pose_file=follow_ok, mapping_lines=mapping_lines,
          map_cells=int(cells.n_cells()), device=summary["device"], knn_fused_launches=launches,
-         loop_iterations=passes, card=card)
+         knn_fused_runs=runs, knn_fused_launches_from_python=summary["knn_fused_launches"],
+         loop_knn_fused_launches=service, loop_closed=summary["loop_closed"],
+         loop_iterations=passes, graphs=graphs, card=card)
     if not (summary["frames"] == n and follow_ok and ate < 0.35 and launches == 2 * passes > 0
+            and summary["knn_fused_launches"] == 0 and graphs["graph_launch"] == n
+            and graphs["launch_frame"] == n and graphs["graph_capture"] >= 1
+            and syncs["icp_exit"] == syncs["admit"] == 0
             and summary["accepted"] >= summary["steps"] // 2 and mapping_lines == n
             and int(cells.n_cells()) > 0
             and summary["device"].startswith("cuda") and syncs["drain"] == n
@@ -2292,21 +2472,34 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     sim_f = S.simulators(cfg_f, kw_f)[0]
     host_f = [sim_f.frame(i) for i in range(n_f + 3)]
     dev_f = on_device(host_f, cfg_f.capacity.max_raw_points, dev)
+    n_fp = 30           # full_mapping_plain's frames (registration from frame 20)
     torch.cuda.synchronize()
     reset_counts(kf, P)
     t0 = time.perf_counter()
-    pipe_f, ate_f, acc_f = run_stream(cfg_f, sim_f, dev_f[:n_f], dev)
+    pipe_f, ate_f, acc_f = run_stream(cfg_f, sim_f, dev_f[:n_f], dev, split=n_fp)
     torch.cuda.synchronize()
     wall_f = time.perf_counter() - t0
-    launches_by_path["full_mapping"] = kf.launches
     st_f = pipe_f.state
-    path_line("full_mapping", pipe_f, n_f, wall_f, ate_f, acc_f, kf.launches, P.host_syncs(),
-              corner_cells=int(st_f.cell_corners.n_cells()),
-              plane_cells=int(st_f.cell_planes.n_cells()),
-              cell_capacity=st_f.cell_planes.capacity, cell_pool=st_f.cell_planes.pool_size)
+    launches_by_path["full_mapping"] = path_line(
+        "full_mapping", pipe_f, n_f, wall_f, ate_f, acc_f, kf.launches, P.host_syncs(),
+        corner_cells=int(st_f.cell_corners.n_cells()),
+        plane_cells=int(st_f.cell_planes.n_cells()),
+        cell_capacity=st_f.cell_planes.capacity, cell_pool=st_f.cell_planes.pool_size,
+        rebuild_gather_rows=st_f.cell_planes.capacity * st_f.cell_planes.pool_size)
     if not (ate_f < 0.40 and acc_f >= 30):
         raise AssertionError(f"full_mapping off: ATE {ate_f}, accepted {acc_f}/{n_f}")
     sync_check("full_mapping", pipe_f, dev_f[n_f:])
+    # its first 30 frames through the plain program on the card, bit-equal
+    torch.cuda.synchronize()
+    reset_counts(kf, P)
+    t0 = time.perf_counter()
+    pipe_fp, ate_fp, acc_fp = run_stream(cfg_f, sim_f, dev_f[:n_fp], dev, plain=True)
+    torch.cuda.synchronize()
+    wall_fp = time.perf_counter() - t0
+    launches_by_path["full_mapping_plain"] = kf.launches
+    held = assert_runs_equal("full_mapping", pipe_f, pipe_fp, n_fp)
+    path_line("full_mapping_plain", pipe_fp, n_fp, wall_fp, ate_fp, acc_fp, kf.launches,
+              P.host_syncs(), **{f"{k}_to_full_mapping": v for k, v in held.items()})
     # the kernel on the cell-gathered buffer the path ended on
     qs_f, n_qs_f = surface_queries(st_f, host_f[n_f - 1], cfg_f, dev)
     r_f = compare_kernel(qs_f, st_f.map_surface.xyz, st_f.map_surface.mask, n_qs_f,
@@ -2373,7 +2566,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     # stream; the odometry's launches and the loop's counted apart
     kf.launches = 0
     host_loop = loop_sim.get(timeout=600)
-    lp = loop_path(S, P, kf, dev, host_loop)
+    n_lp = 40           # loop_closure_plain's frames: keyframes complete at 29 and 39
+    lp, pipe_lp, entries_lp = loop_path(S, P, kf, dev, host_loop, split=n_lp)
     launches_by_path["loop_closure"] = lp["knn_fused_launches"]
     launches_by_path["loop_closure_service"] = lp["loop_knn_fused_launches"]
     emit("path", path="loop_closure", **lp)
@@ -2381,6 +2575,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
             and lp["loop_knn_fused_launches"] > 0):
         raise AssertionError(f"loop_closure off: closed {lp['loop_closed']}, "
                              f"ATE {lp['ate_aligned']}")
+    loop_plain(S, P, kf, dev, host_loop, n_lp, pipe_lp, entries_lp)
+    launches_by_path["loop_closure_plain"] = kf.launches
     if base is not None:
         emit("loop_fps_in_turns", **loop_fps_in_turns(host_loop, dev, card))
 

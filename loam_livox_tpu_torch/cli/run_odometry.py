@@ -26,8 +26,11 @@ gloo with ``--device cpu``); rank 0 prints and writes the outputs:
 rows reach the host, which then happens after every raw frame (one
 ``drain`` read a frame).  The last line is a JSON summary: the JAX
 command line's keys, and the device, the host reads of device values by
-place (`runtime.pipeline.host_syncs`), the ICP loop passes and the
-``knn_fused`` kernel's launches (2 a pass on the card).
+place (`runtime.pipeline.host_syncs`), the ICP loop passes, the
+``knn_fused`` kernel's launches from Python (2 a pass on the plain
+program) and its runs counted on the card (2 a pass on either program,
+plus the loop service's launches, counted apart), and the frame
+program's graph launches and captures (one launch a dispatch unit).
 
 Examples:
     python -m loam_livox_tpu_torch.cli.run_odometry --profile realtime --frames 100
@@ -177,6 +180,7 @@ def main(argv=None):
     P.reset_host_syncs()
     knn_fused.launches = 0
     pipe = P.OdometryPipeline(cfg, device=args.device, log_dir=args.log_dir, mesh=mesh)
+    knn_fused.runs.reset()          # the kernel's runs on the card from here on
     pipe.eager_drain = args.follow
     followed = 0
 
@@ -244,6 +248,10 @@ def main(argv=None):
         "host_syncs": P.host_syncs(),
         "icp_loop_passes": pipe.loop_iterations,
         "knn_fused_launches": knn_fused.launches,
+        "knn_fused_runs": knn_fused.runs.read(),
+        "loop_knn_fused_launches": (pipe.loop_closer.counts["knn_fused"]
+                                    if pipe.loop_closer is not None else 0),
+        "graphs": P.graph_counts(),
     }
     print(json.dumps(summary))
     return 0

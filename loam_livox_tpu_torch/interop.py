@@ -51,15 +51,17 @@ def config_from_dict(d: Dict[str, Any]) -> SlamConfig:
 
 def cell_map_from_numpy(fields: Dict[str, np.ndarray], prefix: str, device):
     """The cell map under ``prefix`` (``{prefix}.keys`` and so on, with
-    ``{prefix}.cell_size`` and ``{prefix}.frame_idx``), or ``None`` for a
-    one-slot placeholder."""
+    ``{prefix}.cell_size`` and ``{prefix}.frame_idx``, the latter a ()
+    int32 tensor on ``device``), or ``None`` for a one-slot placeholder."""
     keys = np.asarray(fields[f"{prefix}.keys"])
     if keys.shape[0] <= 1:
         return None
     arrays = {name: torch.as_tensor(np.asarray(fields[f"{prefix}.{name}"])).to(device)
               for name in CELL_MAP_ARRAYS}
-    return CellMap(cell_size=float(fields[f"{prefix}.cell_size"]),
-                   frame_idx=int(fields[f"{prefix}.frame_idx"]), **arrays)
+    frame_idx = torch.as_tensor(np.asarray(fields[f"{prefix}.frame_idx"]),
+                                dtype=torch.int32).reshape(()).to(device)
+    return CellMap(cell_size=float(fields[f"{prefix}.cell_size"]), frame_idx=frame_idx,
+                   **arrays)
 
 
 def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:

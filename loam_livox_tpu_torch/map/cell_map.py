@@ -16,10 +16,11 @@
   ``revisit_threshold`` frames or more after its last update restarts
   its moments, pool and creation frame.
 
-``frame_idx`` (the reference's ``m_current_frame_idx``) is a host
-integer: every caller appends once a frame, so it counts frames, and
-nothing on the device decides it.  No function here reads a device
-value on the host.
+``frame_idx`` (the reference's ``m_current_frame_idx``) is a () int32
+tensor on the map's device, as in the JAX package: every caller appends
+once a frame (a frame that adds nothing appends with an all-False mask),
+so it counts frames, and a captured CUDA graph advances it on every
+replay.  No function here reads a device value on the host.
 """
 from __future__ import annotations
 
@@ -52,7 +53,7 @@ class CellMap(NamedTuple):
     pts: torch.Tensor           # (C, P, 3) ring pool
     last_update_frame: torch.Tensor  # (C,) int32
     create_frame: torch.Tensor       # (C,) int32
-    frame_idx: int              # frames appended so far
+    frame_idx: torch.Tensor     # () int32: frames appended so far
 
     @property
     def capacity(self) -> int:
@@ -89,7 +90,7 @@ def empty_cell_map(cell_size: float, capacity: int = 8192, pool_size: int = 32,
         pts=torch.zeros((capacity, pool_size, 3), **f32),
         last_update_frame=torch.zeros((capacity,), dtype=torch.int32, device=device),
         create_frame=torch.zeros((capacity,), dtype=torch.int32, device=device),
-        frame_idx=0,
+        frame_idx=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -145,7 +146,7 @@ def append_cloud(m: CellMap, batch: PointBatch, revisit_threshold: int,
 
     count, sum_p, sum_pp, pts = (carry(a) for a in (m.count, m.sum_p, m.sum_pp, m.pts))
     last_upd = carry(m.last_update_frame)
-    frame = torch.full((), m.frame_idx, dtype=torch.int32, device=dev)
+    frame = m.frame_idx
     created = torch.where(old_found, carry(m.create_frame), frame)
 
     # revisit reset (reference find_cell if_treat_revisit, :734-755)
@@ -153,7 +154,7 @@ def append_cloud(m: CellMap, batch: PointBatch, revisit_threshold: int,
     pvalid = pfound & (pkeys != EMPTY_KEY)
     seg = torch.where(pvalid, pslot, torch.full_like(pslot, C)).long()   # C: drop bucket
     touched = torch.zeros((C + 1,), dtype=torch.bool, device=dev).index_fill_(0, seg, True)[:C]
-    stale = touched & old_found & ((m.frame_idx - last_upd) >= revisit_threshold)
+    stale = touched & old_found & ((frame - last_upd) >= revisit_threshold)
     zero = torch.zeros((), device=dev)
     count = torch.where(stale, zero, count)
     sum_p = torch.where(stale[:, None], zero, sum_p)
@@ -202,7 +203,9 @@ def append_cloud(m: CellMap, batch: PointBatch, revisit_threshold: int,
 def skip_frame(m: CellMap) -> CellMap:
     """`append_cloud` of a batch with no valid point: only the frame
     index moves (every free slot holds the same zeros, so the merge
-    leaves the arrays as they are)."""
+    leaves the arrays as they are, and no slot is touched).  The
+    odometry step appends with a mask gated by admission instead, so
+    that a step has no branch; this is what such an append leaves."""
     return m._replace(frame_idx=m.frame_idx + 1)
 
 

@@ -21,7 +21,7 @@ graph a group, the loop as a WHILE node and each update as a SWITCH node.
 """
 from __future__ import annotations
 
-from typing import Callable, List, NamedTuple, Optional, Tuple
+from typing import Callable, List, NamedTuple, Tuple
 
 import torch
 
@@ -78,13 +78,13 @@ def prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamCon
 
 def commit_lane(state: OdometryState, k: int, frame: FeatureFrame, group: Group,
                 regs: RegistrationResult, cfg: SlamConfig
-                ) -> Tuple[OdometryState, RegistrationResult, Optional[MatchingUpdate]]:
+                ) -> Tuple[OdometryState, RegistrationResult, MatchingUpdate]:
     """Lane ``k``'s commit onto ``state`` (the state after lanes 0..k-1):
     a rejected lane frozen at the committed pose, then
     `odometry.commit_history` from the lane's coasted start.  Returns the
-    new state (its matching buffer as it was), the lane's result and the
-    `MatchingUpdate` to apply (None with cell maps, whose commit is
-    whole)."""
+    new state (its matching buffer as it was; its cell maps with the
+    lane's masked insertions), the lane's result and the
+    `MatchingUpdate` to apply."""
     reg = lane(regs, k)
     # a rejected lane freezes at the last committed pose, not at its
     # coasted start (committing the coast would integrate it open-loop)
@@ -110,8 +110,7 @@ def odometry_step_batched(state: OdometryState, frames: List[FeatureFrame],
     touched = None
     for k, frame in enumerate(frames):
         state, reg, upd = commit_lane(state, k, frame, group, regs, cfg)
-        if upd is not None:
-            state = update_matching(state, upd, cfg)
+        state = update_matching(state, upd, cfg)
         if state.last_touched is not None:
             touched = (state.last_touched if touched is None
                        else touched | state.last_touched)

@@ -6,8 +6,9 @@ and reload", ``Points_cloud_map::save_to_file`` /
 * `save_state` / `load_state`: the whole `OdometryState` with
   ``torch.save`` (the JAX package uses orbax): pose, history ring,
   matching buffers, cell maps (``None`` where the configuration keeps
-  none), the counters (device scalars; a file that holds them as host
-  integers loads too), and the residual-subsampling generator's
+  none), the counters and the cell maps' frame index (device scalars; a
+  file that holds them as host integers loads too), and the
+  residual-subsampling generator's
   state.  A resumed run on the device type the state was written on
   continues bit for bit.  The CPU's and the card's generators keep
   different states, so a state moved between them restarts the
@@ -94,7 +95,8 @@ def _unpack(saved, ref, name: str, device):
         return type(ref)(**{f: _unpack(saved[f], getattr(ref, f), f"{name}.{f}", device)
                             for f in ref._fields})
     if isinstance(ref, torch.Tensor):
-        if not isinstance(saved, torch.Tensor):     # a counter saved as a host int
+        if not isinstance(saved, torch.Tensor):
+            # a counter or a cell map's frame index saved as a host int
             saved = torch.tensor(saved)
         if tuple(saved.shape) != tuple(ref.shape):
             raise ValueError(f"checkpoint shape {tuple(saved.shape)} of {name} != config "

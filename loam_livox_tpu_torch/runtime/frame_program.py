@@ -26,11 +26,15 @@ pool, in the order they replay.  A frame:
     body k      one ICP pass (`registration.icp.prepare_registration`)
                 over step k's static carry, written back in place
     commit k    step k's gates and history commit
-                (`runtime.odometry.commit_history`), its trajectory row,
-                the new state copied into the static state, and the
-                matching-buffer update's flags (rebuild, append)
-    rebuild k   the matching buffer rebuilt from the history window, in
-                place (`runtime.odometry.rebuilt_matching`)
+                (`runtime.odometry.commit_history`: the history ring and,
+                where the configuration keeps them, the cell maps' masked
+                insertions), its trajectory row, the new state copied
+                into the static state, and the matching-buffer update's
+                flags (rebuild, append)
+    rebuild k   the matching buffer rebuilt in place from its sources
+                (`runtime.odometry.rebuilt_matching`): the history window,
+                or in cell matching the pools of the cells near the new
+                pose, gathered (C·P rows) and voxel-filtered
     append k    the step's points appended to it, in place, where the
                 configuration appends between rebuilds
     segment k+1 step k+1's set-up
@@ -50,10 +54,15 @@ Without appends the switch has the rebuild alone.
 A chunk reuses the frame key's captured pieces: its graph places them K
 times, each placement between two small captures of its own, ``load k``
 (the chunk's input slot k copied into the frame's static inputs) and
-``store k`` (the frame's rows copied into the chunk's).  The assembly
-clones every piece and creates a conditional handle for each WHILE and
-SWITCH node it places, so one capture serves K placements; a chunk
-costs one frame capture and 2K small ones.  A group is captured whole:
+``store k`` (the frame's rows copied into the chunk's).  With loop
+closure the chunk makes one loop-service entry, the OR of its frames'
+touched masks (``loam_livox_tpu/runtime/pipeline.py:163-178``): ``load
+0`` zeroes an accumulator, each ``store k`` ORs the frame's mask into
+it, and ``store K-1`` writes it into the state's ``last_touched``.  The
+assembly clones every piece and creates a conditional handle for each
+WHILE and SWITCH node it places, so one capture serves K placements; a
+chunk costs one frame capture and 2K small ones.  A group is captured
+whole:
 
     segment 0   the G front ends (`pipeline.extract_pieces`) over the
                 group's input slots and `batched.prepare_group`, its
@@ -62,8 +71,10 @@ costs one frame capture and 2K small ones.  A group is captured whole:
                 condition votes over the L lanes (every lane re-runs
                 until all have converged, as under ``vmap``)
     commit k    lane k's commit (`batched.commit_lane`; lane 0's first
-                the gates over the loop's result), its row and flags,
-                then its SWITCH node, k = 0 .. L-1
+                the gates over the loop's result), its row and flags
+                (with loop closure its touched mask ORed into the
+                group's, which lane L-1 writes into the state), then its
+                SWITCH node, k = 0 .. L-1
 
 Everything a unit reads lives in static buffers that the graph's
 addresses point at: the padded points, intensities, mask and the base
@@ -75,6 +86,13 @@ growth re-pads the state between units; the next unit's key is new and
 is captured then, and the keys it supersedes (the same kind,
 configuration, input length and frame count at other capacities: the
 schedule only grows) are freed.
+
+The keys hold what the state holds: in cell matching and with loop
+closure the cell maps (each map's frame index a device scalar that the
+replays advance) and, with loop closure, the touched mask the loop
+service reads after each unit (`pipeline.OdometryPipeline._feed_loop`
+hands the service copies of what it keeps: the next unit overwrites the
+static state).
 
 Captures, their seconds and the launches count in
 `core.accounting.GRAPHS`, in all and by kind.  A capture or build that
@@ -91,6 +109,8 @@ import torch
 
 from ..core import accounting
 from ..core.config import SlamConfig
+from ..core.types import PointBatch
+from ..map.cell_map import append_cloud, empty_cell_map
 from ..ops import debounce as debounce_op
 from ..ops import graph_cond
 from ..ops import knn_fused as knn_op
@@ -102,16 +122,15 @@ from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_
 
 def on_slice(cfg: SlamConfig, device: torch.device, mesh=None) -> bool:
     """Whether the frame program runs a pipeline's raw frames: on the
-    card, the Livox front end, history matching, the ``knn_fused``
-    engine, loop closure off, no residual subsampling (its generator is
-    not replayed), no product mesh; sequential, chunked or racing
-    dispatch.  Everything else runs the plain program (`ROADMAP.md`
-    lists those paths)."""
+    card, the Livox front end, the ``knn_fused`` engine, no residual
+    subsampling (its generator is not replayed), no product mesh; history
+    or cell matching (``mapping/matching_mode`` 0 or 1), loop closure on
+    or off; sequential, chunked or racing dispatch.  Everything else runs
+    the plain program (`ROADMAP.md` lists those paths)."""
     c, o, p = cfg.common, cfg.optimization, cfg.parallel
     return (device.type == "cuda" and mesh is None and int(p.mesh_devices) <= 1
-            and c.lidar_type == "livox" and int(cfg.mapping.matching_mode) == 0
-            and not cfg.loop_closure.if_enable_loop_closure
-            and o.correspondence in ("auto", "pallas") and int(o.subsample_residuals) == 0)
+            and c.lidar_type == "livox" and o.correspondence in ("auto", "pallas")
+            and int(o.subsample_residuals) == 0)
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -171,6 +190,9 @@ def _warm_up(device: torch.device) -> None:
     graph_cond.loop_condition(torch.zeros(1, dtype=torch.bool, device=device),
                               torch.zeros((), dtype=torch.int32, device=device), 1)
     graph_cond.switch_index(torch.zeros(2, dtype=torch.bool, device=device))
+    pts = PointBatch(torch.zeros((4, 3), **f32), torch.zeros(4, **f32),
+                     torch.ones(4, dtype=torch.bool, device=device))
+    append_cloud(empty_cell_map(1.0, 8, 2, device), pts, 10, 4)
     _warm.add(device)
 
 
@@ -381,15 +403,27 @@ class _ChunkKey:
         self.slots = slots = _inputs(frame.device, n_raw, (n_frames,))
         self.rows = torch.zeros((n_frames * n_steps, 10), dtype=torch.float32,
                                 device=frame.device)
+        touched = frame.state.last_touched
+        #: with loop closure, the OR of the chunk's touched masks (held
+        #: here: the graph writes it at every replay)
+        self.touched_any = acc = None if touched is None else torch.zeros_like(touched)
 
         def load(k: int):
             def run() -> None:
                 for dst, src in zip(frame.inputs, slots):
                     dst.copy_(src[k])
+                if acc is not None and k == 0:
+                    acc.zero_()
             return run
 
         def store(k: int):
-            return lambda: self.rows[k * n_steps:(k + 1) * n_steps].copy_(frame.rows)
+            def run() -> None:
+                self.rows[k * n_steps:(k + 1) * n_steps].copy_(frame.rows)
+                if acc is not None:
+                    acc.logical_or_(touched)
+                    if k == n_frames - 1:
+                        touched.copy_(acc)
+            return run
 
         G = graph_cond
         items = []
@@ -425,6 +459,10 @@ class _GroupKey:
         self.state = map_tensors(torch.clone, state)
         self.last_reg = None
         ctx: Dict[object, object] = {}
+        touched = self.state.last_touched
+        #: with loop closure, the OR of the lanes' touched masks (held
+        #: here: the graph writes it at every replay)
+        self.touched_any = acc = None if touched is None else torch.zeros_like(touched)
 
         def seg0() -> None:
             frames = [piece for g in range(n_frames)
@@ -448,6 +486,15 @@ class _GroupKey:
                 new, reg, upd = commit_lane(self.state, k, frame, group, ctx["regs"], cfg)
                 self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
                 _assign(self.state, new)
+                if acc is not None:
+                    # one loop-service entry a group: every lane's touched
+                    # cells, as `batched.odometry_step_batched` ORs them
+                    if k == 0:
+                        acc.copy_(touched)
+                    else:
+                        acc.logical_or_(touched)
+                    if k == n_lanes - 1:
+                        touched.copy_(acc)
                 _set_flags(flags[k], upd)
                 ctx["upd", k] = upd
                 self.last_reg = reg
@@ -484,6 +531,7 @@ class FrameProgram:
 
     def __init__(self, device: torch.device):
         self.device = device
+        _warm_up(device)
         self.stream = torch.cuda.Stream(device)
         self._graphs: Dict[tuple, object] = {}
         self._captured: List[Tuple[tuple, dict]] = []
@@ -544,7 +592,6 @@ class FrameProgram:
         if g is not None:
             return g
         self._drop_superseded(key)
-        _warm_up(self.device)
         # the pool's segments, the static buffers and the graph's own
         # memory are allocated before their calls return
         free = torch.cuda.mem_get_info(self.device)[0]
@@ -553,9 +600,12 @@ class FrameProgram:
             g.graph
         used = free - torch.cuda.mem_get_info(self.device)[0]
         self._graphs[key] = g
-        caps = key[1].capacity
+        cfg = key[1]
+        caps = cfg.capacity
         self._captured.append((key, {
-            "kind": g.kind, "map_surf_capacity": caps.map_surf_capacity,
+            "kind": g.kind, "matching_mode": int(cfg.mapping.matching_mode),
+            "loop_closure": bool(cfg.loop_closure.if_enable_loop_closure),
+            "map_surf_capacity": caps.map_surf_capacity,
             "map_corner_capacity": caps.map_corner_capacity,
             "hist_surf_capacity": caps.hist_surf_capacity,
             "max_surface_ds": caps.max_surface_ds, "n_raw": key[2], "frames": g.frames,

@@ -9,7 +9,9 @@ points) are kept on the device as that frame's masked keys, and a
 completed accumulator's union is formed on the device too, so the frame
 path reads nothing on the host.  A completed keyframe joins a waiting
 list bounded by ``maximum_keyframe_in_waiting_list`` (drop-oldest,
-reference :1552-1555) with the cell-map snapshot it completed against.
+reference :1552-1555) with the cell map it completed against, which
+the service keeps as it was handed (`LoopCloser.on_frame` says what a
+caller must not overwrite).
 
 The heavy work (the descriptor, the similarity scan, up to N scene
 alignments, the pose-graph solve) runs on a worker thread
@@ -200,12 +202,24 @@ class LoopCloser:
         return self._busy
 
     # ---- per-frame accumulation (frame thread) ---------------------------
+    def completes_keyframe(self) -> bool:
+        """Whether the next `on_frame` completes a keyframe."""
+        return not self.closed and self.updating[0].frames + 1 >= self.lc.scans_of_each_keyframe
+
     def on_frame(self, cell_full: CellMap, touched: torch.Tensor, q_w, t_w,
                  frame_idx: int) -> Optional[KeyframeRecord]:
         """Feed one registered frame's touched-cell mask and pose (device
         tensors; nothing is read on the host).  Returns the keyframe that
         completed, if one did: inline it is processed before returning,
-        async the worker processes it later."""
+        async the worker processes it later.
+
+        What it keeps: ``touched`` and ``cell_full.keys`` are read here,
+        on the frame stream, into a new tensor; ``q_w`` and ``t_w`` go into
+        the record of a keyframe that completes here, and ``cell_full``
+        (every tensor of it) waits with that record until the keyframe is
+        processed (`completes_keyframe` says beforehand).  A caller that
+        overwrites its tensors later (the frame program's static state)
+        hands copies of what is kept."""
         if self.closed:
             return None
         fkeys = torch.where(touched, cell_full.keys, torch.full_like(cell_full.keys, EMPTY_KEY))

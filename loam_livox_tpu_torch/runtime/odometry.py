@@ -38,18 +38,18 @@ In place of the JAX rng key the state carries a ``torch.Generator`` on
 the device, which draws the uniforms of residual subsampling
 (``optimization/subsample_residuals``); its draws cannot match JAX's.
 The frame counter, ring pointer and ring length are int32 scalars on
-the state's device, as in the JAX package; the cell maps' frame index
-is a host integer.
+the state's device, as is each cell map's frame index, as in the JAX
+package.
 
 History admission stays on the device, as the JAX step's ``jnp.where``
 and ``lax.cond`` keep it (``loam_livox_tpu/runtime/odometry.py:325-453``):
-the flag is a bool tensor, the ring write, pointers and last admitted
-pose are selects, and the matching buffer's rebuild and append are both
-computed and the one the flag and the cadence pick is kept.  A step
-reads nothing on the host, so the frame program
-(`runtime.frame_program`) can capture it.  Only the cell maps (cell
-matching or loop closure) take host branches on the flag: they read it
-once a step, counted in `SYNCS`.
+the flag is a bool tensor; the ring write, pointers and last admitted
+pose are selects; every cell map takes every frame, its points masked
+by the flag (an all-False mask moves only the map's frame index, as
+`map.cell_map.skip_frame` would); and the matching buffer's rebuild
+and append are both computed and the one the flag and the cadence pick
+is kept.  A step reads nothing on the host, in either matching mode, so
+the frame program (`runtime.frame_program`) can capture it.
 """
 from __future__ import annotations
 
@@ -57,19 +57,20 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
-from ..core import accounting, se3
+from ..core import se3
 from ..core.config import SlamConfig, require_supported
 from ..core.types import FeatureFrame, PointBatch
 from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius,
-                            empty_cell_map, gather_cell_points, skip_frame)
+                            empty_cell_map, gather_cell_points)
 from ..ops.bucket_grid import BucketGrid, build_bucket_grid
 from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
 from ..registration.icp import (RegistrationResult, prepare_frame, refine_blur,
                                 register_on_host)
 
-#: host reads of the history-admission flag since the last reset (made
-#: only where cell maps branch on it)
+#: host reads of the history-admission flag since the last reset: none
+#: since the cell maps take masked insertions (the place stays in the
+#: host-sync audit, where it reads 0)
 SYNCS = {"admit": 0}
 
 
@@ -272,9 +273,9 @@ def _select(cond: torch.Tensor, a, b):
 
 
 class MatchingUpdate(NamedTuple):
-    """A step's matching-buffer update under history matching: rebuild
-    the buffer from the history window, append the step's world points,
-    or neither (the JAX step's ``lax.cond``)."""
+    """A step's matching-buffer update: rebuild the buffer from its
+    sources (the history window, or the cells near the new pose), append
+    the step's world points, or neither (the JAX step's ``lax.cond``)."""
     rebuild: torch.Tensor             # () bool
     append: Optional[torch.Tensor]    # () bool, exclusive of rebuild; None without appends
     corners: PointBatch               # the step's world points, for an append
@@ -283,7 +284,8 @@ class MatchingUpdate(NamedTuple):
 
 def rebuilt_matching(state: OdometryState, cfg: SlamConfig):
     """``(map_corners, map_surface, grid_corners, grid_surface)`` rebuilt
-    from the state's history window."""
+    from the state's matching sources (`matching_sources`): the history
+    window, or the cell maps around the state's pose."""
     map_c, map_s = rebuild_matching_buffer(state, cfg)
     return (map_c, map_s) + tuple(build_grids(map_c, map_s, cfg))
 
@@ -322,17 +324,17 @@ def commit_frame(state: OdometryState, frame: FeatureFrame,
     coasted start pose in the racing step.  Returns a new state; the input state's tensors
     are not modified."""
     new, reg, upd = commit_history(state, frame, corner_in, surf_in, reg, cfg, q_base, t_base)
-    return (new if upd is None else update_matching(new, upd, cfg)), reg
+    return update_matching(new, upd, cfg), reg
 
 
 def commit_history(state: OdometryState, frame: FeatureFrame,
                    corner_in: PointBatch, surf_in: PointBatch,
                    reg: RegistrationResult, cfg: SlamConfig, q_base=None, t_base=None
-                   ) -> Tuple[OdometryState, RegistrationResult, Optional[MatchingUpdate]]:
-    """`commit_frame` up to the matching buffer under history matching:
-    the new state (the matching buffer as it was) and the
-    `MatchingUpdate` that `update_matching` applies; with cell maps,
-    the whole commit and no update."""
+                   ) -> Tuple[OdometryState, RegistrationResult, MatchingUpdate]:
+    """`commit_frame` up to the matching buffer: the new state (history
+    ring, cell maps and pose; the matching buffer as it was) and the
+    `MatchingUpdate` that `update_matching` applies.  Reads nothing on
+    the host."""
     fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
     deblur = bool(cfg.common.if_motion_deblur)
     if q_base is None:
@@ -382,54 +384,31 @@ def commit_history(state: OdometryState, frame: FeatureFrame,
         hist_len=torch.where(admit, torch.clamp(state.hist_len + 1, max=w), state.hist_len),
         last_his_q=torch.where(admit, reg.q_w, state.last_his_q),
         last_his_t=torch.where(admit, reg.t_w, state.last_his_t))
-    interval = rebuild_interval(cfg)
-    if state.cell_corners is None and state.cell_full is None:
-        # rebuild (admitted, on the cadence), append (admitted, off it) or
-        # keep, decided on the device
-        do_rebuild = admit if interval == 1 else admit & (state.frame_count % interval == 0)
-        do_append = (admit & ~do_rebuild) if append_mode(cfg) and interval > 1 else None
-        return new, reg, MatchingUpdate(do_rebuild.reshape(()), None if do_append is None
-                                        else do_append.reshape(()), corner_w, surf_w)
+    # cell-map insertion (reference :1491-1493) with the frame's points
+    # masked by admission, before the rebuild, so that a rebuild sees
+    # this frame's cells; a frame not admitted moves only the maps'
+    # frame index (the JAX step, loam_livox_tpu/runtime/odometry.py:358-380)
+    revisit, max_new = cfg.common.threshold_cell_revisit, caps.cell_max_new_per_frame
 
-    # The cell maps branch on the host: one read of the flag (and of the
-    # rebuild cadence, in the same transfer).
-    accounting.count(SYNCS, "admit")
-    admitted, on_cadence = torch.stack([admit.reshape(()),
-                                        state.frame_count % interval == 0]).tolist()
-    # the full-cloud cell map of loop closure (reference :1526-1530)
-    if state.cell_full is not None:
-        if admitted:
-            s = refine_blur(frame.full.time, frame.time_min, frame.time_max, deblur)
-            full_w = frame.full._replace(xyz=res.transform_points_incre(
-                reg.q_incre, reg.t_incre, frame.full.xyz, s, q_base, t_base, deblur))
-            cell_full, touched = append_cloud(state.cell_full, full_w,
-                                              cfg.common.threshold_cell_revisit,
-                                              caps.cell_max_new_per_frame)
-        else:
-            cell_full = skip_frame(state.cell_full)
-            touched = torch.zeros_like(state.last_touched)
-        new = new._replace(cell_full=cell_full, last_touched=touched)
-    # The cell maps count every frame (the JAX step appends each frame
-    # with an admit-gated mask), so a frame that is not admitted still
-    # moves their frame index.
-    if not admitted:
-        if state.cell_corners is not None:
-            new = new._replace(cell_corners=skip_frame(state.cell_corners),
-                               cell_planes=skip_frame(state.cell_planes))
-        return new, reg, None
-    # cell-map insertion (reference :1491-1493), before the rebuild, so
-    # that a rebuild sees this frame's cells
+    def insert(cells: CellMap, pts: PointBatch):
+        return append_cloud(cells, pts._replace(mask=pts.mask & admit), revisit, max_new)
+
     if state.cell_corners is not None:
-        revisit, max_new = cfg.common.threshold_cell_revisit, caps.cell_max_new_per_frame
-        new = new._replace(
-            cell_corners=append_cloud(state.cell_corners, corner_w, revisit, max_new)[0],
-            cell_planes=append_cloud(state.cell_planes, surf_w, revisit, max_new)[0])
+        new = new._replace(cell_corners=insert(state.cell_corners, corner_w)[0],
+                           cell_planes=insert(state.cell_planes, surf_w)[0])
+    # the full-cloud cell map of loop closure (reference :1526-1530): the
+    # registered full cloud in the world frame with deblur
+    if state.cell_full is not None:
+        s = refine_blur(frame.full.time, frame.time_min, frame.time_max, deblur)
+        full_w = frame.full._replace(xyz=res.transform_points_incre(
+            reg.q_incre, reg.t_incre, frame.full.xyz, s, q_base, t_base, deblur))
+        cell_full, touched = insert(state.cell_full, full_w)
+        new = new._replace(cell_full=cell_full, last_touched=touched)
 
-    if interval == 1 or on_cadence:
-        map_c, map_s, grid_c, grid_s = rebuilt_matching(new, cfg)
-        return new._replace(map_corners=map_c, map_surface=map_s,
-                            grid_corners=grid_c, grid_surface=grid_s), reg, None
-    if append_mode(cfg):
-        return new._replace(map_corners=append_to_buffer(state.map_corners, corner_w),
-                            map_surface=append_to_buffer(state.map_surface, surf_w)), reg, None
-    return new, reg, None
+    # rebuild (admitted, on the cadence), append (admitted, off it) or
+    # keep, decided on the device
+    interval = rebuild_interval(cfg)
+    do_rebuild = admit if interval == 1 else admit & (state.frame_count % interval == 0)
+    do_append = (admit & ~do_rebuild) if append_mode(cfg) and interval > 1 else None
+    return new, reg, MatchingUpdate(do_rebuild.reshape(()), None if do_append is None
+                                    else do_append.reshape(()), corner_w, surf_w)

@@ -78,9 +78,9 @@ line's ``--follow``) read the queue after every raw frame, down to the
 racing queue depth.
 
 On the card, a configuration on the frame program's slice
-(`runtime.frame_program.on_slice`: sequential dispatch, the Livox front
-end, history matching, the ``knn_fused`` engine, loop closure off) runs
-each raw frame as one CUDA graph launch (`runtime.frame_program`), the
+(`runtime.frame_program.on_slice`: the Livox front end, history or cell
+matching, the ``knn_fused`` engine, loop closure on or off) runs each
+raw frame as one CUDA graph launch (`runtime.frame_program`), the
 counterpart of the JAX package's one jitted program a frame; its rows,
 state and iterations equal the plain program's (`process_raw_frame`)
 bit for bit.  The frame program also runs a chunk (one graph launch a
@@ -89,7 +89,8 @@ depends on the device and the configuration only.  Every other path,
 and every path on the CPU, runs the plain program.  On the graph path
 the program updates its static state in place; `state` hands a reader
 outside the pipeline a copy of it, so that a state once read stays as
-it was, as the JAX pipeline's new arrays do.
+it was, as the JAX pipeline's new arrays do, and the loop service gets
+copies of what it keeps (`_feed_loop`).
 
 Host-sync audit (a sync drains the launch queue):
 
@@ -99,9 +100,8 @@ Host-sync audit (a sync drains the launch queue):
                                                                              group, on the plain
                                                                              program; none in the
                                                                              frame program
-    runtime/odometry.py commit_history      history admission and the        1 a piece with cell
-                                            rebuild cadence, read together   maps (cell matching or
-                                            where the cell maps branch       loop closure); else none
+    runtime/odometry.py commit_history      history admission (``admit``):   never (the cell maps
+                                            no read left                     take masked insertions)
     runtime/pipeline.py _drain              .cpu() of the rows of the        1 a racing group (or
                                             groups drained past the queue    fallback frame) past
                                             depth, for the motion guard      the queue depth; with
@@ -502,11 +502,20 @@ class OdometryPipeline:
         """Hand the loop service the state's touched cells and pose, still
         on the device, as one entry for the ``n_frames`` raw frames just
         run (the JAX package parks one entry a frame, a chunk or a raced
-        group, indexed by its first frame); then count the frames."""
-        if self.loop_closer is not None and not self.loop_closer.closed:
+        group, indexed by its first frame); then count the frames.  On
+        the frame program, whose next unit overwrites its static state,
+        the service gets copies of what it keeps (`LoopCloser.on_frame`):
+        the pose, and the full-cloud map when a keyframe completes, copied
+        on the frame stream before the service records its event."""
+        closer = self.loop_closer
+        if closer is not None and not closer.closed:
             st = self._live()
-            self.loop_closer.on_frame(st.cell_full, st.last_touched, st.q_w, st.t_w,
-                                      self._frame_idx)
+            cell_full, q_w, t_w = st.cell_full, st.q_w, st.t_w
+            if self.program is not None:
+                q_w, t_w = q_w.clone(), t_w.clone()
+                if closer.completes_keyframe():
+                    cell_full = map_tensors(torch.clone, cell_full)
+            closer.on_frame(cell_full, st.last_touched, q_w, t_w, self._frame_idx)
         self._frame_idx += n_frames
 
     def process_feature_frame(self, frame: FeatureFrame) -> None:
@@ -527,6 +536,8 @@ class OdometryPipeline:
         runtime/pipeline.py:162-178)."""
         buf, self._buf = self._buf, []
         if self.program is not None:
+            # the graph writes the OR of the frames' touched masks into the
+            # state's last_touched (`frame_program._ChunkKey`)
             self.state, rows, last_reg = self.program.run_chunk(
                 self._live(), buf, self.cfg_active, steps_per_frame(self.cfg_active))
             self._pending.append(self._unit(rows, last_reg))

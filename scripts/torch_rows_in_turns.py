@@ -33,6 +33,19 @@ of the same configuration (the kernels' first launches):
                       (``parallel/dispatch_chunk``), one graph launch a
                       chunk where the checkout has one
     chunked_plain     the same through the plain program
+    full_mapping      the ``full_mapping`` scenario's configuration (cell
+                      matching, 8,192 cells x 32 points) with registration
+                      after 10 frames, on the same stream; one graph
+                      launch a frame where the checkout runs cell
+                      matching on the frame program
+    full_mapping_plain  the same through the plain program
+    loop_closure      the ``loop_closure`` scenario's configuration (the
+                      loop service on its worker) with registration after
+                      10 frames, on the same stream (keyframes complete
+                      from frame 29; the service is shut down after the
+                      flush); one graph launch a frame where the checkout
+                      runs loop closure on the frame program
+    loop_closure_plain  the same through the plain program
 
 A row's time runs from the pipeline's construction to its flush, graph
 captures included.  Prints one JSON line a turn and a summary line with
@@ -53,7 +66,8 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
 ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_branched",
-        "racing", "racing_plain", "chunked", "chunked_plain")
+        "racing", "racing_plain", "chunked", "chunked_plain", "full_mapping",
+        "full_mapping_plain", "loop_closure", "loop_closure_plain")
 
 
 def child(root: str, n_frames: int, labels) -> dict:
@@ -95,7 +109,10 @@ def child(root: str, n_frames: int, labels) -> dict:
             pipe.process_raw(pts, inten, t, mask=m)
         pipe.flush()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, pipe
+        wall = time.perf_counter() - t0
+        if pipe.loop_closer is not None:
+            pipe.loop_closer.shutdown()
+        return wall, pipe
 
     rows = {"main_fixed": (cfg, False), "main_fixed_plain": (cfg, True),
             "dense": (cfg.replace(optimization={"correspondence": "dense"}), False),
@@ -106,6 +123,11 @@ def child(root: str, n_frames: int, labels) -> dict:
     chunked = cfg.replace(parallel={"dispatch_chunk": 8})
     rows.update(racing=(racing, False), racing_plain=(racing, True),
                 chunked=(chunked, False), chunked_plain=(chunked, True))
+    from loam_livox_tpu_torch.eval import scenarios as S
+
+    for name in ("full_mapping", "loop_closure"):
+        scenario = S.scenario_config(name)[0].replace(mapping={"init_accumulate_frames": 10})
+        rows.update({name: (scenario, False), f"{name}_plain": (scenario, True)})
     out = {"root": root, "has_frame_program": hasattr(OdometryPipeline(cfg, device=dev),
                                                        "program")}
     from loam_livox_tpu_torch.runtime import odometry as O

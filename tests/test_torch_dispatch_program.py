@@ -273,4 +273,13 @@ def test_on_slice_admits_chunked_and_racing_dispatch():
     assert on_slice(racing, card) and int(racing.parallel.frame_batch) > 1
     assert not on_slice(racing, torch.device("cpu"))
     assert not on_slice(racing.replace(common={"lidar_type": "velodyne"}), card)
-    assert not on_slice(racing.replace(loop_closure={"if_enable_loop_closure": 1}), card)
+    # cell matching and loop closure run on the frame program under every
+    # dispatch (their cell maps take masked insertions, no host branch)
+    for dispatch in ({}, {"dispatch_chunk": 8}):
+        base = SlamConfig().replace(parallel=dispatch)
+        assert on_slice(base.replace(loop_closure={"if_enable_loop_closure": 1}), card)
+        assert on_slice(base.replace(mapping={"matching_mode": 1}), card)
+    assert on_slice(racing.replace(loop_closure={"if_enable_loop_closure": 1}), card)
+    assert on_slice(racing.replace(mapping={"matching_mode": 1}), card)
+    assert not on_slice(racing.replace(optimization={"correspondence": "grid"}), card)
+    assert not on_slice(racing.replace(optimization={"subsample_residuals": 64}), card)

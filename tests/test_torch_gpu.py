@@ -534,7 +534,11 @@ def test_loop_entries_under_dispatch_equal_cpu(cuda, parallel):
     """The loop service's entries under chunked and racing dispatch (the
     two modes tests/test_torch_loop_dispatch.py runs on the CPU), on the
     card against the CPU: each entry's frame index and touched mask
-    equal, the keyframes' member keys equal, and the poses close.
+    equal, the keyframes' member keys equal, and the poses close.  The
+    card runs the plain program (the run reads its first Gauss-Newton
+    system on the host, which no graph capture allows); the frame
+    program's entries equal the plain program's bit for bit
+    (`test_frame_program_loop_closure_equals_plain`).
 
     Where the devices part: the run's first Gauss-Newton system has the
     same mask on both, residuals within 1e-7 and Jacobians within 1e-5
@@ -865,13 +869,14 @@ def _state_leaves(tree, prefix=""):
     return out
 
 
-def _graph_and_plain(cuda, cfg, n_frames):
+def _graph_and_plain(cuda, cfg, n_frames, init=10):
     """The same padded frames through a pipeline on the frame program and
-    one on the plain program (``program = None``), both on the card."""
+    one on the plain program (``program = None``), both on the card (the
+    simulator's trajectory starts moving after ``init`` frames)."""
     from chip_smoke import on_device, simulate
     from loam_livox_tpu_torch.runtime import pipeline as P
 
-    _, host = simulate(n_frames, 10000, 10)
+    _, host = simulate(n_frames, 10000, init)
     frames = on_device(host, cfg.capacity.max_raw_points, cuda)
     out = []
     for plain in (False, True):
@@ -1122,6 +1127,208 @@ def test_a_state_read_is_not_changed_by_the_next_unit(cuda, parallel):
     other.flush()
     for n, v in _state_leaves(other.state).items():
         assert torch.equal(v, after[n]), n
+
+
+# ---- cell matching and loop closure on the frame program --------------------
+
+def _cell_config(parallel=None):
+    """Cell matching (``full_mapping``'s settings at 2,048 cells of 16
+    points), registration from frame 4."""
+    return SlamConfig().replace(
+        mapping={"init_accumulate_frames": 4, "matching_mode": 1},
+        capacity={"cell_capacity": 2048, "cell_point_capacity": 16},
+        parallel={**(parallel or {}), "batch_motion_guard_t": 0.0})
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["sequential", "chunked", "racing"])
+def test_frame_program_cell_mode_equals_plain(cuda, parallel):
+    """Cell matching on the frame program (10 frames; chunks of 4 with a
+    tail of 2; racing groups of 3 with a tail of 1): one graph launch a
+    unit, no ICP-exit or admission read, and rows, iterations and every
+    state tensor (the cell maps and their frame indices included)
+    bit-equal to the plain program's."""
+    cfg = _cell_config(parallel)
+    (g, sg, cg), (p, sp, cp) = _graph_and_plain(cuda, cfg, 10, init=4)
+    assert g.program is not None and cg["graph_launch"] > 0 and cp["graph_launch"] == 0
+    units = {"dispatch_chunk": 3, "frame_batch": 4}.get(next(iter(parallel), None), 10)
+    assert cg["graph_launch"] == units
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0 and sp["admit"] == 0
+    assert int(g.state.cell_planes.n_cells()) > 0 and int(g.state.cell_planes.frame_idx) == 10
+    assert sum(g.iterations) > 0
+    _assert_runs_equal(g, p)
+
+
+def _loop_config(parallel=None, async_service=1):
+    """Loop closure with keyframes of 3 entries, one every 2, on the
+    schedule with its watermark lowered to 0.2 (a growth, so a capture,
+    mid-stream), registration from frame 4."""
+    return SlamConfig().replace(
+        mapping={"init_accumulate_frames": 4},
+        capacity={"schedule_watermark": 0.2},
+        loop_closure={"if_enable_loop_closure": 1, "scans_of_each_keyframe": 3,
+                      "scans_between_two_keyframe": 2,
+                      "if_loop_service_async": async_service},
+        parallel={**(parallel or {}), "batch_motion_guard_t": 0.0})
+
+
+def _hold_worker(monkeypatch):
+    """Keep the loop service's worker busy inside each keyframe, running
+    and allocating on its own stream, until the returned event is set
+    (at most 120 s); returns the event."""
+    from loam_livox_tpu_torch.runtime import loop_service as LS
+
+    release, real = __import__("threading").Event(), LS.LoopCloser.process_keyframe
+
+    def held(self, rec, m):
+        x = torch.ones(1 << 16, device=m.keys.device)
+        while not release.wait(0.002):
+            x = (x * 1.0001 + torch.ones_like(x)).clamp_(max=2.0)
+        real(self, rec, m)
+
+    monkeypatch.setattr(LS.LoopCloser, "process_keyframe", held)
+    return release
+
+
+def _loop_runs(cuda, cfg, n_frames, monkeypatch, hold=False):
+    """The same padded frames through the frame program and the plain
+    program on the card, the loop service's entries recorded
+    (`chip_smoke.record_loop_entries`); with ``hold`` the worker held
+    busy (`_hold_worker`) until every frame is in, and whether it was
+    busy at each capture.  Returns ((pipeline, syncs, graphs, entries),
+    (the same for the plain run), busy at each capture)."""
+    from chip_smoke import on_device, record_loop_entries, simulate
+    from loam_livox_tpu_torch.runtime import frame_program as fp
+    from loam_livox_tpu_torch.runtime import loop_service as LS
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    _, host = simulate(n_frames, 10000, 4)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    busy, closers, real_capture = [], [], fp._Pool.capture
+
+    def capture(self, fn):
+        busy.append(closers[-1].busy)
+        return real_capture(self, fn)
+
+    monkeypatch.setattr(fp._Pool, "capture", capture)
+    out = []
+    for plain in (False, True):
+        release = _hold_worker(monkeypatch) if hold else None
+        entries, restore = record_loop_entries(LS)
+        try:
+            pipe = P.OdometryPipeline(cfg, device=cuda)
+            closers.append(pipe.loop_closer)
+            if plain:
+                pipe.program = None
+            P.reset_host_syncs()
+            for pts, inten, t0, mask in frames:
+                pipe.process_raw(pts, inten, t0, mask=mask)
+            if release is not None:
+                release.set()
+            pipe.flush()
+        finally:
+            if release is not None:
+                release.set()
+            restore()
+        pipe.loop_closer.shutdown()
+        out.append((pipe, P.host_syncs(), P.graph_counts(),
+                    entries.get(id(pipe.loop_closer), [])))
+    return out[0], out[1], busy
+
+
+def _assert_entries_equal(graph, plain):
+    """The loop service's entries, bit for bit: frame index, touched keys
+    and each completed keyframe's member keys, pose and ending frame."""
+    assert [e[0] for e in graph] == [e[0] for e in plain] and graph
+    assert any(rec is not None for *_, rec in plain)
+    for (_, kg, rg), (_, kp, rp) in zip(graph, plain):
+        assert torch.equal(kg, kp) and (rg is None) == (rp is None)
+        if rg is not None:
+            assert rg.ending_frame_idx == rp.ending_frame_idx
+            for f in ("keys", "q", "t"):
+                assert torch.equal(getattr(rg, f), getattr(rp, f)), f
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["sequential", "chunked", "racing"])
+def test_frame_program_loop_closure_equals_plain(cuda, parallel, monkeypatch):
+    """Loop closure on the frame program over 18 frames across a growth:
+    one graph launch a unit, no ICP-exit or admission read, rows, every
+    state tensor (the full-cloud map, its touched mask, the feature maps)
+    and the loop service's entries (a chunk's or a group's the OR of its
+    frames' touched masks) bit-equal to the plain program's, and the
+    keyframes the worker processed the same."""
+    cfg = _loop_config(parallel)
+    (g, sg, cg, eg), (p, sp, cp, ep), _ = _loop_runs(cuda, cfg, 18, monkeypatch)
+    assert g.program is not None and len(g.ladder) >= 1 and g.ladder == p.ladder
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0 and cp["graph_launch"] == 0
+    assert cg["graph_launch"] == len(eg) and g.loop_iterations == p.loop_iterations
+    _assert_runs_equal(g, p)
+    _assert_entries_equal(eg, ep)
+    kg, kp = g.loop_closer.keyframes, p.loop_closer.keyframes
+    assert len(kg) == len(kp) > 0
+    for a, b in zip(kg, kp):
+        assert torch.equal(a.keys, b.keys) and a.descriptor.n_cells == b.descriptor.n_cells
+        assert np.array_equal(a.snap_full, b.snap_full)
+
+
+def test_a_waiting_keyframe_keeps_its_map_and_pose(cuda, monkeypatch):
+    """With the worker held in its first keyframe, a later keyframe waits:
+    its record's pose and keys and its cell map stay as they were when it
+    completed while the next frames' graph launches update the static
+    state in place, and its map is not the static state's."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = _loop_config().replace(capacity={"auto_schedule": 0})
+    _, host = simulate(14, 10000, 4)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    release = _hold_worker(monkeypatch)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    closer = pipe.loop_closer
+    try:
+        item = None
+        for i, (pts, inten, t0, mask) in enumerate(frames):
+            pipe.process_raw(pts, inten, t0, mask=mask)
+            with closer._lock:          # the first keyframe held, a later one waiting
+                if closer.busy and closer.waiting:
+                    item = closer.waiting[0]
+            if item is not None:
+                break
+        assert item is not None and i + 4 < len(frames)
+        rec, m, _ = item
+        kept_rec = {f: getattr(rec, f).clone() for f in ("q", "t", "keys")}
+        kept_map = {f: getattr(m, f).clone() for f in m._fields[1:]}
+        static = pipe._live().cell_full
+        for f in m._fields[1:]:
+            assert getattr(m, f).data_ptr() != getattr(static, f).data_ptr(), f
+        for pts, inten, t0, mask in frames[i + 1:]:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+        torch.cuda.synchronize()
+        assert int(static.frame_idx) == len(frames) and int(m.frame_idx) < len(frames)
+        for f, v in kept_rec.items():
+            assert torch.equal(getattr(rec, f), v), f
+        for f, v in kept_map.items():
+            assert torch.equal(getattr(m, f), v), f
+    finally:
+        release.set()
+    pipe.flush()
+    closer.shutdown()
+    assert any(r is rec for r in closer.keyframes)
+
+
+def test_capture_while_the_worker_processes_a_keyframe(cuda, monkeypatch):
+    """A capacity growth captures a new key while the loop worker runs a
+    keyframe on its own stream (held busy, allocating, until every frame
+    is in): the capture succeeds, and the run equals the plain program's
+    under the same hold (rows, state, loop entries)."""
+    cfg = _loop_config()
+    (g, sg, cg, eg), (p, _, _, ep), busy = _loop_runs(cuda, cfg, 18, monkeypatch, hold=True)
+    assert len(g.ladder) >= 1 and cg["graph_capture"] >= 2
+    assert busy[0] is False and any(busy), busy
+    assert sg["icp_exit"] == sg["admit"] == 0
+    _assert_runs_equal(g, p)
+    _assert_entries_equal(eg, ep)
 
 
 def test_failed_capture_raises(cuda, monkeypatch):
