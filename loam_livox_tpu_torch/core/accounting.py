@@ -15,12 +15,14 @@ from contextlib import contextmanager
 _local = threading.local()
 
 #: the frame program's (`runtime.frame_program`) graph launches (one a
-#: dispatch unit: a raw frame, a chunk or a racing group), captures (one a
-#: shape key) and the seconds the captures took, in all and by the key's
-#: kind, since the last `runtime.pipeline.reset_host_syncs`
+#: dispatch unit: a raw frame, a chunk, a racing group, a feature-frame
+#: step, or a multi-head frame's front end), captures (one a shape key)
+#: and the seconds the captures took, in all and by the key's kind, since
+#: the last `runtime.pipeline.reset_host_syncs`
+GRAPH_KINDS = ("frame", "chunk", "group", "step", "heads")
 GRAPHS = {"graph_launch": 0, "graph_capture": 0, "graph_capture_s": 0.0,
           **{f"{what}_{kind}": 0 for what in ("launch", "capture")
-             for kind in ("frame", "chunk", "group")}}
+             for kind in GRAPH_KINDS}}
 
 
 @contextmanager

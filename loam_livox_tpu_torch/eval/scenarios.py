@@ -138,31 +138,22 @@ def simulators(cfg: SlamConfig, kw: Dict):
 
 def multi_head_frame(pipe, parts) -> None:
     """One raw frame of every head (``parts``: each head's ``(xyz,
-    intensity, t0)``) through the multi-LiDAR front end, then each merged
-    piece through the source voxel filter (at the merged capacities) and
-    one odometry step."""
+    intensity, t0)``) through the multi-LiDAR front end and each merged
+    piece's source voxel filter (`OdometryPipeline.head_frames`), then one
+    odometry step a piece: on the frame program 1 + P graph launches."""
     from ..core.types import to_device
-    from ..frontend.multi import extract_multi_lidar
-    from ..ops.voxel import voxel_downsample
 
-    cfg, dev = pipe.cfg, pipe.device
-    fe, caps = cfg.feature_extraction, cfg.capacity
-    nr = caps.max_raw_points
+    nr = pipe.cfg.capacity.max_raw_points
     xyz = np.zeros((len(parts), nr, 3), np.float32)
     inten = np.zeros((len(parts), nr), np.float32)
     mask = np.zeros((len(parts), nr), bool)
     for s, (x, it, _) in enumerate(parts):
         m = min(len(x), nr)
         xyz[s, :m], inten[s, :m], mask[s, :m] = x[:m], it[:m], True
-    frames = extract_multi_lidar(to_device(xyz, dev), to_device(inten, dev),
-                                 to_device(mask, dev), parts[0][2], fe, caps,
-                                 piecewise_number=cfg.common.piecewise_number)
-    for fr in frames:
-        pipe.process_feature_frame(fr._replace(
-            corners=voxel_downsample(fr.corners, fe.mapping_line_resolution,
-                                     capacity=fr.corners.capacity),
-            surface=voxel_downsample(fr.surface, fe.mapping_plane_resolution / 2.0,
-                                     capacity=fr.surface.capacity)))
+    dev = pipe.device
+    for fr in pipe.head_frames(to_device(xyz, dev), to_device(inten, dev),
+                               to_device(mask, dev), parts[0][2]):
+        pipe.process_feature_frame(fr)
 
 
 def run_scenario(name: str, frames: int | None = None, small: bool = False,

@@ -24,7 +24,8 @@ filter cuts them to ``max_corner``); the surface is every other
 in-sector point, voxel-filtered here at half the plane leaf.  The
 reference's 5 flat picks a sector select nothing that reaches these
 clouds (the JAX package computes and drops them), so they do not run.
-Nothing here reads a device value on the host.
+Nothing here reads a device value on the host, and no shape depends on
+the data, so the frame program captures it.
 """
 from __future__ import annotations
 
@@ -138,11 +139,13 @@ def _scatter_any(n: int, idx: torch.Tensor, flag: torch.Tensor) -> torch.Tensor:
     return out.index_fill_(0, torch.where(flag, idx, torch.full_like(idx, n)), True)[:n]
 
 
-def extract_velodyne_features(xyz: torch.Tensor, in_mask: torch.Tensor, base_time: float,
-                              fe: FeatureExtractionConfig,
+def extract_velodyne_features(xyz: torch.Tensor, in_mask: torch.Tensor,
+                              base_time: float | torch.Tensor, fe: FeatureExtractionConfig,
                               minimum_range: float = 0.1) -> FeatureFrame:
     """Corner, surface and full clouds of one padded sweep (module doc),
-    each at the sweep's capacity."""
+    each at the sweep's capacity.  ``base_time`` is a float or a scalar
+    tensor (the frame program's float64 device scalar), converted to
+    float32 on the device, so both give the same bits."""
     dev = xyz.device
     n = xyz.shape[0]
     n_lines = fe.scan_line
@@ -153,7 +156,11 @@ def extract_velodyne_features(xyz: torch.Tensor, in_mask: torch.Tensor, base_tim
 
     sid, mask = _scan_id(xs, mask, n_lines)
     rel = _relative_time(xs, mask)
-    time = torch.full((), base_time, dtype=torch.float32, device=dev) + SCAN_PERIOD * rel
+    if isinstance(base_time, torch.Tensor):
+        t0 = base_time.to(device=dev, dtype=torch.float32).reshape(())
+    else:
+        t0 = torch.full((), base_time, dtype=torch.float32, device=dev)
+    time = t0 + SCAN_PERIOD * rel
 
     # regroup by (ring, index)
     idxs = torch.arange(n, device=dev)

@@ -15,8 +15,10 @@ is locally dense; in sparse regions far matches are missed, the regime
 the reference drops with its match-distance gates
 (``point_cloud_registration.hpp:64-65``).
 
-Plain torch ops on both devices: sort, run starts, rank in run, a
-directory write that drops overflow (masked, never out of range), then
+Plain torch ops on both devices, at fixed shapes and with no host read
+(the frame program captures the build under its rebuild): sort, run
+starts, rank in run, a directory write that drops overflow into dump
+rows sliced off after, then
 per query a ``searchsorted`` over the 27 neighbour keys, a
 ``(Q, 27, P, 3)`` gather and a top-k that breaks ties as ``lax.top_k``
 does (the lower candidate position first).
@@ -54,7 +56,7 @@ class BucketGrid(NamedTuple):
 
 
 def _coords(xyz: torch.Tensor, size: float) -> torch.Tensor:
-    size = torch.tensor(size, dtype=torch.float32, device=xyz.device)
+    size = torch.full((), size, dtype=torch.float32, device=xyz.device)
     return torch.floor(xyz / size).to(torch.int32)
 
 
@@ -67,9 +69,14 @@ def build_bucket_grid(xyz: torch.Tensor, mask: torch.Tensor, bucket_size: float,
                       n_buckets: int, bucket_cap: int) -> BucketGrid:
     """Bin a masked point batch into the bucket directory.  Points past
     ``bucket_cap`` in one bucket (later in sort order), and buckets past
-    ``n_buckets``, are dropped."""
+    ``n_buckets``, are dropped.  Fixed shapes and no host read, as the
+    JAX build scatters with ``mode="drop"``: every point is written, a
+    dropped one to a dump row past ``n_buckets * bucket_cap`` (and each
+    non-head to a dump slot past the directory), sliced off after; the
+    kept rows are unique, so the scatter's order decides nothing kept."""
     dev = xyz.device
     n = xyz.shape[0]
+    n_rows = n_buckets * bucket_cap
     empty = torch.full((), EMPTY_KEY, dtype=torch.int32, device=dev)
     keys = torch.where(mask, _pack(_coords(xyz, bucket_size)), empty)
 
@@ -77,34 +84,36 @@ def build_bucket_grid(xyz: torch.Tensor, mask: torch.Tensor, bucket_size: float,
     ks = keys[order]
     first = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), ks[1:] != ks[:-1]])
     first = first & (ks != EMPTY_KEY)
-    bucket_of = torch.cumsum(first.to(torch.int32), 0) - 1
+    bucket_of = (torch.cumsum(first.to(torch.int32), 0) - 1).to(torch.int64)
     idx_all = torch.arange(n, device=dev)
     seg_start = torch.cummax(torch.where(first, idx_all, torch.zeros_like(idx_all)), 0).values
     rank = idx_all - seg_start
 
     valid = (ks != EMPTY_KEY) & (bucket_of < n_buckets) & (rank < bucket_cap)
-    flat = bucket_of.to(torch.int64) * bucket_cap + rank
+    flat = torch.where(valid, bucket_of * bucket_cap + rank, torch.full_like(rank, n_rows))
     head = first & (bucket_of < n_buckets)
+    slot = torch.where(head, bucket_of, torch.full_like(bucket_of, n_buckets))
 
-    dir_keys = torch.full((n_buckets,), EMPTY_KEY, dtype=torch.int32, device=dev)
-    dir_keys[bucket_of[head].to(torch.int64)] = ks[head]
-    pts = torch.zeros((n_buckets * bucket_cap, 3), dtype=torch.float32, device=dev)
-    src = torch.zeros((n_buckets * bucket_cap,), dtype=torch.int32, device=dev)
-    smask = torch.zeros((n_buckets * bucket_cap,), dtype=torch.bool, device=dev)
-    rows = flat[valid]
-    pts[rows] = xyz[order][valid].to(torch.float32)
-    src[rows] = order[valid].to(torch.int32)
-    smask[rows] = True
-    return BucketGrid(bucket_size=float(bucket_size), keys=dir_keys,
-                      pts=pts.reshape(n_buckets, bucket_cap, 3),
-                      src_idx=src.reshape(n_buckets, bucket_cap),
-                      slot_mask=smask.reshape(n_buckets, bucket_cap))
+    dir_keys = torch.full((n_buckets + 1,), EMPTY_KEY, dtype=torch.int32, device=dev)
+    dir_keys[slot] = ks
+    pts = torch.zeros((n_rows + 1, 3), dtype=torch.float32, device=dev)
+    src = torch.zeros((n_rows + 1,), dtype=torch.int32, device=dev)
+    smask = torch.zeros((n_rows + 1,), dtype=torch.bool, device=dev)
+    pts[flat] = xyz[order].to(torch.float32)
+    src[flat] = order.to(torch.int32)
+    smask[flat] = valid
+    return BucketGrid(bucket_size=float(bucket_size), keys=dir_keys[:n_buckets],
+                      pts=pts[:n_rows].reshape(n_buckets, bucket_cap, 3),
+                      src_idx=src[:n_rows].reshape(n_buckets, bucket_cap),
+                      slot_mask=smask[:n_rows].reshape(n_buckets, bucket_cap))
 
 
 def _neighbor_offsets(device) -> torch.Tensor:
-    r = (-1, 0, 1)
-    return torch.tensor([[dx, dy, dz] for dx in r for dy in r for dz in r],
-                        dtype=torch.int32, device=device)          # (27, 3)
+    """The 27 (dx, dy, dz) in {-1, 0, 1}³, dz fastest: made on the device
+    (a host list copied up could not be captured)."""
+    r = torch.arange(-1, 2, dtype=torch.int32, device=device)
+    return torch.stack([a.reshape(-1) for a in torch.meshgrid(r, r, r, indexing="ij")],
+                       dim=1)                                      # (27, 3)
 
 
 def grid_knn(query_xyz: torch.Tensor, grid: BucketGrid, k: int = 5):

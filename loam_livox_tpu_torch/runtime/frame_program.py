@@ -2,19 +2,32 @@
 card, the counterpart of the JAX package's one jitted program a unit
 (``loam_livox_tpu/runtime/pipeline.py:50-60, 136-238``), whose point is
 one dispatch a unit: launches one by one from Python would dominate at
-real-time rates.  A unit is one of three kinds:
+real-time rates.  A unit is one of five kinds:
 
-* a raw frame (``process_raw_frame``);
+* a raw frame (``process_raw_frame``), through the Livox or the
+  Velodyne front end;
 * a chunk of K raw frames run back to back
   (``process_raw_frames_chunked``, a ``lax.scan`` of the frame body);
 * a racing group of G raw frames, their L = G·P pieces registered in one
-  lane-batched solve (``process_raw_frames_batched``).
+  lane-batched solve (``process_raw_frames_batched``);
+* a step on a finished feature frame (``odometry_step``,
+  ``loam_livox_tpu/runtime/odometry.py:231``): a multi-head piece;
+* a multi-head raw frame's front end (``extract_multi_lidar``,
+  ``loam_livox_tpu/frontend/multi.py:37``), whose P merged pieces then
+  run as P steps: 1 + P launches a Mid-100 frame, the JAX package's
+  1 + P dispatches.
+
+Every correspondence engine runs inside them: ``knn_fused``, and the
+``grid`` and ``dense`` engines, whose bucket grids are rebuilt with the
+matching buffer under the rebuild body (a grid has no append).
 
 Each runs what the plain program (`pipeline.process_raw_frame`,
-`batched.odometry_step_batched`) runs, the same functions in the same
-order on the same inputs, so its rows and state equal the plain
-program's bit for bit.  Per shape key, ``(kind, configuration, padded
-input length)`` and for a chunk or group its frame count (jit's static
+`batched.odometry_step_batched`, `odometry.odometry_step`,
+`pipeline.extract_heads`) runs, the same functions in the same order on
+the same inputs, so its rows and state equal the plain program's bit
+for bit.  Per shape key, ``(kind, configuration, padded input length)``,
+for a chunk or group its frame count, for a step the frame's three
+capacities and for a multi-head front end its head count (jit's static
 arguments and shapes; the schedule sets the configuration's
 capacities), it captures at the key's first use, each piece a
 ``torch.cuda.CUDAGraph(keep_graph=True)`` capture into the key's memory
@@ -61,8 +74,10 @@ touched masks (``loam_livox_tpu/runtime/pipeline.py:163-178``): ``load
 it, and ``store K-1`` writes it into the state's ``last_touched``.  The
 assembly clones every piece and creates a conditional handle for each
 WHILE and SWITCH node it places, so one capture serves K placements; a
-chunk costs one frame capture and 2K small ones.  A group is captured
-whole:
+chunk costs one frame capture and 2K small ones.  A step key is a frame
+key whose segment 0 starts from a static feature frame (`_StepKey`,
+copied in before each launch) in place of the front end; a multi-head
+front end is one segment (`_HeadsKey`).  A group is captured whole:
 
     segment 0   the G front ends (`pipeline.extract_pieces`) over the
                 group's input slots and `batched.prepare_group`, its
@@ -84,8 +99,8 @@ graph updates in place.  The pipeline reads that state without a copy
 and hands others a copy (`pipeline.OdometryPipeline.state`).  A capacity
 growth re-pads the state between units; the next unit's key is new and
 is captured then, and the keys it supersedes (the same kind,
-configuration, input length and frame count at other capacities: the
-schedule only grows) are freed.
+configuration and shape at other capacities: the schedule only grows)
+are freed.
 
 The keys hold what the state holds: in cell matching and with loop
 closure the cell maps (each map's frame index a device scalar that the
@@ -109,11 +124,13 @@ import torch
 
 from ..core import accounting
 from ..core.config import SlamConfig
-from ..core.types import PointBatch
+from ..core.types import FeatureFrame, PointBatch
 from ..map.cell_map import append_cloud, empty_cell_map
 from ..ops import debounce as debounce_op
 from ..ops import graph_cond
 from ..ops import knn_fused as knn_op
+from ..ops.bucket_grid import build_bucket_grid, grid_knn
+from ..ops.knn import knn_dense
 from ..registration.icp import ICPCarry
 from .batched import commit_lane, prepare_group
 from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_history,
@@ -121,15 +138,17 @@ from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_
 
 
 def on_slice(cfg: SlamConfig, device: torch.device, mesh=None) -> bool:
-    """Whether the frame program runs a pipeline's raw frames: on the
-    card, the Livox front end, the ``knn_fused`` engine, no residual
-    subsampling (its generator is not replayed), no product mesh; history
-    or cell matching (``mapping/matching_mode`` 0 or 1), loop closure on
-    or off; sequential, chunked or racing dispatch.  Everything else runs
-    the plain program (`ROADMAP.md` lists those paths)."""
-    c, o, p = cfg.common, cfg.optimization, cfg.parallel
+    """Whether the frame program runs a pipeline's dispatch units: on the
+    card, every front end and engine `require_supported` accepts (Livox
+    or Velodyne; ``knn_fused``, ``grid`` or ``dense``), history or cell
+    matching, loop closure on or off, under sequential, chunked or racing
+    dispatch, and the multi-head frame's front end and feature-frame
+    steps.  Residual subsampling (its generator is not replayed) and a
+    product mesh run the plain program (`ROADMAP.md` lists them); a
+    dispatch mode the plain program refuses raises before this is asked
+    (`pipeline.OdometryPipeline`)."""
+    o, p = cfg.optimization, cfg.parallel
     return (device.type == "cuda" and mesh is None and int(p.mesh_devices) <= 1
-            and c.lidar_type == "livox" and o.correspondence in ("auto", "pallas")
             and int(o.subsample_residuals) == 0)
 
 
@@ -170,9 +189,12 @@ _warm: set = set()
 
 
 def _warm_up(device: torch.device) -> None:
-    """Load every kernel module and library handle the frame uses before
+    """Load every kernel module and library handle the units use before
     the first capture on ``device`` (a kernel's first launch or a
-    library's first call must not happen under capture)."""
+    library's first call must not happen under capture): the solver,
+    the sorts, the three engines (the ``dense`` engine's ``q @ ref.T`` on
+    cuBLAS, the ``grid`` build's ``cummax`` and scatters and its query's
+    ``searchsorted``), the port's kernels and a cell-map insertion."""
     if device in _warm:
         return
     f32 = dict(dtype=torch.float32, device=device)
@@ -184,6 +206,8 @@ def _warm_up(device: torch.device) -> None:
     mask = torch.ones(512, dtype=torch.bool, device=device)
     with accounting.charged_to({}):
         knn_op.knn_fused(torch.zeros((4, 3), **f32), ref, mask, k=5, max_radius=1.0)
+    knn_dense(torch.zeros((4, 3), **f32), ref, mask, k=5, query_tile=2)
+    grid_knn(torch.zeros((4, 3), **f32), build_bucket_grid(ref, mask, 1.0, 8, 4), k=5)
     idx = torch.full((8,), 8, dtype=torch.int64, device=device)
     debounce_op.debounce(idx, torch.zeros(8, dtype=torch.bool, device=device), 8,
                          torch.ones((), dtype=torch.int64, device=device), 1)
@@ -212,13 +236,18 @@ def _inputs(device, n_raw: int, lead: tuple = ()) -> _Inputs:
                    torch.zeros(lead, dtype=torch.float64, device=device))
 
 
+def _load_inputs(inp: _Inputs, pts, inten, mask, base_time: float) -> None:
+    """Copy one raw frame into static input buffers."""
+    inp.pts.copy_(pts)
+    inp.inten.copy_(inten)
+    inp.mask.copy_(mask)
+    inp.base_time.fill_(float(base_time))
+
+
 def _load_slots(slots: _Inputs, frames) -> None:
     """Copy raw frames ``(pts, inten, mask, base_time)`` into the slots."""
-    for k, (pts, inten, mask, base_time) in enumerate(frames):
-        slots.pts[k].copy_(pts)
-        slots.inten[k].copy_(inten)
-        slots.mask[k].copy_(mask)
-        slots.base_time[k].fill_(float(base_time))
+    for k, frame in enumerate(frames):
+        _load_inputs(_Inputs(*(x[k] for x in slots)), *frame)
 
 
 def _matching(state: OdometryState) -> tuple:
@@ -291,21 +320,27 @@ def _update_switch(pool: _Pool, state: OdometryState, flags: torch.Tensor,
     return graph_cond.Item(graph_cond.SWITCH, bodies, flags[:len(bodies)])
 
 
-class _FrameKey:
-    """A raw frame's captured pieces at one shape key, their static
-    buffers, and its frame graph, built at its first launch alone (a key
-    captured for a chunk only never builds it)."""
-    kind = "frame"
+def _debounces(cfg: SlamConfig) -> int:
+    """The debounce kernel's runs a raw frame of one head: one in the
+    Livox front end, none in the Velodyne one."""
+    return 1 if cfg.common.lidar_type == "livox" else 0
+
+
+class _StepsKey:
+    """One unit's odometry steps captured at one shape key: the frames
+    ``front`` makes from the key's static inputs, each step's pieces
+    (module doc), their static buffers, and the unit's graph, built at
+    its first launch alone (a frame key captured for a chunk only never
+    builds it)."""
 
     def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 n_raw: int, n_steps: int):
-        from .pipeline import extract_pieces, trajectory_rows
+                 n_steps: int, front):
+        from .pipeline import trajectory_rows
 
         t0 = time.perf_counter()
         dev = program.device
         self.device = dev
         self.pool = pool = _Pool(program)
-        self.inputs = inp = _inputs(dev, n_raw)
         self.state = map_tensors(torch.clone, state)
         self.rows = torch.zeros((n_steps, 10), dtype=torch.float32, device=dev)
         #: each step's matching-buffer update: (rebuild, append) flags
@@ -324,8 +359,7 @@ class _FrameKey:
             ctx[k] = (frame, corner_in, surf_in, icp_pass, finish)
 
         def seg0() -> None:
-            ctx["frames"] = extract_pieces(inp.pts, inp.inten, inp.mask, inp.base_time, cfg,
-                                           n_steps)
+            ctx["frames"] = front()
             begin(0)
 
         def body(k: int):
@@ -356,9 +390,9 @@ class _FrameKey:
             if k + 1 < n_steps:
                 items.append(G.Item(G.SEGMENT, pool.capture(lambda k=k: begin(k + 1))))
         pool.keep += [ctx, carries, flags]
-        #: the pieces in replay order, placed by a frame graph or a chunk's
+        #: the pieces in replay order, placed by the unit's graph or a chunk's
         self.items = items
-        self.frames, self.steps = 1, n_steps
+        self.steps = n_steps
         self.whiles = self.switches = n_steps
         self._graph = None
         self.capture_s = time.perf_counter() - t0
@@ -377,18 +411,85 @@ class _FrameKey:
         if state is not self.state:
             _assign(self.state, state)
 
-    def load(self, state: OdometryState, pts, inten, mask, base_time: float) -> None:
-        """Point the static buffers at this frame: its inputs and state."""
-        inp = self.inputs
-        inp.pts.copy_(pts)
-        inp.inten.copy_(inten)
-        inp.mask.copy_(mask)
-        inp.base_time.fill_(float(base_time))
-        self.load_state(state)
-
     def close(self) -> None:
         if self._graph is not None:
             self._graph.close()
+
+
+class _FrameKey(_StepsKey):
+    """A raw frame: its front end and source filters over the static
+    inputs, then its steps."""
+    kind = "frame"
+
+    def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
+                 n_raw: int, n_steps: int):
+        from .pipeline import extract_pieces
+
+        self.inputs = inp = _inputs(program.device, n_raw)
+        self.frames, self.debounces = 1, _debounces(cfg)
+        super().__init__(program, state, cfg, n_steps, lambda: extract_pieces(
+            inp.pts, inp.inten, inp.mask, inp.base_time, cfg, n_steps))
+
+    def load(self, state: OdometryState, pts, inten, mask, base_time: float) -> None:
+        """Point the static buffers at this frame: its inputs and state."""
+        _load_inputs(self.inputs, pts, inten, mask, base_time)
+        self.load_state(state)
+
+
+class _StepKey(_StepsKey):
+    """One odometry step on a finished feature frame (the JAX package's
+    jitted ``odometry_step``): the frame key's pieces without the front
+    end, over a static feature frame that `load` copies the caller's
+    into."""
+    kind = "step"
+
+    def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
+                 frame: FeatureFrame):
+        self.inputs = inp = map_tensors(torch.empty_like, frame)
+        self.frames = self.debounces = 0
+        super().__init__(program, state, cfg, 1, lambda: [inp])
+
+    def load(self, state: OdometryState, frame: FeatureFrame) -> None:
+        _assign(self.inputs, frame)
+        self.load_state(state)
+
+
+class _HeadsKey:
+    """A multi-head raw frame's front end (the JAX package's jitted
+    ``extract_multi_lidar``): S heads' static inputs through
+    `pipeline.extract_heads`, captured whole into one graph; its P merged
+    feature frames stay in the key's pool, overwritten by each launch."""
+    kind = "heads"
+
+    def __init__(self, program: "FrameProgram", cfg: SlamConfig, n_heads: int, n_raw: int):
+        from .pipeline import extract_heads
+
+        t0 = time.perf_counter()
+        dev = program.device
+        self.pool = _Pool(program)
+        # one frame time for every head
+        self.inputs = inp = _inputs(dev, n_raw, (n_heads,))._replace(
+            base_time=torch.zeros((), dtype=torch.float64, device=dev))
+        out: Dict[str, list] = {}
+
+        def front() -> None:
+            out["frames"] = extract_heads(inp.pts, inp.inten, inp.mask, inp.base_time, cfg)
+
+        G = graph_cond
+        items = [G.Item(G.SEGMENT, self.pool.capture(front))]
+        #: the merged feature frames, one a piece (static: see `FrameProgram.run_heads`)
+        self.out = out["frames"]
+        self.pool.keep.append(out)
+        self.frames, self.debounces, self.steps = 1, n_heads * _debounces(cfg), 0
+        self.whiles = self.switches = 0
+        self.graph = G.build_frame_graph(dev, items)
+        self.capture_s = time.perf_counter() - t0
+
+    def load(self, xyz, inten, mask, base_time: float) -> None:
+        _load_inputs(self.inputs, xyz, inten, mask, base_time)
+
+    def close(self) -> None:
+        self.graph.close()
 
 
 class _ChunkKey:
@@ -432,6 +533,7 @@ class _ChunkKey:
             items += frame.items
             items.append(G.Item(G.SEGMENT, frame.pool.capture(store(k))))
         self.frames, self.steps = n_frames, n_frames * n_steps
+        self.debounces = n_frames * frame.debounces
         self.whiles, self.switches = n_frames * frame.whiles, n_frames * frame.switches
         self.graph = G.build_frame_graph(frame.device, items)
         self.capture_s = time.perf_counter() - t0
@@ -513,6 +615,7 @@ class _GroupKey:
             items.append(_update_switch(pool, self.state, flags[k], ctx["upd", k], cfg))
         pool.keep += [ctx, flags]
         self.frames, self.steps = n_frames, n_lanes
+        self.debounces = n_frames * _debounces(cfg)
         self.whiles, self.switches = 1, n_lanes
         self.graph = G.build_frame_graph(dev, items)
         self.capture_s = time.perf_counter() - t0
@@ -582,6 +685,33 @@ class FrameProgram:
         self._launch(key, g.graph)
         return g.state, g.rows.clone(), g.last_reg
 
+    def run_step(self, state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
+                 ) -> Tuple[OdometryState, torch.Tensor, object]:
+        """One odometry step on a finished feature frame, one launch: the
+        state, the (1, 10) row and the registration, as `run` returns
+        them.  The key's shape is the frame's own three capacities (a
+        merged multi-head frame has S times a head's)."""
+        caps = (frame.corners.capacity, frame.surface.capacity, frame.full.capacity)
+        key = ("step", cfg, caps)
+        g = self._key(key, lambda: _StepKey(self, state, cfg, frame), build=True)
+        g.load(state, frame)
+        self._launch(key, g.graph)
+        return g.state, g.rows.clone(), g.last_reg
+
+    def run_heads(self, xyz, inten, mask, base_time: float, cfg: SlamConfig
+                  ) -> List[FeatureFrame]:
+        """A multi-head raw frame's front end, one launch: (S, N, 3)
+        points, (S, N) intensities and masks of S heads sharing
+        ``base_time`` -> its merged feature frames (`pipeline.extract_heads`).
+        They are the key's static buffers, overwritten by its next launch:
+        a caller that keeps one past it keeps a copy (`run_step` copies
+        each into its own static frame)."""
+        key = ("heads", cfg, xyz.shape[1], xyz.shape[0])
+        g = self._key(key, lambda: _HeadsKey(self, cfg, xyz.shape[0], xyz.shape[1]))
+        g.load(xyz, inten, mask, base_time)
+        self._launch(key, g.graph)
+        return g.out
+
     def _key(self, key: tuple, make, build: bool = False):
         """The key's graphs, captured by ``make`` at its first use and
         recorded: capacities, shape, nodes, capture seconds, and the
@@ -608,7 +738,8 @@ class FrameProgram:
             "map_surf_capacity": caps.map_surf_capacity,
             "map_corner_capacity": caps.map_corner_capacity,
             "hist_surf_capacity": caps.hist_surf_capacity,
-            "max_surface_ds": caps.max_surface_ds, "n_raw": key[2], "frames": g.frames,
+            "max_surface_ds": caps.max_surface_ds, "shape": key[2],
+            "frames": g.frames, "debounces": g.debounces,
             "steps": g.steps, "whiles": g.whiles, "switches": g.switches,
             "capture_s": g.capture_s, "device_mb": used / 2 ** 20, "launches": 0}))
         accounting.GRAPHS["graph_capture"] += 1
@@ -626,8 +757,9 @@ class FrameProgram:
         accounting.GRAPHS[f"launch_{key[0]}"] += 1
 
     def _drop_superseded(self, key: tuple) -> None:
-        """Free the keys of ``key``'s kind, configuration, input length
-        and frame count at other capacities: the schedule only grows, so
+        """Free the keys of ``key``'s kind, configuration and shape (input
+        length and frame count, or a step's frame capacities) at other
+        capacities: the schedule only grows, so
         they never replay.  (A chunk key keeps the frame key it places
         alive until it is freed itself.)"""
         cfg = key[1]
@@ -645,8 +777,9 @@ class FrameProgram:
         return int(self.group_loop_total)
 
     def summary(self) -> List[dict]:
-        """Each key captured, in order: its kind, capacities, input length,
-        frames, steps, WHILE and SWITCH nodes a launch, capture seconds,
+        """Each key captured, in order: its kind, capacities, shape (the
+        input length, or a step's three frame capacities), raw frames,
+        debounce runs, steps, WHILE and SWITCH nodes a launch, capture seconds,
         device memory (`_key`), launches, whether it is still held (a
         superseded key is freed) and, where held, the bytes its graph
         pool's segments hold now (from the allocator's snapshot; a chunk

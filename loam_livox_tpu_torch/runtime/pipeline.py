@@ -3,8 +3,9 @@ voxel filter → odometry step.
 
 The front end is the Livox extractor, or with ``common/lidar_type``
 ``velodyne`` the mechanical-LiDAR one (one sweep, one registration, no
-pieces; intensity unused).  A multi-head frame (`frontend.multi`) is
-extracted by the caller and handed over piece by piece through
+pieces; intensity unused).  A multi-head frame (`frontend.multi`) goes
+through `OdometryPipeline.head_frames` (its front end and source
+filters, `extract_heads`) and then piece by piece through
 `OdometryPipeline.process_feature_frame`.
 
 Three ways to dispatch, as in the JAX package's pipeline:
@@ -78,15 +79,18 @@ line's ``--follow``) read the queue after every raw frame, down to the
 racing queue depth.
 
 On the card, a configuration on the frame program's slice
-(`runtime.frame_program.on_slice`: the Livox front end, history or cell
-matching, the ``knn_fused`` engine, loop closure on or off) runs each
-raw frame as one CUDA graph launch (`runtime.frame_program`), the
-counterpart of the JAX package's one jitted program a frame; its rows,
-state and iterations equal the plain program's (`process_raw_frame`)
-bit for bit.  The frame program also runs a chunk (one graph launch a
-chunk of K frames) and a racing group (one launch a group).  The choice
-depends on the device and the configuration only.  Every other path,
-and every path on the CPU, runs the plain program.  On the graph path
+(`runtime.frame_program.on_slice`: the Livox or Velodyne front end,
+history or cell matching, the ``knn_fused``, ``grid`` or ``dense``
+engine, loop closure on or off; not residual subsampling or a mesh)
+runs each raw frame as one CUDA graph launch (`runtime.frame_program`),
+the counterpart of the JAX package's one jitted program a frame; its
+rows, state and iterations equal the plain program's
+(`process_raw_frame`) bit for bit.  The frame program also runs a chunk
+(one graph launch a chunk of K frames), a racing group (one launch a
+group), a feature-frame step (one launch) and a multi-head frame's
+front end (one launch, so a Mid-100 frame of P pieces is 1 + P).  The
+choice depends on the device and the configuration only.  Every other
+path, and every path on the CPU, runs the plain program.  On the graph path
 the program updates its static state in place; `state` hands a reader
 outside the pipeline a copy of it, so that a state once read stays as
 it was, as the JAX pipeline's new arrays do, and the loop service gets
@@ -223,6 +227,24 @@ def extract_pieces(pts, inten, mask, base_time, cfg: SlamConfig,
         _, _, frames = livox.extract_frame(pts, inten, mask, base_time, fe,
                                            cfg.capacity, piece_count(cfg))
     return [source_downsample(f, cfg) for f in frames[:n_run]]
+
+
+def extract_heads(xyz, inten, mask, base_time, cfg: SlamConfig) -> List[FeatureFrame]:
+    """A multi-head raw frame's front end: (S, N, 3) points, (S, N)
+    intensities and masks of S heads sharing ``base_time`` (a float or a
+    scalar tensor) through `frontend.multi.extract_multi_lidar`, then each
+    merged piece's source voxel filter at the merged capacities (S times
+    a head's).  The frame program captures it (`FrameProgram.run_heads`)."""
+    from ..frontend.multi import extract_multi_lidar
+
+    fe = cfg.feature_extraction
+    frames = extract_multi_lidar(xyz, inten, mask, base_time, fe, cfg.capacity,
+                                 piecewise_number=cfg.common.piecewise_number)
+    return [fr._replace(
+        corners=voxel_downsample(fr.corners, fe.mapping_line_resolution,
+                                 capacity=fr.corners.capacity),
+        surface=voxel_downsample(fr.surface, fe.mapping_plane_resolution / 2.0,
+                                 capacity=fr.surface.capacity)) for fr in frames]
 
 
 def steps_per_frame(cfg: SlamConfig) -> int:
@@ -520,14 +542,30 @@ class OdometryPipeline:
 
     def process_feature_frame(self, frame: FeatureFrame) -> None:
         """One odometry step on a finished feature frame (a multi-head
-        piece, `frontend.multi`); its trajectory row waits on the device
-        like a raw frame's.  Frames given here bypass any chunk or group
-        that `process_raw` is filling."""
+        piece, `frontend.multi`; on the frame program one graph launch,
+        its loop passes summed on the card); its trajectory row waits on
+        the device like a raw frame's.  Frames given here bypass any chunk
+        or group that `process_raw` is filling, and feed no loop service
+        (as the JAX package's ``process_feature_frame``)."""
         self._activate()
-        self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
-        self._loop_iterations += reg.iterations
-        self._pending.append(self._unit(trajectory_rows([reg], [frame]), None))
+        if self.program is not None:
+            self.state, rows, _ = self.program.run_step(self._live(), frame, self.cfg_active)
+        else:
+            self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
+            self._loop_iterations += reg.iterations
+            rows = trajectory_rows([reg], [frame])
+        self._pending.append(self._unit(rows, None))
         self._maybe_grow_capacity()
+
+    def head_frames(self, xyz, inten, mask, base_time: float) -> List[FeatureFrame]:
+        """A multi-head raw frame's merged feature frames (`extract_heads`
+        at the configured capacities), one a piece, for
+        `process_feature_frame`: on the frame program one graph launch,
+        whose frames the next launch overwrites (each step copies its
+        frame in before its own launch)."""
+        if self.program is not None:
+            return self.program.run_heads(xyz, inten, mask, base_time, self.cfg)
+        return extract_heads(xyz, inten, mask, base_time, self.cfg)
 
     def _dispatch_chunk(self) -> None:
         """The buffered raw frames back to back, on the card's frame

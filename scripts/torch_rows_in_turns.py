@@ -16,9 +16,12 @@ of the same configuration (the kernels' first launches):
     main_fixed_plain  the same through the plain program (``program =
                       None``; the same as ``main_fixed`` in a checkout
                       without a frame program)
-    dense             the ``dense`` correspondence engine, off the frame
-                      program's slice: the plain program in both
+    dense             the ``dense`` correspondence engine, on the frame
+                      program where the checkout runs it there, else the
+                      plain program
+    dense_plain       the same through the plain program
     grid              the ``grid`` engine, likewise
+    grid_plain        the same through the plain program
     main_fixed_plain_branched
                       ``main_fixed_plain`` with the matching-buffer update
                       branched on the host (one read of its flags a
@@ -46,6 +49,17 @@ of the same configuration (the kernels' first launches):
                       flush); one graph launch a frame where the checkout
                       runs loop closure on the frame program
     loop_closure_plain  the same through the plain program
+    velodyne          VLP-16 sweeps (``chip_smoke.velodyne_sweeps``) through
+                      the Velodyne front end at the configured capacities,
+                      one graph launch a sweep where the checkout runs the
+                      Velodyne front end on the frame program
+    velodyne_plain    the same through the plain program
+    mid100_trilidar   the ``mid100_trilidar`` scenario's three heads of
+                      8,192 points (registration after 10 steps), through
+                      ``scenarios.multi_head_frame``: 1 + 2 graph launches
+                      a frame where the checkout has the heads and step
+                      keys
+    mid100_trilidar_plain  the same through the plain program
 
 A row's time runs from the pipeline's construction to its flush, graph
 captures included.  Prints one JSON line a turn and a summary line with
@@ -67,7 +81,9 @@ HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_branched",
         "racing", "racing_plain", "chunked", "chunked_plain", "full_mapping",
-        "full_mapping_plain", "loop_closure", "loop_closure_plain")
+        "full_mapping_plain", "loop_closure", "loop_closure_plain", "dense_plain",
+        "grid_plain", "velodyne", "velodyne_plain", "mid100_trilidar",
+        "mid100_trilidar_plain")
 
 
 def child(root: str, n_frames: int, labels) -> dict:
@@ -98,15 +114,19 @@ def child(root: str, n_frames: int, labels) -> dict:
         pts[:len(xyz)], it[:len(xyz)], m[:len(xyz)] = xyz, inten, True
         frames.append((to_device(pts, dev), to_device(it, dev), t0, to_device(m, dev)))
 
-    def run(cfg_row, plain, batch):
+    def raw(pipe, frame):
+        pts, inten, t, m = frame
+        pipe.process_raw(pts, inten, t, mask=m)
+
+    def run(cfg_row, plain, batch, feed=raw):
         torch.cuda.synchronize()
         P.reset_host_syncs()
         t0 = time.perf_counter()
         pipe = OdometryPipeline(cfg_row, device=dev)
         if plain:
             pipe.program = None
-        for pts, inten, t, m in batch:
-            pipe.process_raw(pts, inten, t, mask=m)
+        for frame in batch:
+            feed(pipe, frame)
         pipe.flush()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -114,9 +134,11 @@ def child(root: str, n_frames: int, labels) -> dict:
             pipe.loop_closer.shutdown()
         return wall, pipe
 
+    dense = cfg.replace(optimization={"correspondence": "dense"})
+    grid = cfg.replace(optimization={"correspondence": "grid"})
     rows = {"main_fixed": (cfg, False), "main_fixed_plain": (cfg, True),
-            "dense": (cfg.replace(optimization={"correspondence": "dense"}), False),
-            "grid": (cfg.replace(optimization={"correspondence": "grid"}), False),
+            "dense": (dense, False), "dense_plain": (dense, True),
+            "grid": (grid, False), "grid_plain": (grid, True),
             "main_fixed_plain_branched": (cfg, True)}
     racing = C.realtime_racing_profile().replace(mapping={"init_accumulate_frames": 10},
                                                  capacity={"auto_schedule": 0})
@@ -128,6 +150,24 @@ def child(root: str, n_frames: int, labels) -> dict:
     for name in ("full_mapping", "loop_closure"):
         scenario = S.scenario_config(name)[0].replace(mapping={"init_accumulate_frames": 10})
         rows.update({name: (scenario, False), f"{name}_plain": (scenario, True)})
+    # VLP-16 sweeps (the checkout's `chip_smoke.velodyne_sweeps`) and
+    # three-head frames (the ``mid100_trilidar`` scenario's simulators,
+    # registration after 10 steps), each with its own feed
+    from chip_smoke import on_device, velodyne_config, velodyne_sweeps
+
+    velodyne = velodyne_config(C, {"auto_schedule": 0})
+    mid100, kw = S.scenario_config("mid100_trilidar")
+    mid100 = mid100.replace(mapping={"init_accumulate_frames": 10})
+    inputs = {}
+    if {"velodyne", "velodyne_plain"} & set(labels):
+        inputs["velodyne"] = (on_device(velodyne_sweeps(n_frames + 12)[0],
+                                        velodyne.capacity.max_raw_points, dev), raw)
+    if {"mid100_trilidar", "mid100_trilidar_plain"} & set(labels):
+        sims = S.simulators(mid100, kw)
+        inputs["mid100_trilidar"] = ([[sim.frame(i) for sim in sims]
+                                      for i in range(n_frames + 12)], S.multi_head_frame)
+    rows.update(velodyne=(velodyne, False), velodyne_plain=(velodyne, True),
+                mid100_trilidar=(mid100, False), mid100_trilidar_plain=(mid100, True))
     out = {"root": root, "has_frame_program": hasattr(OdometryPipeline(cfg, device=dev),
                                                        "program")}
     from loam_livox_tpu_torch.runtime import odometry as O
@@ -153,9 +193,10 @@ def child(root: str, n_frames: int, labels) -> dict:
             if selected is None:
                 continue            # the checkout branches on the host already
             O.update_matching = branched
+        batch, feed = inputs.get(label.removesuffix("_plain"), (frames, raw))
         try:
-            run(cfg_row, plain, frames[:12])
-            wall, pipe = run(cfg_row, plain, frames[:n_frames])
+            run(cfg_row, plain, batch[:12], feed)
+            wall, pipe = run(cfg_row, plain, batch[:n_frames], feed)
         finally:
             if selected is not None:
                 O.update_matching = selected

@@ -18,7 +18,8 @@
   with ``max_rows``) against the search of the whole buffer: indices and
   distances equal, with and without a lane axis.
 * A state read from a pipeline stays as it was after the next frame.
-* `frame_program.on_slice` admits chunked and racing dispatch on the card.
+* `frame_program.on_slice` admits chunked and racing dispatch on the card
+  (the Velodyne front end and the ``grid`` engine too).
 """
 import dataclasses
 
@@ -272,7 +273,9 @@ def test_on_slice_admits_chunked_and_racing_dispatch():
     assert on_slice(SlamConfig().replace(parallel={"dispatch_chunk": 8}), card)
     assert on_slice(racing, card) and int(racing.parallel.frame_batch) > 1
     assert not on_slice(racing, torch.device("cpu"))
-    assert not on_slice(racing.replace(common={"lidar_type": "velodyne"}), card)
+    # the Velodyne front end and the grid / dense engines run on the frame
+    # program under every dispatch too (tests/test_torch_frame_slice.py)
+    assert on_slice(racing.replace(common={"lidar_type": "velodyne"}), card)
     # cell matching and loop closure run on the frame program under every
     # dispatch (their cell maps take masked insertions, no host branch)
     for dispatch in ({}, {"dispatch_chunk": 8}):
@@ -281,5 +284,5 @@ def test_on_slice_admits_chunked_and_racing_dispatch():
         assert on_slice(base.replace(mapping={"matching_mode": 1}), card)
     assert on_slice(racing.replace(loop_closure={"if_enable_loop_closure": 1}), card)
     assert on_slice(racing.replace(mapping={"matching_mode": 1}), card)
-    assert not on_slice(racing.replace(optimization={"correspondence": "grid"}), card)
+    assert on_slice(racing.replace(optimization={"correspondence": "grid"}), card)
     assert not on_slice(racing.replace(optimization={"subsample_residuals": 64}), card)

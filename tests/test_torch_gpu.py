@@ -1331,6 +1331,279 @@ def test_capture_while_the_worker_processes_a_keyframe(cuda, monkeypatch):
     _assert_entries_equal(eg, ep)
 
 
+# ---- Velodyne, the multi-head frame and the grid / dense engines -----------
+
+def _warm_up(cuda):
+    """The frame program's warm-up, which runs each kernel once."""
+    from loam_livox_tpu_torch.runtime.frame_program import _warm_up as warm
+
+    warm(cuda)
+
+
+def _sweeps(cuda, cfg, n):
+    """``n`` VLP-16 sweeps (`chip_smoke.velodyne_sweeps`), padded on the card."""
+    from chip_smoke import on_device, velodyne_sweeps
+
+    host, _ = velodyne_sweeps(n)
+    return on_device(host, cfg.capacity.max_raw_points, cuda)
+
+
+def _runs(cuda, cfg, frames, feed=None):
+    """``frames`` through a pipeline on the frame program and one on the
+    plain program, both on the card; ``feed(pipe, frame)`` runs one
+    (default `process_raw` of a padded raw frame).  The graph run's state
+    read after its first unit must be unchanged at its end.  Returns
+    ((pipeline, syncs, graphs), (the same for the plain run))."""
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    feed = feed or (lambda pipe, f: pipe.process_raw(f[0], f[1], f[2], mask=f[3]))
+    out = []
+    for plain in (False, True):
+        pipe = P.OdometryPipeline(cfg, device=cuda)
+        if plain:
+            pipe.program = None
+        P.reset_host_syncs()
+        unit = max(pipe.frame_batch, pipe.dispatch_chunk)
+        for f in frames[:unit]:
+            feed(pipe, f)
+        held = None if plain else pipe.state
+        copy = None if plain else {k: v.clone() for k, v in _state_leaves(held).items()}
+        for f in frames[unit:]:
+            feed(pipe, f)
+        pipe.flush()
+        if held is not None:
+            for k, v in _state_leaves(held).items():
+                assert torch.equal(v, copy[k]), k
+        out.append((pipe, P.host_syncs(), P.graph_counts()))
+    return out
+
+
+def _velodyne_config(parallel=None, capacity=None):
+    from chip_smoke import velodyne_config
+    from loam_livox_tpu_torch.core import config as C
+
+    cfg = velodyne_config(C, capacity)
+    return cfg.replace(parallel={**(parallel or {}), "batch_motion_guard_t": 0.0})
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["sequential", "chunked", "racing"])
+def test_frame_program_velodyne_equals_plain(cuda, parallel):
+    """VLP-16 sweeps through the Velodyne front end on the frame program
+    with the capacity schedule (12 sweeps; 20 in chunks of 4, 15 in racing
+    groups of 3: five units, so that the schedule grows at the fourth):
+    one graph launch a unit, keys freed as the tiers grow, no ICP-exit
+    or admission read, no debounce run (the Velodyne front end has none),
+    and rows, iterations and every state tensor bit-equal to the plain
+    program's."""
+    from loam_livox_tpu_torch.ops import debounce as db
+
+    cfg = _velodyne_config(parallel)
+    units = {"dispatch_chunk": 5, "frame_batch": 5}.get(next(iter(parallel), None), 12)
+    frames = _sweeps(cuda, cfg, units * _units(cfg, 0))
+    _warm_up(cuda)          # its own kernel runs come before the count
+    db.runs.reset()
+    (g, sg, cg), (p, sp, cp) = _runs(cuda, cfg, frames)
+    assert g.program is not None and g.ladder == p.ladder and len(g.ladder) >= 1
+    assert cg["graph_launch"] == units and cp["graph_launch"] == 0
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0
+    assert db.runs.read() == 0 and sum(g.iterations) > 0
+    keys = g.program.summary()
+    assert keys[-1]["held"] and all(k["debounces"] == 0 for k in keys)
+    assert g.loop_iterations == p.loop_iterations
+    _assert_runs_equal(g, p)
+
+
+@pytest.mark.parametrize("engine,parallel", [("grid", {}), ("grid", {"dispatch_chunk": 4}),
+                                             ("dense", {}), ("dense", {"frame_batch": 3})],
+                         ids=["grid", "grid-chunked", "dense", "dense-racing"])
+def test_frame_program_engines_equal_plain(cuda, engine, parallel):
+    """The ``grid`` and ``dense`` engines on the frame program (10 frames,
+    registration from frame 4): one graph launch a unit, no ``knn_fused``
+    run, no ICP-exit or admission read, and rows, iterations and every
+    state tensor, the bucket grids included, bit-equal to the plain
+    program's."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.ops import knn_fused as kf
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 4},
+                               optimization={"correspondence": engine},
+                               parallel={**parallel, "batch_motion_guard_t": 0.0})
+    _, host = simulate(10, 10000, 4)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    _warm_up(cuda)
+    kf.runs.reset()
+    (g, sg, cg), (p, sp, cp) = _runs(cuda, cfg, frames)
+    units = {"dispatch_chunk": 3, "frame_batch": 4}.get(next(iter(parallel), None), 10)
+    assert g.program is not None and cg["graph_launch"] == units and cp["graph_launch"] == 0
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0
+    assert kf.runs.read() == 0 and sum(g.iterations) > 0
+    assert (g.state.grid_surface is not None) == (engine == "grid")
+    if engine == "grid":
+        assert int(g.state.grid_surface.slot_mask.sum()) > 0
+    _assert_runs_equal(g, p)
+
+
+def test_frame_program_multi_head_equals_plain(cuda):
+    """The ``mid100_trilidar`` scenario (3 heads of 8,192 points, two
+    merged pieces a frame, the schedule on; registration from frame 4)
+    over 10 frames: 1 + 2 graph
+    launches a frame (the heads key, then one step key launch a piece),
+    the step keys freed as the tiers grow, the debounce run once a head
+    (in the heads graph, and from Python in the plain run),
+    no ICP-exit or admission read, and rows, iterations and every state
+    tensor bit-equal to the plain program's (`extract_heads` then
+    `odometry_step` a piece)."""
+    from loam_livox_tpu_torch.eval import scenarios as S
+    from loam_livox_tpu_torch.ops import debounce as db
+
+    cfg, kw = S.scenario_config("mid100_trilidar")
+    cfg = cfg.replace(mapping={"init_accumulate_frames": 4})
+    sims = S.simulators(cfg, kw)
+    parts = [[sim.frame(i) for sim in sims] for i in range(10)]
+    _warm_up(cuda)
+    db.runs.reset()
+    (g, sg, cg), (p, sp, cp) = _runs(cuda, cfg, parts, feed=S.multi_head_frame)
+    assert cg["launch_heads"] == 10 and cg["launch_step"] == 20
+    assert cg["graph_launch"] == 30 and cp["graph_launch"] == 0
+    # a head's front end runs the debounce once, in both runs
+    assert db.runs.read() == 2 * 30 and g.ladder == p.ladder and len(g.ladder) >= 1
+    keys = g.program.summary()
+    assert [k["kind"] for k in keys].count("heads") == cg["capture_heads"] == 1
+    steps = [k for k in keys if k["kind"] == "step"]
+    assert [k["held"] for k in steps] == [False] * (len(steps) - 1) + [True]
+    assert sg["icp_exit"] == sg["admit"] == 0 and sp["icp_exit"] > 0
+    assert g.loop_iterations == p.loop_iterations == sum(p.iterations) > 0
+    _assert_runs_equal(g, p)
+
+
+def _mid100_padded(cuda, cfg, sims, i):
+    """Raw frame ``i`` of every head padded on the card: (S, N, 3)
+    points, (S, N) intensities and masks, and the frame time."""
+    from loam_livox_tpu_torch.core.types import to_device
+
+    n = cfg.capacity.max_raw_points
+    xyz = np.zeros((len(sims), n, 3), np.float32)
+    inten = np.zeros((len(sims), n), np.float32)
+    mask = np.zeros((len(sims), n), bool)
+    for s, sim in enumerate(sims):
+        x, it, t0 = sim.frame(i)
+        xyz[s, :len(x)], inten[s, :len(x)], mask[s, :len(x)] = x, it, True
+    return to_device(xyz, cuda), to_device(inten, cuda), to_device(mask, cuda), t0
+
+
+def _mid100_feed(pipe, frame) -> None:
+    """One padded multi-head raw frame: its front end, then a step a piece."""
+    for fr in pipe.head_frames(*frame):
+        pipe.process_feature_frame(fr)
+
+
+def test_step_key_leaves_the_heads_frames_as_they_were(cuda):
+    """The heads key's frames are its own static buffers: a step copies
+    its frame in and writes nothing back, and the next heads launch
+    overwrites them (a caller that keeps one keeps a copy)."""
+    from loam_livox_tpu_torch.eval import scenarios as S
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg, kw = S.scenario_config("mid100_trilidar")
+    cfg = cfg.replace(capacity={"auto_schedule": 0})
+    sims = S.simulators(cfg, kw)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    frames = pipe.head_frames(*_mid100_padded(cuda, cfg, sims, 0))
+    kept = [{k: v.clone() for k, v in _state_leaves(f).items()} for f in frames]
+    for f in frames:
+        pipe.process_feature_frame(f)
+    for f, copy in zip(frames, kept):
+        for k, v in _state_leaves(f).items():
+            assert torch.equal(v, copy[k]), k
+    again = pipe.head_frames(*_mid100_padded(cuda, cfg, sims, 1))
+    assert [id(f) for f in again] == [id(f) for f in frames]
+    assert not torch.equal(again[0].surface.xyz, kept[0][".surface.xyz"])
+    pipe.flush()
+    assert len(pipe.trajectory.times) == 2
+
+
+@pytest.mark.parametrize("case", ["velodyne", "grid", "dense", "heads"])
+def test_new_units_capture_makes_no_host_sync(cuda, case):
+    """The Velodyne frame, the two engines' frames and the multi-head
+    front end and step, captured and replayed under torch's sync debug
+    mode "error" (the schedule off): a read on the host anywhere in a
+    unit would raise."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.eval import scenarios as S
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    fixed = {"auto_schedule": 0}
+    if case == "velodyne":
+        cfg = _velodyne_config(capacity=fixed)
+        frames = _sweeps(cuda, cfg, 4)
+    elif case == "heads":
+        cfg, kw = S.scenario_config("mid100_trilidar")
+        cfg = cfg.replace(capacity=fixed, mapping={"init_accumulate_frames": 1})
+        sims = S.simulators(cfg, kw)
+        frames = [_mid100_padded(cuda, cfg, sims, i) for i in range(4)]
+    else:
+        cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 1}, capacity=fixed,
+                                   optimization={"correspondence": case})
+        _, host = simulate(4, 10000, 2)
+        frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    assert pipe.program is not None
+    if case == "heads":
+        feed = _mid100_feed
+    else:
+        def feed(p, f):
+            p.process_raw(f[0], f[1], f[2], mask=f[3])
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for f in frames:
+            feed(pipe, f)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    pipe.flush()
+    assert sum(pipe.iterations) > 0 and pipe.program.summary()
+
+
+@pytest.mark.parametrize("case", ["sparse", "overflow"])
+def test_captured_bucket_grid_build_equals_eager(cuda, case):
+    """`build_bucket_grid` captured in a CUDA graph and replayed on new
+    points equals the eager build on the card, and the CPU's, field for
+    field, with and without bucket and directory overflow."""
+    from loam_livox_tpu_torch.ops.bucket_grid import build_bucket_grid
+
+    rng = np.random.default_rng(3)
+    cap, size, nb, slots = (4096, 1.25, 2048, 16) if case == "sparse" else (4096, 1.0, 24, 4)
+
+    def points():
+        if case == "sparse":
+            xyz = rng.uniform(-8, 8, (cap, 3)).astype(np.float32)
+        else:
+            xyz = (rng.integers(0, 40, cap)[:, None] * 1.7
+                   + rng.normal(0, 0.2, (cap, 3))).astype(np.float32)
+        mask = rng.random(cap) < 0.7
+        return torch.from_numpy(xyz), torch.from_numpy(mask)
+
+    xyz, mask = (t.to(cuda) for t in points())
+    build_bucket_grid(xyz, mask, size, nb, slots)        # first calls outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = build_bucket_grid(xyz, mask, size, nb, slots)
+    for _ in range(2):
+        new_xyz, new_mask = points()
+        xyz.copy_(new_xyz)
+        mask.copy_(new_mask)
+        graph.replay()
+        eager = build_bucket_grid(xyz, mask, size, nb, slots)
+        cpu = build_bucket_grid(new_xyz, new_mask, size, nb, slots)
+        for f in ("keys", "pts", "src_idx", "slot_mask"):
+            assert torch.equal(getattr(out, f), getattr(eager, f)), f
+            assert torch.equal(getattr(out, f).cpu(), getattr(cpu, f)), f
+    if case == "overflow":
+        assert bool((out.keys != 2 ** 31 - 1).all()) and bool(out.slot_mask.all(dim=1).any())
+
+
 def test_failed_capture_raises(cuda, monkeypatch):
     """A frame that cannot be captured raises: the card never runs the
     plain program for a configuration on the slice instead."""
