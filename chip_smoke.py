@@ -8,8 +8,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
 1. card       the GPU's name and power limit (nvidia-smi);
 2. build      every CUDA kernel of the paths, from ``csrc/`` (one nvcc
               per source, all started together: ``knn_fused``, the split
-              ``debounce`` and ``graph_cond``, the ICP loop's condition
-              and the frame graph's assembly), with ptxas's registers
+              ``debounce``, ``graph_cond``, the ICP loop's condition
+              and the frame graph's assembly, and ``threefry``, the
+              threefry key's split and keep-mask draw), with ptxas's registers
               and spills and the CUDA driver and runtime versions; and
               the native I/O library (host code,
               ``native/native_io.cpp`` with g++) into the same ``_build/``;
@@ -87,6 +88,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
               outcome and on lane axes of up to 1,100 lanes, and the
               switch index at each outcome (rebuild, append, neither),
               against their plain versions, with their times and bounds;
+              the threefry keep mask (one lane and 9 lanes of the main
+              path's corner + surface residual blocks) and split (a key
+              into 2 and into 9) against their plain versions, bit for
+              bit, with their times and bounds;
               ``--baseline DIR`` times the earlier checkout's debounce
               and loop condition in turns with these; and the floor of
               a kernel node in a CUDA graph (``node_floor``: an empty
@@ -131,7 +136,14 @@ Phases, each printing JSON lines; any failure exits nonzero:
               product mode on an NCCL group of one
               rank (``product``: the main path's first 20 frames at the
               configured capacities, since product mode runs unscheduled,
-              rows bit-equal to ``main_fixed``'s), and `eval.scaling.measure_scaling` at
+              on the frame program, one graph launch a frame, rows
+              bit-equal to ``main_fixed``'s, and ``product_plain``: the
+              same frames through the plain product program, bit-equal),
+              residual subsampling at the reference's 200-block cap on
+              the frame program (``subsampled``: ``main_fixed``'s
+              configuration and 20 frames; ``subsampled_racing``: the
+              racing profile, 12 frames in groups of 3), each with its
+              bit-equal ``_plain`` twin, and `eval.scaling.measure_scaling` at
               that one rank (``scaling``: the sharded kNN and sum against
               the plain ones at 4,096 x 65,536).  Then, at
               full width, the ``full_mapping`` scenario (60 frames of
@@ -200,7 +212,10 @@ Phases, each printing JSON lines; any failure exits nonzero:
               (aligned ATE < 1.30 m, at least half its 180 rows
               accepted), with its tier ladder;
 9. kernels    one line listing every kernel (``knn_fused``, ``debounce``,
-              ``graph_cond``): runs on the main path (counted on the
+              ``graph_cond``, ``threefry_keep_mask``, ``threefry_split``,
+              ``peer_gather``, the candidates' exchange of product mode):
+              runs on the main path (the keep mask's on the
+              ``subsampled`` path, the only one that draws; counted on the
               card by each kernel, one atomic add a run, so the frame
               program's replays count) and on every path (``knn_fused``'s
               ``launches_by_path``, the others' ``runs_by_path``), its time, the plain version's, the bound,
@@ -237,6 +252,13 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 FLOPS_PER_PAIR = 8          # 3 subtractions, 3 multiplications, 2 additions
+# 32-bit integer operations of one threefry-2x32 block (2 key additions,
+# 20 rounds of add, rotate (2 shifts and an or) and xor, 5 injections of
+# 3 additions), and of one keep-mask draw besides (the count's addition,
+# xor, shift, or, subtraction, max, comparison and and); counted against
+# the float32 rate, the table's non-tensor rate
+THREEFRY_OPS_PER_BLOCK = 2 + 20 * 5 + 5 * 3
+THREEFRY_OPS_PER_DRAW = THREEFRY_OPS_PER_BLOCK + 8
 
 
 T_START = time.perf_counter()
@@ -698,9 +720,13 @@ def reset_counts(kf, P) -> None:
     graph counters."""
     from loam_livox_tpu_torch.ops import debounce as DB
     from loam_livox_tpu_torch.ops import graph_cond as GC
+    from loam_livox_tpu_torch.ops import peer_gather as PG
+    from loam_livox_tpu_torch.ops import threefry as TF
 
-    kf.launches = DB.launches = GC.launches = 0
-    for counter in (kf.runs, DB.runs, GC.runs, GC.switch_runs):
+    kf.launches = DB.launches = GC.launches = TF.split_launches = TF.mask_launches = 0
+    PG.launches = 0
+    for counter in (kf.runs, DB.runs, GC.runs, GC.switch_runs, TF.split_runs, TF.mask_runs,
+                    PG.runs):
         counter.reset()
     P.reset_host_syncs()
 
@@ -711,10 +737,16 @@ def kernel_runs(kf) -> dict:
     in graph replays alike), and the wrappers' launches from Python."""
     from loam_livox_tpu_torch.ops import debounce as DB
     from loam_livox_tpu_torch.ops import graph_cond as GC
+    from loam_livox_tpu_torch.ops import peer_gather as PG
+    from loam_livox_tpu_torch.ops import threefry as TF
 
     return ({"knn_fused": kf.runs.read(), "debounce": DB.runs.read(),
-             "loop_cond": GC.runs.read(), "switch_cond": GC.switch_runs.read()},
-            {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches})
+             "loop_cond": GC.runs.read(), "switch_cond": GC.switch_runs.read(),
+             "threefry_split": TF.split_runs.read(), "threefry_keep_mask": TF.mask_runs.read(),
+             "peer_gather": PG.runs.read()},
+            {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches,
+             "threefry_split": TF.split_launches, "threefry_keep_mask": TF.mask_launches,
+             "peer_gather": PG.launches})
 
 
 #: each graph row's kernel runs counted on the card, by path (the
@@ -738,8 +770,12 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
     never under ``grid`` or ``dense``, the debounce once a Livox head's
     raw frame and never in the Velodyne front end, the loop condition
     once a pass and once before each WHILE node, the switch condition
-    once before each SWITCH node), the ICP passes counted on the card
-    equal the rows' iterations (sequential units: one lane a loop), every
+    once before each SWITCH node, the threefry split once a pass, once a
+    step and twice a racing group, the keep mask once a pass with
+    residual subsampling and never without, the candidates' exchange
+    twice a pass under a product mesh with ``knn_fused``), the ICP passes counted on
+    the card equal the rows' iterations (sequential units: one lane a
+    loop), every
     held key's graph pool holds memory (its segments found in the
     allocator's snapshot; a chunk places its frame key's), and neither
     the ICP exit nor the admission read the host (the front ends have no
@@ -755,10 +791,14 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
     keys = pipe.program.summary()
     passes = pipe.loop_iterations
     fused = resolve_correspondence_engine(cfg.optimization, True) == "pallas"
+    subsampled = int(cfg.optimization.subsample_residuals) > 0
     expected = {"knn_fused": 2 * passes * fused + service_runs,
                 "debounce": sum(k["launches"] * k["debounces"] for k in keys),
                 "loop_cond": passes + sum(k["launches"] * k["whiles"] for k in keys),
-                "switch_cond": sum(k["launches"] * k["switches"] for k in keys)}
+                "switch_cond": sum(k["launches"] * k["switches"] for k in keys),
+                "threefry_split": passes + sum(k["launches"] * k["splits"] for k in keys),
+                "threefry_keep_mask": passes * subsampled,
+                "peer_gather": 2 * passes * fused * (pipe.mesh is not None)}
     by_kind = {kind: sum(k["launches"] for k in keys if k["kind"] == kind)
                for kind in GRAPH_KINDS}
     units = dict.fromkeys(GRAPH_KINDS, 0)
@@ -1365,13 +1405,22 @@ def engine_path(label, cfg, sim, frames, n, dev, kf, P):
     return out
 
 
-def product_phase(cfg, sim, frames, n, dev, kf, P, main_rows, store_dir) -> int:
+def product_phase(cfg, sim, frames, n, dev, kf, P, main_rows, store_dir) -> tuple:
     """Product mode on one card: an NCCL group of one rank (a communicator
     takes a card once), the main path's frames through `OdometryPipeline`
-    with the mesh (the state kept as the rank's slices and gathered for
-    each step, the kNN through `parallel.sharded.knn_sharded`), held bit
-    for bit to the plain single-device run's rows (``main_rows``: times,
-    positions, quaternions, accept flags)."""
+    with the mesh, on the frame program (``product``: one graph launch a
+    frame, the rank's slices gathered into the whole static state, the
+    steps with the sharded kNN inside the WHILE bodies, this rank's rows
+    copied back; `graph_row` holds), held bit for bit to the plain
+    single-device run's rows (``main_rows``: times, positions,
+    quaternions, accept flags), and, as ``product_plain``, the same
+    frames through the plain product program (the state kept as the
+    rank's slices and gathered for each step), rows, iterations, passes
+    and every state tensor bit-equal to the graph's.  Then, with the
+    group up, the candidates' exchange (`ops.peer_gather`) against its
+    plain version (an all-gather and the merge) at the main path's
+    surface queries, one lane and 9.  Returns both rows' ``knn_fused``
+    launches by label and the exchange's records by lanes."""
     import torch
     import torch.distributed as dist
 
@@ -1383,35 +1432,93 @@ def product_phase(cfg, sim, frames, n, dev, kf, P, main_rows, store_dir) -> int:
                             rank=0, world_size=1)
     try:
         mesh = make_mesh(1)
-        torch.cuda.synchronize()
-        reset_counts(kf, P)
-        t0 = time.perf_counter()
-        pipe = P.OdometryPipeline(cfg, device=dev, mesh=mesh)
-        feed(pipe, frames[:n])
-        pipe.flush()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        tr = pipe.trajectory
-        rows = {"times": np.asarray(tr.times), "positions": tr.positions_array(),
-                "quaternions": np.asarray(tr.quaternions), "accepted": np.asarray(tr.accepted)}
-        equal = {k: bool(np.array_equal(rows[k], main_rows[k])) for k in rows}
-        gt = np.stack([sim.gt_pose_at(t)[1] for t in tr.times])
-        path_line("product", pipe, n, wall, ate_rmse(rows["positions"], gt),
-                  int(rows["accepted"].sum()), kf.launches, P.host_syncs(),
-                  mesh_backend=mesh.backend, mesh_size=mesh.size, rows_equal_plain=equal,
-                  sliced_fields=sum(a is not None for a in pipe._axes))
-        if not all(equal.values()):
-            raise AssertionError(f"product mode departs from the plain run: {equal}")
-        launches = kf.launches
+        out, graph_pipe = {}, None
+        for plain in (False, True):
+            label = "product_plain" if plain else "product"
+            # made before the counts are reset: the rank's device is named
+            # cuda:0, so the frame program warms its kernels up again
+            pipe = P.OdometryPipeline(cfg, device=dev, mesh=mesh)
+            if plain:
+                pipe.program = None
+            torch.cuda.synchronize()
+            reset_counts(kf, P)
+            t0 = time.perf_counter()
+            feed(pipe, frames[:n])
+            pipe.flush()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            tr = pipe.trajectory
+            rows = {"times": np.asarray(tr.times), "positions": tr.positions_array(),
+                    "quaternions": np.asarray(tr.quaternions),
+                    "accepted": np.asarray(tr.accepted)}
+            equal = {k: bool(np.array_equal(rows[k], main_rows[k])) for k in rows}
+            extra = {}
+            if plain:
+                held = assert_runs_equal("product", graph_pipe, pipe)
+                extra = {f"{k}_to_product": v for k, v in held.items()}
+            else:
+                graph_pipe = pipe
+            gt = np.stack([sim.gt_pose_at(t)[1] for t in tr.times])
+            out[label] = path_line(
+                label, pipe, n, wall, ate_rmse(rows["positions"], gt),
+                int(rows["accepted"].sum()), kf.launches, P.host_syncs(),
+                mesh_backend=mesh.backend, mesh_size=mesh.size,
+                rows_equal_main_fixed=equal, sliced_fields=sum(a is not None for a in pipe._axes),
+                **extra)
+            if not all(equal.values()):
+                raise AssertionError(f"{label} departs from the plain single-device run: {equal}")
+        from loam_livox_tpu_torch.ops import peer_gather as PG
+
+        rng_p = np.random.default_rng(7)
+        n_q, k = cfg.capacity.max_surface_ds, 5
+        r_peer = {}
+        for lanes in (1, 9):
+            d = torch.from_numpy(rng_p.uniform(0, 50, (lanes, n_q, k)).astype(np.float32)).to(dev)
+            i = torch.from_numpy(rng_p.integers(0, 65536, (lanes, n_q, k)).astype(np.int32)).to(dev)
+            rows = lanes * n_q
+            r_peer[lanes] = compare_small_kernel(
+                "peer_gather", lambda d, i: PG.peer_gather(d, i, mesh, k),
+                lambda d, i: PG.peer_gather_plain(d, i, mesh, k), (d, i),
+                bytes_=2 * rows * k * 8, ops=rows * mesh.size * k * k)
+            emit("kernel", kernel="peer_gather", search=f"{lanes} lane(s) of {n_q} queries x "
+                 f"{k}, {mesh.size} rank", **r_peer[lanes])
         # the sharded search and normal-equation sum at one rank against
         # the plain ones (eval/scaling.py): the product mode's overhead
         from loam_livox_tpu_torch.eval.scaling import measure_scaling
 
         emit("scaling", **measure_scaling(mesh, device=dev, reps=20))
-        return launches
+        return out, r_peer
     finally:
         set_active_mesh(None)
         dist.destroy_process_group()
+
+
+def subsampled_rows(label, cfg, sim, frames, n, dev, kf, P) -> dict:
+    """Residual subsampling on the frame program: the frames through a new
+    pipeline (``label``, `path_row`'s checks and `graph_row`'s: the keep
+    mask once an ICP pass, no ICP-exit read, one graph launch a unit),
+    then through the plain program on the card (``{label}_plain``), rows,
+    iterations, passes and every state tensor, the threefry key
+    included, bit-equal.  Returns both rows' ``knn_fused`` launches."""
+    import torch
+
+    out, graph_pipe = {}, None
+    for plain in (False, True):
+        name = f"{label}_plain" if plain else label
+        torch.cuda.synchronize()
+        reset_counts(kf, P)
+        t0 = time.perf_counter()
+        pipe, ate, acc = run_stream(cfg, sim, frames[:n], dev, plain=plain)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        extra = {"subsample_residuals": int(cfg.optimization.subsample_residuals)}
+        if plain:
+            held = assert_runs_equal(label, graph_pipe, pipe)
+            extra.update({f"{k}_to_{label}": v for k, v in held.items()})
+        else:
+            graph_pipe = pipe
+        out[name] = path_row(name, pipe, n, wall, ate, acc, kf, P, **extra)
+    return out
 
 
 ARTIFACT = os.path.join(HERE, "scripts", "loop_unscaled_state.npz")
@@ -1925,17 +2032,13 @@ def cli_phase(C, P, kf, dev, out_dir, card) -> int:
 
 
 def state_tensors(state) -> dict:
-    """Every field of an odometry state by dotted name (tensors, numbers,
-    the generator's state)."""
-    import torch
-
+    """Every field of an odometry state by dotted name (tensors, the
+    threefry key among them, and numbers)."""
     out = {}
     for name in state._fields:
         v = getattr(state, name)
         if hasattr(v, "_fields"):
             out.update({f"{name}.{f}": getattr(v, f) for f in v._fields})
-        elif isinstance(v, torch.Generator):
-            out[name] = v.get_state()
         else:
             out[name] = v
     return out
@@ -2129,20 +2232,26 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.compile_all(["knn_fused", "debounce", "graph_cond"])
+    build.compile_all(["knn_fused", "debounce", "graph_cond", "threefry", "peer_gather"])
     t1 = time.perf_counter()
     from loam_livox_tpu_torch.io import native
     from loam_livox_tpu_torch.ops import graph_cond as GC
 
     native_lib = native.build()
     driver, runtime = GC.versions()
-    emit("build", seconds=t1 - t0, sources=["knn_fused.cu", "debounce.cu", "graph_cond.cu"],
+    emit("build", seconds=t1 - t0,
+         sources=["knn_fused.cu", "debounce.cu", "graph_cond.cu", "threefry.cu",
+                  "peer_gather.cu"],
          cuda_driver=driver, cuda_runtime=runtime,
          ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
          ptxas_debounce=ptxas_report(build.build_logs.get("debounce", ""), k=None),
          ptxas_graph_cond={kernel: ptxas_report(build.build_logs.get("graph_cond", ""), k=None,
                                                 name=kernel)
                            for kernel in ("loop_cond_kernel", "switch_cond_kernel")},
+         ptxas_threefry={kernel: ptxas_report(build.build_logs.get("threefry", ""), k=None,
+                                              name=kernel)
+                         for kernel in ("threefry_split_kernel", "threefry_keep_mask_kernel")},
+         ptxas_peer_gather=ptxas_report(build.build_logs.get("peer_gather", ""), k=None),
          launch_k5_surfaces=kf.launch_shape(5, 65536),
          native_io={"library": os.path.relpath(native_lib, HERE),
                     "seconds": time.perf_counter() - t1})
@@ -2402,6 +2511,37 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
             build.build_logs.get("graph_cond", ""), k=None, name="switch_cond_kernel"))
         emit("kernel", kernel="graph_cond", search=f"switch index, flags {list(row)} "
              f"({outcome})", **r_s)
+    # the threefry kernels against their plain versions at the paths'
+    # shapes: the keep mask on a step's residual mask (one lane, the main
+    # path's corner + surface inputs) and on a racing group's (9 lanes),
+    # over seeded masks (fill 0.4, and the budget of the subsampled rows);
+    # the split of a step's key in two and of a group's key into 9
+    from loam_livox_tpu_torch.ops import threefry as TF
+
+    caps_f = cfg_fixed.capacity
+    n_res = caps_f.max_corner_ds + caps_f.max_surface_ds
+    r_mask = {}
+    rng_t = np.random.default_rng(14)
+    for lanes in (1, 9):
+        keys = torch.from_numpy(rng_t.integers(0, 2 ** 32, (lanes, 2)).astype(np.uint32)).to(dev)
+        mask = torch.from_numpy(rng_t.uniform(size=(lanes, n_res)) < 0.4).to(dev)
+        r_mask[lanes] = compare_small_kernel(
+            "threefry_keep_mask", TF.keep_mask, TF.keep_mask_plain, (keys, mask, 200),
+            bytes_=2 * lanes * n_res + 8 * lanes, ops=THREEFRY_OPS_PER_DRAW * lanes * n_res)
+        emit("kernel", kernel="threefry_keep_mask", search=f"{lanes} lane(s) of {n_res} "
+             "residual blocks, fill 0.4, budget 200", **r_mask[lanes])
+    r_split = {}
+    for lanes, num in ((1, 2), (1, 9)):
+        keys = torch.from_numpy(rng_t.integers(0, 2 ** 32, (lanes, 2)).astype(np.uint32)).to(dev)
+        r_split[num] = compare_small_kernel(
+            "threefry_split", TF.split, TF.split_plain, (keys, num),
+            bytes_=8 * lanes + 8 * lanes * num, ops=THREEFRY_OPS_PER_BLOCK * lanes * num)
+        emit("kernel", kernel="threefry_split", search=f"a key into {num}", **r_split[num])
+    r_mask[1]["ptxas"] = ptxas_report(build.build_logs.get("threefry", ""), k=None,
+                                      name="threefry_keep_mask_kernel")
+    r_split[2]["ptxas"] = ptxas_report(build.build_logs.get("threefry", ""), k=None,
+                                       name="threefry_split_kernel")
+
     floor = node_floor()
     emit("node_floor", **floor)
 
@@ -2516,9 +2656,20 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     # product mode runs at the configured capacities (the schedule is off
     # there, as in the JAX package): held to the main_fixed rows
     n_prod = 20
-    launches_by_path["product"] = product_phase(
+    launches_prod, r_peer = product_phase(
         main_cfg, sim_main, frames_main, n_prod, dev, kf, P,
         {k: v[:n_prod] for k, v in fixed_rows.items()}, os.path.join(dump_root, "product"))
+    launches_by_path.update(launches_prod)
+    # residual subsampling (the reference's maximum_residual_blocks cap of
+    # 200) on the frame program: main_fixed's configuration and first 20
+    # frames, and the racing profile's groups of 3 over 12 frames, each
+    # with its bit-equal plain twin
+    launches_by_path.update(subsampled_rows(
+        "subsampled", cfg_fixed.replace(optimization={"subsample_residuals": 200}),
+        sim_main, frames_main, 20, dev, kf, P))
+    launches_by_path.update(subsampled_rows(
+        "subsampled_racing", paths["racing"].replace(optimization={"subsample_residuals": 200}),
+        sim, dev_frames, 12, dev, kf, P))
 
     # 9. cell matching at full width: the full_mapping scenario's own
     # configuration and stream (60 frames of 10,000 points, registration
@@ -2745,7 +2896,47 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         "loop_cond_runs_by_path": {k: v["loop_cond"] for k, v in RUNS_BY_PATH.items()},
         "switch_cond_runs_by_path": {k: v["switch_cond"] for k, v in RUNS_BY_PATH.items()},
         "node_floor_ms": floor["kernel_ms"], "baseline_ms": r_cond.get("baseline_ms"),
-        "baseline_kernel_ms": r_cond.get("baseline_kernel_ms")}]
+        "baseline_kernel_ms": r_cond.get("baseline_kernel_ms")}, {
+        "name": "threefry_keep_mask", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/threefry.cu",
+        "replaces": "loam_livox_tpu/ops/masked.py:73 (random_keep_mask: XLA's threefry and "
+                    "elementwise ops), no Pallas kernel",
+        "launches": RUNS_BY_PATH["subsampled"]["threefry_keep_mask"],
+        "max_abs_err": max(r["max_abs_err"] for r in r_mask.values()),
+        "ms": r_mask[1]["ms"], "kernel_ms": r_mask[1]["kernel_ms"],
+        "plain_ms": r_mask[1]["plain_ms"], "bound_ms": r_mask[1]["bound_ms"],
+        "bound_by": r_mask[1]["bound_by"], "library_ms": None,
+        "lanes_ms": r_mask[9]["ms"], "lanes_kernel_ms": r_mask[9]["kernel_ms"],
+        "lanes_plain_ms": r_mask[9]["plain_ms"], "lanes_bound_ms": r_mask[9]["bound_ms"],
+        "entries": n_res, "node_floor_ms": floor["kernel_ms"],
+        "runs_by_path": {k: v["threefry_keep_mask"] for k, v in RUNS_BY_PATH.items()}}, {
+        "name": "threefry_split", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/threefry.cu",
+        "replaces": "loam_livox_tpu/registration/icp.py:235 and "
+                    "loam_livox_tpu/runtime/odometry.py:243 (jax.random.split: XLA's "
+                    "threefry), no Pallas kernel",
+        "launches": graph_main["kernel_runs"]["threefry_split"],
+        "max_abs_err": max(r["max_abs_err"] for r in r_split.values()),
+        "ms": r_split[2]["ms"], "kernel_ms": r_split[2]["kernel_ms"],
+        "plain_ms": r_split[2]["plain_ms"], "bound_ms": r_split[2]["bound_ms"],
+        "bound_by": r_split[2]["bound_by"], "library_ms": None,
+        "into_9_ms": r_split[9]["ms"], "into_9_kernel_ms": r_split[9]["kernel_ms"],
+        "into_9_plain_ms": r_split[9]["plain_ms"], "into_9_bound_ms": r_split[9]["bound_ms"],
+        "node_floor_ms": floor["kernel_ms"],
+        "runs_by_path": {k: v["threefry_split"] for k, v in RUNS_BY_PATH.items()}}, {
+        "name": "peer_gather", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/peer_gather.cu",
+        "replaces": "the all-gather and merge of loam_livox_tpu/parallel/sharded.py's sharded "
+                    "kNN (XLA's collective), no Pallas kernel",
+        "launches": RUNS_BY_PATH["product"]["peer_gather"],
+        "max_abs_err": max(r["max_abs_err"] for r in r_peer.values()),
+        "ms": r_peer[1]["ms"], "kernel_ms": r_peer[1]["kernel_ms"],
+        "plain_ms": r_peer[1]["plain_ms"], "bound_ms": r_peer[1]["bound_ms"],
+        "bound_by": r_peer[1]["bound_by"], "library_ms": None,
+        "lanes_ms": r_peer[9]["ms"], "lanes_kernel_ms": r_peer[9]["kernel_ms"],
+        "lanes_plain_ms": r_peer[9]["plain_ms"], "lanes_bound_ms": r_peer[9]["bound_ms"],
+        "ranks": 1, "node_floor_ms": floor["kernel_ms"],
+        "runs_by_path": {k: v["peer_gather"] for k, v in RUNS_BY_PATH.items()}}]
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -9,8 +9,12 @@ Python and numpy values (this module imports nothing of JAX).
   maps as ``cell_corners.keys`` / ``cell_corners.count`` and so on) and
   keeps the fields the port's state has.  This state is what a run
   carries from frame to frame: the system's counterpart of a model's
-  weights.  The JAX rng key has no counterpart (the draws cannot
-  match): the port's generator starts from seed 0, as in a new state.
+  weights.  The JAX rng key (``rng``, the two uint32 words of
+  ``jax.random.key_data``) comes across as the port's threefry key
+  (`ops.threefry`), whose draws are JAX's, so a teacher-forced step
+  starts from JAX's own key; without one the key is ``PRNGKey(0)``,
+  as in a new state.  `state_to_numpy` is the way back: the port's state
+  as the same field names, the key among them.
   A JAX cell map of one slot (its placeholder when nothing reads the
   maps) becomes ``None``, the port's placeholder; so do the full-cloud
   map ``cell_full.*`` and ``last_touched`` of a run without loop closure.
@@ -37,6 +41,7 @@ from .core.types import PointBatch
 from .loop.keyframe import KeyframeDescriptor
 from .map.cell_map import CellMap
 from .ops.bucket_grid import BucketGrid
+from .ops.threefry import prng_key
 from .runtime.loop_service import KeyframeRecord, LoopClosureResult, _Accumulator, settle
 from .runtime.odometry import OdometryState
 
@@ -102,12 +107,31 @@ def state_from_numpy(fields: Dict[str, np.ndarray], device) -> OdometryState:
         cell_planes=cells("cell_planes"),
         map_corners=batch("map_corners"),
         map_surface=batch("map_surface"),
-        rng=torch.Generator(device=device).manual_seed(0),
+        rng=(t("rng", torch.int64).to(torch.uint32) if "rng" in fields
+             else prng_key(0, device)),
         cell_full=cell_full,
         last_touched=(t("last_touched", torch.bool) if cell_full is not None else None),
         grid_corners=grid("grid_corners"),
         grid_surface=grid("grid_surface"),
     )
+
+
+def state_to_numpy(state: OdometryState) -> Dict[str, np.ndarray]:
+    """The port's state as host arrays under the names `state_from_numpy`
+    takes (``map_corners.xyz``, ``cell_corners.keys``, ``rng`` and so
+    on; host scalars such as a cell map's ``cell_size`` as 0-d arrays;
+    absent maps and grids left out)."""
+    out: Dict[str, np.ndarray] = {}
+    for name in state._fields:
+        v = getattr(state, name)
+        if isinstance(v, torch.Tensor):
+            out[name] = v.detach().cpu().numpy()
+        elif isinstance(v, tuple) and hasattr(v, "_fields"):
+            for f in v._fields:
+                x = getattr(v, f)
+                out[f"{name}.{f}"] = (x.detach().cpu().numpy() if isinstance(x, torch.Tensor)
+                                      else np.asarray(x))
+    return out
 
 
 class LoopState(NamedTuple):

@@ -45,16 +45,23 @@ def masked_max(values: torch.Tensor, mask: torch.Tensor, axis=None,
     return v.amax() if axis is None else v.amax(dim=axis)
 
 
-def random_keep_mask(mask: torch.Tensor, budget: int,
-                     uniforms: torch.Tensor) -> torch.Tensor:
+def random_keep_mask(mask: torch.Tensor, budget: int, draw: torch.Tensor) -> torch.Tensor:
     """Thin ``mask`` so that about ``budget`` entries of the last axis
     survive when more are valid: each is kept where its uniform draw in
-    [0, 1) lies below budget / count (reference residual-block
-    subsampling, ``point_cloud_registration.hpp:438-458``).  The caller
-    draws ``uniforms`` (the shape of ``mask``)."""
-    count = mask.sum(dim=-1, dtype=torch.int32)
-    keep_prob = torch.clamp(budget / torch.clamp(count.float(), min=1.0), max=1.0)
-    return mask & (uniforms < keep_prob[..., None])
+    [0, 1) lies below budget / count, divided as one float32 division
+    (reference residual-block subsampling,
+    ``point_cloud_registration.hpp:438-458``; the JAX package's
+    ``ops/masked.py:73-84``).  ``draw`` is either the uniforms (the shape
+    of ``mask``) or a (..., 2) uint32 threefry key a lane, from which the
+    JAX package's uniforms are drawn (`ops.threefry.keep_mask`: the
+    kernel on the card)."""
+    if draw.dtype == torch.uint32:
+        from .threefry import keep_mask
+
+        return keep_mask(draw, mask, budget)
+    count = torch.clamp(mask.sum(dim=-1, dtype=torch.int32).float(), min=1.0)
+    keep_prob = torch.clamp(torch.full_like(count, float(budget)) / count, max=1.0)
+    return mask & (draw < keep_prob[..., None])
 
 
 def compact(mask: torch.Tensor, *arrays: torch.Tensor):

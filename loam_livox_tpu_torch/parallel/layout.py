@@ -5,14 +5,20 @@ The point, cell and bucket axes shard: the history ring's per-frame
 point axis, the matching buffer's point axis, the cell maps' directory
 axis with their touched mask, and the bucket grids' bucket axis.  The
 pose, the counters, the ring's window axis (a time axis), host scalars
-and the generator replicate, as does an axis of one slot or one that
+and the threefry key replicate, as does an axis of one slot or one that
 the world size does not divide.
 
 In the port a sharded field is a slice: each rank keeps rows
 ``[rank·n/size, (rank+1)·n/size)`` of it (`shard_state`), and
 `gather_state` all-gathers the slices back into the whole state, which
 the pipeline's step and its checkpoint read.  `state_axes` says, field
-by field, which axis a rank slices (``None``: replicated).
+by field, which axis a rank slices (``None``: replicated).  The frame
+program (`runtime.frame_program`) captures the in-place forms over its
+static buffers: `gather_state_into` all-gathers the slices into a whole
+state's tensors (one ``all_gather_into_tensor`` a sharded field, no
+list), `shard_state_into` copies this rank's rows back into the slices.
+A replicated field of slices made by `shard_state` is the whole state's
+own tensor, so neither copies it.
 """
 from __future__ import annotations
 
@@ -24,7 +30,7 @@ from ..core.types import PointBatch
 from ..map.cell_map import CellMap
 from ..ops.bucket_grid import BucketGrid
 from .mesh import Mesh
-from .sharded import all_gather
+from .sharded import all_gather, concat_ranks
 
 
 def _ax(n: int, size: int, axis: int):
@@ -97,4 +103,36 @@ def shard_state(state, mesh: Mesh):
 def gather_state(state, axes, mesh: Mesh):
     """The whole state from every rank's slices, in rank order.  A
     collective: every rank calls it."""
-    return _map(lambda x, axis: torch.cat(all_gather(x, mesh), dim=axis), state, axes)
+    return _map(lambda x, axis: concat_ranks(all_gather(x, mesh), axis), state, axes)
+
+
+def _zip(fn, axes: Any, *trees):
+    """``fn(axis, *leaves)`` over the tensors of NamedTuple trees of one
+    structure whose axis is set."""
+    if axes is None or trees[0] is None:
+        return
+    if isinstance(trees[0], tuple) and hasattr(trees[0], "_fields"):
+        for parts in zip(axes, *trees):
+            _zip(fn, *parts)
+    elif isinstance(trees[0], torch.Tensor):
+        fn(axes, *trees)
+
+
+def gather_state_into(slices, whole, axes, mesh: Mesh) -> None:
+    """`gather_state` written into ``whole``'s tensors in place (a
+    collective).  A field sharded on its first axis is gathered straight
+    into the whole tensor; another through one stacked buffer."""
+    def gather(axis, part, out):
+        if axis == 0 and out.is_contiguous():
+            all_gather(part, mesh, out.view((mesh.size,) + tuple(part.shape)))
+        else:
+            out.copy_(concat_ranks(all_gather(part, mesh), axis))
+    _zip(gather, axes, slices, whole)
+
+
+def shard_state_into(whole, slices, axes, mesh: Mesh) -> None:
+    """This rank's rows of ``whole``'s sharded tensors copied into
+    ``slices`` in place (`shard_state` without new tensors)."""
+    def take(axis, x, part):
+        part.copy_(x.narrow(axis, mesh.rank * part.shape[axis], part.shape[axis]))
+    _zip(take, axes, whole, slices)

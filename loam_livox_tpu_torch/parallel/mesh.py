@@ -60,6 +60,21 @@ def mesh_device(mesh: Mesh, device) -> torch.device:
     return device
 
 
+def warm_up(mesh: Mesh, device) -> None:
+    """One small all-gather on the mesh from ``device``, waited for: the
+    NCCL communicator is created at a group's first collective, which must
+    not fall under a CUDA graph capture (the frame program captures the
+    product mode's gathers).  Every rank calls it."""
+    x = torch.full((1,), mesh.rank, dtype=torch.int32, device=device)
+    out = torch.empty((mesh.size,), dtype=torch.int32, device=device)
+    if mesh.backend == "nccl":
+        dist.all_gather_into_tensor(out, x)
+    else:
+        dist.all_gather(list(out.unbind(0)), x)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 class _Active(threading.local):
     """The registration, per thread: the frame thread's mesh is not the
     loop worker's (its scene alignment searches on its own rank)."""

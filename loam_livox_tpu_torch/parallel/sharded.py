@@ -4,9 +4,12 @@ split over the ranks, and the normal equations of a split residual set.
 
 * `knn_sharded`: each rank searches its shard of the references (the
   hand-written kernel on the card, its plain version on the CPU), adds
-  its shard's base to the indices, all-gathers its (Q, k) candidates,
-  and merges them by (distance, index).  The kernel's selection is
-  exact, so the result is bit for bit the unsharded search's.
+  its shard's base to the indices, and gathers every rank's (Q, k)
+  candidates merged by (distance, index) (`ops.peer_gather`: on the card
+  one kernel that reads its peers' candidates through symmetric memory,
+  so that a CUDA graph's WHILE body can hold it; on the CPU an
+  all-gather and `merge_candidates`).  The kernel's selection is exact,
+  so the result is bit for bit the unsharded search's.
 * `normal_system_psum`: each rank builds H, g and the cost of its share
   of the residual blocks, and the group sums them.  Under
   ``parallel/deterministic`` (`mesh.det_active`) each rank reduces
@@ -25,14 +28,34 @@ import torch.distributed as dist
 
 from ..ops.knn import finish
 from ..ops.knn_fused import knn_fused
+from ..ops.peer_gather import peer_gather
 from .mesh import Mesh, det_active
 
 
-def all_gather(x: torch.Tensor, mesh: Mesh) -> list:
-    """Every rank's ``x`` (same shape on every rank), in rank order."""
-    out = [torch.empty_like(x) for _ in range(mesh.size)]
-    dist.all_gather(out, x.contiguous())
+def all_gather(x: torch.Tensor, mesh: Mesh, out: Optional[torch.Tensor] = None
+               ) -> torch.Tensor:
+    """Every rank's ``x`` (same shape on every rank) stacked in rank
+    order, (size, *x.shape): one ``all_gather_into_tensor`` into one
+    output, ``out`` where the caller preallocated it, so that a CUDA graph
+    capture of it allocates no list (NCCL; gloo gathers a list into it)."""
+    if out is None:
+        out = x.new_empty((mesh.size,) + tuple(x.shape))
+    x = x.contiguous()
+    if mesh.backend == "nccl":
+        dist.all_gather_into_tensor(out, x)
+    else:
+        dist.all_gather(list(out.unbind(0)), x)
     return out
+
+
+def concat_ranks(stacked: torch.Tensor, axis: int) -> torch.Tensor:
+    """The ranks' parts of an `all_gather` output, (size, *shape), joined
+    along ``axis`` of ``shape`` (``torch.cat`` of the list)."""
+    axis %= stacked.dim() - 1
+    moved = stacked.movedim(0, axis)
+    shape = list(stacked.shape[1:])
+    shape[axis] *= stacked.shape[0]
+    return moved.reshape(shape)
 
 
 def merge_candidates(d: torch.Tensor, idx: torch.Tensor, k: int):
@@ -63,10 +86,7 @@ def knn_sharded(query_xyz: torch.Tensor, ref_xyz: torch.Tensor, ref_mask: torch.
     rows = shard_rows(ref_xyz.shape[0], mesh)
     d, i = knn_fused(query_xyz, ref_xyz[rows], ref_mask[rows], k=k, ref_op=ref_op,
                      query_count=query_count, max_radius=max_radius)
-    i = i + rows.start
-    cand_d = torch.cat(all_gather(d, mesh), dim=-1)
-    cand_i = torch.cat(all_gather(i, mesh), dim=-1)
-    d, i = merge_candidates(cand_d, cand_i, k)
+    d, i = peer_gather(d, i + rows.start, mesh, k)
     return finish(d, i.to(torch.int64), None)
 
 
@@ -115,7 +135,7 @@ def normal_system_psum(
                        (Jw * rw[:, :, None]).sum(dim=1),
                        (rw * rw).sum(dim=1, keepdim=True)], dim=1)       # (B, 43)
     blocks = terms.reshape(-1, block, 43).transpose(0, 1)               # (block, nb, 43)
-    parts = torch.cat(all_gather(tree_sum(blocks), mesh))               # (NB, 43)
+    parts = concat_ranks(all_gather(tree_sum(blocks), mesh), 0)         # (NB, 43)
     total = tree_sum(parts)
     return total[:36].reshape(6, 6), total[36:42], total[42]
 

@@ -45,10 +45,18 @@ device syncs a registration, `SYNCS`
 counts them; none when host flags enable no lane).  The frame program
 (`runtime.frame_program`) runs the same pass as the body of a CUDA graph
 WHILE node, whose condition kernel reads ``active`` on the card.
+
+The carry holds the registration's threefry key (`ops.threefry`), and
+every pass splits it as the JAX loop does
+(``loam_livox_tpu/registration/icp.py:235-237``), drawing residual
+subsampling's keep mask (``optimization/subsample_residuals``, the
+reference's residual-block cap) from the second half: the JAX package's
+own numbers, and a pure function of the carry, so that a replayed WHILE
+body draws anew each pass.
 """
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -60,6 +68,7 @@ from ..ops.bucket_grid import BucketGrid, grid_knn
 from ..ops.knn import knn_dense
 from ..ops.knn_fused import build_ref_operand, knn_fused, max_ref_rows
 from ..ops.masked import random_keep_mask
+from ..ops.threefry import split
 from ..parallel import mesh
 from . import residuals as res
 from .gauss_newton import solve_two_phase
@@ -170,6 +179,7 @@ class ICPCarry(NamedTuple):
     iterations: torch.Tensor        # (L,) int32 passes each lane ran
     active: torch.Tensor            # (L,) bool: not converged, not frozen
     loops: torch.Tensor             # () int32 passes the loop made
+    key: Optional[torch.Tensor] = None  # (L, 2) uint32 threefry key, split every pass
 
 
 def _enabled_lanes(enabled, n_lanes: int, dev) -> torch.Tensor | None:
@@ -192,7 +202,7 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
                          map_corners: PointBatch, map_surface: PointBatch,
                          q_last, t_last, time_min, time_max, enabled,
                          cfg: SlamConfig, q_incre_init=None, t_incre_init=None,
-                         rng: torch.Generator | None = None,
+                         rng: torch.Tensor | None = None,
                          grid_corners: BucketGrid | None = None,
                          grid_surface: BucketGrid | None = None):
     """A lane-batched registration of L feature frames (every tensor with
@@ -200,8 +210,12 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
     times (L,)) against one matching buffer, up to its loop.  ``enabled``
     holds one flag a lane (host bools, or bool tensors: an (L,) tensor
     or a list of scalars); a lane that is not enabled (init window)
-    keeps its start pose.  ``rng`` draws the uniforms of residual
-    subsampling, when that is on.  The bucket grids over the buffer
+    keeps its start pose.  ``rng`` is an (L, 2) uint32 threefry key a
+    lane (`ops.threefry`), which the carry holds and every pass splits,
+    as the JAX loop does (``loam_livox_tpu/registration/icp.py:235``),
+    drawing residual subsampling's uniforms from the second half when
+    that is on; without one (the loop service's scene alignment, which
+    never subsamples) the carry holds none.  The bucket grids over the buffer
     serve the ``grid`` engine.  Returns
     ``(icp_pass, carry, finish)``, the pass ``ICPCarry -> ICPCarry``,
     the carry before the first pass and ``finish(carry) ->
@@ -228,9 +242,12 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
         t_incre = torch.zeros((n_lanes, 3), device=dev)
     zeros_f = torch.zeros(n_lanes, device=dev)
     zeros_i = torch.zeros(n_lanes, dtype=torch.int32, device=dev)
+    if rng is None and opt.subsample_residuals > 0:
+        raise ValueError("residual subsampling draws from a key: pass rng")
     carry = ICPCarry(q_incre=q_incre, t_incre=t_incre, final_cost=zeros_f,
                      inlier_threshold=zeros_f, n_blocks=zeros_i, iterations=zeros_i,
-                     active=run, loops=torch.zeros((), dtype=torch.int32, device=dev))
+                     active=run, loops=torch.zeros((), dtype=torch.int32, device=dev),
+                     key=None if rng is None else rng.reshape(n_lanes, 2))
 
     # The matching buffer is fixed over the ICP loop: build the kernel's
     # reference operands once.  The query sets are voxel filter outputs
@@ -263,10 +280,12 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
         plane_tgt = res.build_plane_targets(sd, si, map_surface.xyz, frame_surface.mask,
                                             opt.maximum_dis_plane_for_match)
         base_mask = torch.cat([line_tgt.valid, plane_tgt.valid], dim=-1)
-        if opt.subsample_residuals > 0:
-            base_mask = random_keep_mask(
-                base_mask, opt.subsample_residuals,
-                torch.rand(base_mask.shape, generator=rng, device=dev))
+        key = None
+        if c.key is not None:
+            keys = split(c.key)
+            key = keys[:, 0]
+            if opt.subsample_residuals > 0:
+                base_mask = random_keep_mask(base_mask, opt.subsample_residuals, keys[:, 1])
 
         def fj_with_mask(mask):
             def fj(q, t):
@@ -303,7 +322,8 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
             n_blocks=torch.where(active, info.n_blocks, c.n_blocks),
             iterations=c.iterations + active.to(torch.int32),
             active=active & ~converged,
-            loops=c.loops + 1)
+            loops=c.loops + 1,
+            key=key)
 
     def finish(c: ICPCarry) -> RegistrationResult:
         q_w = se3.quat_multiply(q_last, c.q_incre)
@@ -363,12 +383,12 @@ def prepare_frame(frame_corners: PointBatch, frame_surface: PointBatch,
                   map_corners: PointBatch, map_surface: PointBatch,
                   q_last, t_last, time_min, time_max, enabled, cfg: SlamConfig,
                   q_incre_init=None, t_incre_init=None,
-                  rng: torch.Generator | None = None,
+                  rng: torch.Tensor | None = None,
                   grid_corners: BucketGrid | None = None,
                   grid_surface: BucketGrid | None = None):
     """The one-lane `prepare_registration` (``enabled`` a host bool or a
-    bool scalar tensor): ``finish`` returns lane 0, ``iterations`` a
-    device scalar."""
+    bool scalar tensor; ``rng`` a (2,) key or None): ``finish`` returns
+    lane 0, ``iterations`` a device scalar."""
     def one(x):
         return None if x is None else x[None]
 
@@ -388,7 +408,7 @@ def register_frame(frame_corners: PointBatch, frame_surface: PointBatch,
                    map_corners: PointBatch, map_surface: PointBatch,
                    q_last, t_last, time_min, time_max, enabled,
                    cfg: SlamConfig, q_incre_init=None,
-                   t_incre_init=None, rng: torch.Generator | None = None,
+                   t_incre_init=None, rng: torch.Tensor | None = None,
                    grid_corners: BucketGrid | None = None,
                    grid_surface: BucketGrid | None = None) -> RegistrationResult:
     """Register one feature frame against the matching buffer: the

@@ -28,6 +28,7 @@ import torch
 from ..core import se3
 from ..core.config import SlamConfig
 from ..core.types import FeatureFrame, PointBatch
+from ..ops.threefry import split
 from ..registration.icp import (ICPCarry, RegistrationResult, lane, prepare_registration,
                                 run_host_loop)
 from .odometry import (MatchingUpdate, OdometryState, commit_history, input_downsample,
@@ -47,14 +48,16 @@ class Group(NamedTuple):
     icp_pass: Callable[[ICPCarry], ICPCarry]
     carry: ICPCarry                 # before the first pass
     finish: Callable[[ICPCarry], RegistrationResult]
+    rng: torch.Tensor               # the state's next key (lane 0 commits it)
 
 
 def prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamConfig) -> Group:
     """The lanes' coasted start poses, their enabled flags (device bools
-    from ``state.frame_count + k``), input filters, and the lane-batched
-    registration's pass, first carry and gates
-    (`registration.icp.prepare_registration`).  Reads nothing on the
-    host."""
+    from ``state.frame_count + k``), input filters, the state's key split
+    into its next key and one key a lane (``loam_livox_tpu/runtime/
+    batched.py:70-71``), and the lane-batched registration's pass, first
+    carry and gates (`registration.icp.prepare_registration`).  Reads
+    nothing on the host."""
     n_lanes = len(frames)
     # worker start poses: constant-velocity coast of the entry pose
     q_inits, t_inits = [], []
@@ -67,25 +70,29 @@ def prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamCon
     enabled = torch.stack([state.frame_count + k >= cfg.mapping.init_accumulate_frames
                            for k in range(n_lanes)])
     inputs = [input_downsample(f, cfg) for f in frames]
+    keys = split(state.rng)
     icp_pass, carry, finish = prepare_registration(
         stack_batches([c for c, _ in inputs]), stack_batches([s for _, s in inputs]),
         state.map_corners, state.map_surface, torch.stack(q_inits), torch.stack(t_inits),
         torch.stack([f.time_min for f in frames]), torch.stack([f.time_max for f in frames]),
-        enabled, cfg, rng=state.rng, grid_corners=state.grid_corners,
+        enabled, cfg, rng=split(keys[1], n_lanes), grid_corners=state.grid_corners,
         grid_surface=state.grid_surface)
-    return Group(q_inits, t_inits, enabled, inputs, icp_pass, carry, finish)
+    return Group(q_inits, t_inits, enabled, inputs, icp_pass, carry, finish, keys[0])
 
 
 def commit_lane(state: OdometryState, k: int, frame: FeatureFrame, group: Group,
                 regs: RegistrationResult, cfg: SlamConfig
                 ) -> Tuple[OdometryState, RegistrationResult, MatchingUpdate]:
-    """Lane ``k``'s commit onto ``state`` (the state after lanes 0..k-1):
-    a rejected lane frozen at the committed pose, then
+    """Lane ``k``'s commit onto ``state`` (the state after lanes 0..k-1;
+    lane 0 also commits the group's next key): a rejected lane frozen at
+    the committed pose, then
     `odometry.commit_history` from the lane's coasted start.  Returns the
     new state (its matching buffer as it was; its cell maps with the
     lane's masked insertions), the lane's result and the
     `MatchingUpdate` to apply."""
     reg = lane(regs, k)
+    if k == 0:
+        state = state._replace(rng=group.rng)
     # a rejected lane freezes at the last committed pose, not at its
     # coasted start (committing the coast would integrate it open-loop)
     rejected = (reg.enabled & ~reg.accepted)[None]

@@ -7,15 +7,15 @@ and reload", ``Points_cloud_map::save_to_file`` /
   ``torch.save`` (the JAX package uses orbax): pose, history ring,
   matching buffers, cell maps (``None`` where the configuration keeps
   none), the counters and the cell maps' frame index (device scalars; a
-  file that holds them as host integers loads too), and the
-  residual-subsampling generator's
-  state.  A resumed run on the device type the state was written on
-  continues bit for bit.  The CPU's and the card's generators keep
-  different states, so a state moved between them restarts the
-  generator from its seed: with ``subsample_residuals`` > 0 the resumed
-  run then draws another subsample stream (`load_state` warns).  The
-  format is the
-  port's own; the JAX package reads the state through
+  file that holds them as host integers loads too), and the threefry
+  key of residual subsampling (`ops.threefry`), a tensor like the
+  others.  A resumed run continues bit for bit, and the key's draws are
+  the same numbers on the CPU and on the card, so a state moved between
+  them continues the same subsample stream.  A file of the port's
+  earlier format, which held a ``torch.Generator``'s state in place of
+  the key, loads with ``PRNGKey(0)`` (`load_state` warns when
+  ``subsample_residuals`` > 0, where that restarts the stream).  The
+  format is the port's own; the JAX package reads the state through
   ``interop.state_from_numpy``'s field names, not this file.
 * `save_loop_state` / `load_loop_state`: the loop service's host state
   in the JAX package's ``.npz`` layout (``checkpoint.py:73-187``), so a
@@ -61,8 +61,6 @@ def _pack(value):
         return value
     if isinstance(value, torch.Tensor):
         return value.detach().cpu()
-    if isinstance(value, torch.Generator):
-        return {"generator": value.get_state(), "device": value.device.type}
     if isinstance(value, (PointBatch, CellMap, BucketGrid)):
         return {f: _pack(getattr(value, f)) for f in value._fields}
     raise TypeError(f"cannot checkpoint a {type(value).__name__}")
@@ -82,15 +80,6 @@ def _unpack(saved, ref, name: str, device):
                              "cell map or bucket grid where the config has "
                              f"{'none' if ref is None else 'one'}")
         return None
-    if isinstance(ref, torch.Generator):
-        gen = torch.Generator(device=device)
-        if saved["device"] == gen.device.type:
-            gen.set_state(saved["generator"])
-        else:
-            # the CPU's and the card's generators keep different states:
-            # start from the seed of a new state (load_state warns)
-            gen.manual_seed(0)
-        return gen
     if isinstance(ref, (PointBatch, CellMap, BucketGrid)):
         return type(ref)(**{f: _unpack(saved[f], getattr(ref, f), f"{name}.{f}", device)
                             for f in ref._fields})
@@ -112,11 +101,14 @@ def load_state(path: str, cfg: SlamConfig, device=None) -> OdometryState:
     dev = resolve_device(device)
     saved = torch.load(path, map_location="cpu", weights_only=True)
     ref = init_state(cfg, dev)
-    if saved["rng"]["device"] != dev.type and cfg.optimization.subsample_residuals > 0:
-        warnings.warn(
-            f"state written on {saved['rng']['device']} and loaded on {dev.type}: the "
-            "residual-subsampling generator restarts from its seed, so the resumed run "
-            "draws another subsample stream than the saved run would have")
+    if isinstance(saved.get("rng"), dict):
+        # the earlier format: a torch.Generator's state in place of the key
+        if cfg.optimization.subsample_residuals > 0:
+            warnings.warn(
+                "state file of the earlier format (a torch.Generator's state, not the "
+                "threefry key): the resumed run draws from PRNGKey(0), another subsample "
+                "stream than the saved run would have")
+        saved = {**saved, "rng": ref.rng.cpu()}
     return OdometryState(**{f: _unpack(saved[f], getattr(ref, f), f, dev)
                             for f in ref._fields})
 

@@ -109,10 +109,30 @@ service reads after each unit (`pipeline.OdometryPipeline._feed_loop`
 hands the service copies of what it keeps: the next unit overwrites the
 static state).
 
+Residual subsampling draws from the threefry key the state and the
+ICP carry hold (`ops.threefry`): the step's set-up splits the state's
+key, and each pass splits the carry's key and writes the first half
+back into the static carry in place, so every replay of a WHILE body
+draws new numbers, as the plain program's passes do.
+
+Under a product mesh (`parallel.mesh`) the program is given the rank's
+slices of the state (`parallel.layout`), and a frame, step, chunk or
+group key wraps its pieces in two segments of its own: first the
+slices all-gathered into the key's static whole state
+(`layout.gather_state_into`, one ``all_gather_into_tensor`` a sharded
+field), last this rank's rows copied back into the static slices
+(`layout.shard_state_into`); in between the pieces run as above, the
+kNN's search sharded over the ranks inside each WHILE body
+(`registration.icp._searcher`), its candidates exchanged and merged by
+one kernel that reads the peers' symmetric buffers (`ops.peer_gather`:
+across ranks the card refused a frame graph with NCCL's captured
+all-gather inside a conditional body).  The key holds the mesh's size and rank, and the
+program warms the communicator and the exchange up before any capture
+(`parallel.mesh.warm_up`, `peer_gather.rendezvous`).
+
 Captures, their seconds and the launches count in
 `core.accounting.GRAPHS`, in all and by kind.  A capture or build that
-fails raises: the card never falls back to the plain program for a
-configuration on the slice (`on_slice`).
+fails raises: the card never falls back to the plain program (`on_slice`).
 """
 from __future__ import annotations
 
@@ -129,8 +149,12 @@ from ..map.cell_map import append_cloud, empty_cell_map
 from ..ops import debounce as debounce_op
 from ..ops import graph_cond
 from ..ops import knn_fused as knn_op
+from ..ops import peer_gather as peer_op
+from ..ops import threefry
 from ..ops.bucket_grid import build_bucket_grid, grid_knn
 from ..ops.knn import knn_dense
+from ..parallel import mesh as mesh_mod
+from ..parallel.layout import gather_state, gather_state_into, shard_state, shard_state_into
 from ..registration.icp import ICPCarry
 from .batched import commit_lane, prepare_group
 from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_history,
@@ -139,17 +163,16 @@ from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_
 
 def on_slice(cfg: SlamConfig, device: torch.device, mesh=None) -> bool:
     """Whether the frame program runs a pipeline's dispatch units: on the
-    card, every front end and engine `require_supported` accepts (Livox
-    or Velodyne; ``knn_fused``, ``grid`` or ``dense``), history or cell
-    matching, loop closure on or off, under sequential, chunked or racing
-    dispatch, and the multi-head frame's front end and feature-frame
-    steps.  Residual subsampling (its generator is not replayed) and a
-    product mesh run the plain program (`ROADMAP.md` lists them); a
-    dispatch mode the plain program refuses raises before this is asked
-    (`pipeline.OdometryPipeline`)."""
-    o, p = cfg.optimization, cfg.parallel
-    return (device.type == "cuda" and mesh is None and int(p.mesh_devices) <= 1
-            and int(o.subsample_residuals) == 0)
+    card, every configuration `require_supported` accepts: the Livox or
+    Velodyne front end, the ``knn_fused``, ``grid`` or ``dense`` engine,
+    history or cell matching, loop closure on or off, residual
+    subsampling on or off (its draws come from the carry's threefry key,
+    so a replayed pass draws anew), under sequential, chunked or racing
+    dispatch, the multi-head frame's front end and feature-frame steps,
+    with or without a product ``mesh``.  On the CPU the plain program
+    runs; a dispatch mode the plain program refuses raises before this
+    is asked (`pipeline.OdometryPipeline`)."""
+    return device.type == "cuda"
 
 
 def _leaves(tree) -> List[torch.Tensor]:
@@ -214,6 +237,8 @@ def _warm_up(device: torch.device) -> None:
     graph_cond.loop_condition(torch.zeros(1, dtype=torch.bool, device=device),
                               torch.zeros((), dtype=torch.int32, device=device), 1)
     graph_cond.switch_index(torch.zeros(2, dtype=torch.bool, device=device))
+    key = threefry.split(threefry.prng_key(0, device))[1]
+    threefry.keep_mask(key[None], torch.ones((1, 8), dtype=torch.bool, device=device), 4)
     pts = PointBatch(torch.zeros((4, 3), **f32), torch.zeros(4, **f32),
                      torch.ones(4, dtype=torch.bool, device=device))
     append_cloud(empty_cell_map(1.0, 8, 2, device), pts, 10, 4)
@@ -285,7 +310,7 @@ class _Pool:
                     try:
                         g.capture_end()
                     except RuntimeError:    # the capture is broken: report its cause
-                        pass
+                        _end_allocation_to(self.program.device, self.handle)
                     raise
                 g.capture_end()
         finally:
@@ -294,6 +319,18 @@ class _Pool:
         cur.wait_stream(side)
         self.keep.append(g)
         return g.raw_cuda_graph()
+
+
+def _end_allocation_to(device: torch.device, pool) -> None:
+    """Drop the caching allocator's record of a capture into ``pool`` that
+    failed to end (`CUDAGraph.capture_end` raises before it ends the
+    allocation to the pool), so that the process's later allocator calls,
+    and its memory pools' teardown at exit, find no capture underway."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        torch._C._cuda_endAllocateToPool(index, pool)
+    except RuntimeError:        # already ended
+        pass
 
 
 def _set_flags(flags: torch.Tensor, upd: MatchingUpdate) -> None:
@@ -320,6 +357,39 @@ def _update_switch(pool: _Pool, state: OdometryState, flags: torch.Tensor,
     return graph_cond.Item(graph_cond.SWITCH, bodies, flags[:len(bodies)])
 
 
+class _Product:
+    """A unit's product mode (module doc): the static whole state, the
+    rank's static slices (a replicated field is the whole state's own
+    tensor) and the unit's first and last segments, the slices gathered
+    into the whole state and this rank's rows copied back.  ``slices`` is
+    the caller's, gathered once here, outside any capture."""
+
+    def __init__(self, pool: _Pool, mesh, slices: OdometryState, axes):
+        self.state = map_tensors(torch.clone, gather_state(slices, axes, mesh))
+        self.slices, _ = shard_state(self.state, mesh)
+        self.gather = graph_cond.Item(graph_cond.SEGMENT, pool.capture(
+            lambda: gather_state_into(self.slices, self.state, axes, mesh)))
+        self._scatter = lambda: shard_state_into(self.state, self.slices, axes, mesh)
+        self.pool = pool
+        self.scatter = None
+
+    def wrap(self, items: list) -> list:
+        """``items`` between the gather and the copy back (captured at the
+        first call, after the unit's pieces: captures follow replay order)."""
+        if self.scatter is None:
+            self.scatter = graph_cond.Item(graph_cond.SEGMENT, self.pool.capture(self._scatter))
+        return [self.gather, *items, self.scatter]
+
+
+def _static_state(program: "FrameProgram", pool: _Pool, state: OdometryState, axes):
+    """A key's static state and its product mode (None without a mesh):
+    under the program's mesh ``state`` is the rank's slices."""
+    if program.mesh is None:
+        return map_tensors(torch.clone, state), None
+    product = _Product(pool, program.mesh, state, axes)
+    return product.state, product
+
+
 def _debounces(cfg: SlamConfig) -> int:
     """The debounce kernel's runs a raw frame of one head: one in the
     Livox front end, none in the Velodyne one."""
@@ -334,14 +404,14 @@ class _StepsKey:
     builds it)."""
 
     def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 n_steps: int, front):
+                 n_steps: int, front, axes=None):
         from .pipeline import trajectory_rows
 
         t0 = time.perf_counter()
         dev = program.device
         self.device = dev
         self.pool = pool = _Pool(program)
-        self.state = map_tensors(torch.clone, state)
+        self.state, self.product = _static_state(program, pool, state, axes)
         self.rows = torch.zeros((n_steps, 10), dtype=torch.float32, device=dev)
         #: each step's matching-buffer update: (rebuild, append) flags
         flags = torch.zeros((n_steps, 2), dtype=torch.bool, device=dev)
@@ -352,11 +422,12 @@ class _StepsKey:
 
         def begin(k: int) -> None:
             frame = ctx["frames"][k]
-            corner_in, surf_in, icp_pass, carry, finish = prepare_step(self.state, frame, cfg)
+            corner_in, surf_in, icp_pass, carry, finish, rng = prepare_step(self.state, frame,
+                                                                             cfg)
             static = map_tensors(torch.empty_like, carry)
             carries.append(static)
             _assign(static, carry)
-            ctx[k] = (frame, corner_in, surf_in, icp_pass, finish)
+            ctx[k] = (frame, corner_in, surf_in, icp_pass, finish, rng)
 
         def seg0() -> None:
             ctx["frames"] = front()
@@ -369,9 +440,10 @@ class _StepsKey:
 
         def commit(k: int):
             def run() -> None:
-                frame, corner_in, surf_in, _, finish = ctx[k]
+                frame, corner_in, surf_in, _, finish, rng = ctx[k]
                 reg = finish(carries[k])
-                new, reg, upd = commit_history(self.state, frame, corner_in, surf_in, reg, cfg)
+                new, reg, upd = commit_history(self.state._replace(rng=rng), frame, corner_in,
+                                               surf_in, reg, cfg)
                 self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
                 program.loop_total.add_(carries[k].loops)
                 _assign(self.state, new)
@@ -391,25 +463,36 @@ class _StepsKey:
                 items.append(G.Item(G.SEGMENT, pool.capture(lambda k=k: begin(k + 1))))
         pool.keep += [ctx, carries, flags]
         #: the pieces in replay order, placed by the unit's graph or a chunk's
+        #: (under a mesh between the product's gather and copy back)
         self.items = items
-        self.steps = n_steps
+        self.steps = self.splits = n_steps
         self.whiles = self.switches = n_steps
         self._graph = None
         self.capture_s = time.perf_counter() - t0
 
     @property
+    def slices(self):
+        """The rank's static slices under a mesh, else None."""
+        return None if self.product is None else self.product.slices
+
+    def wrap(self, items: list) -> list:
+        """A unit's items: under a mesh between the gather and the copy back."""
+        return items if self.product is None else self.product.wrap(items)
+
+    @property
     def graph(self) -> graph_cond.FrameGraph:
         if self._graph is None:
             t0 = time.perf_counter()
-            self._graph = graph_cond.build_frame_graph(self.device, self.items)
+            self._graph = graph_cond.build_frame_graph(self.device, self.wrap(self.items))
             self.capture_s += time.perf_counter() - t0
         return self._graph
 
     def load_state(self, state: OdometryState) -> None:
-        """The caller's state into the static state, where it is not
-        already the program's."""
-        if state is not self.state:
-            _assign(self.state, state)
+        """The caller's state (under a mesh its slices) into the static
+        state, where it is not already the program's."""
+        held = self.state if self.product is None else self.product.slices
+        if state is not held:
+            _assign(held, state)
 
     def close(self) -> None:
         if self._graph is not None:
@@ -422,13 +505,13 @@ class _FrameKey(_StepsKey):
     kind = "frame"
 
     def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 n_raw: int, n_steps: int):
+                 n_raw: int, n_steps: int, axes=None):
         from .pipeline import extract_pieces
 
         self.inputs = inp = _inputs(program.device, n_raw)
         self.frames, self.debounces = 1, _debounces(cfg)
         super().__init__(program, state, cfg, n_steps, lambda: extract_pieces(
-            inp.pts, inp.inten, inp.mask, inp.base_time, cfg, n_steps))
+            inp.pts, inp.inten, inp.mask, inp.base_time, cfg, n_steps), axes)
 
     def load(self, state: OdometryState, pts, inten, mask, base_time: float) -> None:
         """Point the static buffers at this frame: its inputs and state."""
@@ -444,10 +527,10 @@ class _StepKey(_StepsKey):
     kind = "step"
 
     def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 frame: FeatureFrame):
+                 frame: FeatureFrame, axes=None):
         self.inputs = inp = map_tensors(torch.empty_like, frame)
         self.frames = self.debounces = 0
-        super().__init__(program, state, cfg, 1, lambda: [inp])
+        super().__init__(program, state, cfg, 1, lambda: [inp], axes)
 
     def load(self, state: OdometryState, frame: FeatureFrame) -> None:
         _assign(self.inputs, frame)
@@ -481,7 +564,7 @@ class _HeadsKey:
         self.out = out["frames"]
         self.pool.keep.append(out)
         self.frames, self.debounces, self.steps = 1, n_heads * _debounces(cfg), 0
-        self.whiles = self.switches = 0
+        self.whiles = self.switches = self.splits = 0
         self.graph = G.build_frame_graph(dev, items)
         self.capture_s = time.perf_counter() - t0
 
@@ -533,10 +616,18 @@ class _ChunkKey:
             items += frame.items
             items.append(G.Item(G.SEGMENT, frame.pool.capture(store(k))))
         self.frames, self.steps = n_frames, n_frames * n_steps
-        self.debounces = n_frames * frame.debounces
+        self.debounces, self.splits = n_frames * frame.debounces, n_frames * frame.splits
         self.whiles, self.switches = n_frames * frame.whiles, n_frames * frame.switches
-        self.graph = G.build_frame_graph(frame.device, items)
+        self.graph = G.build_frame_graph(frame.device, frame.wrap(items))
         self.capture_s = time.perf_counter() - t0
+
+    @property
+    def state(self) -> OdometryState:
+        return self.frame.state
+
+    @property
+    def slices(self):
+        return self.frame.slices
 
     def load(self, state: OdometryState, frames) -> None:
         _load_slots(self.slots, frames)
@@ -551,14 +642,14 @@ class _GroupKey:
     kind = "group"
 
     def __init__(self, program: "FrameProgram", state: OdometryState, cfg: SlamConfig,
-                 n_raw: int, n_frames: int):
+                 n_raw: int, n_frames: int, axes=None):
         from .pipeline import extract_pieces, trajectory_rows
 
         t0 = time.perf_counter()
         dev = program.device
         self.pool = pool = _Pool(program)
         self.slots = slots = _inputs(dev, n_raw, (n_frames,))
-        self.state = map_tensors(torch.clone, state)
+        self.state, product = _static_state(program, pool, state, axes)
         self.last_reg = None
         ctx: Dict[object, object] = {}
         touched = self.state.last_touched
@@ -616,14 +707,17 @@ class _GroupKey:
         pool.keep += [ctx, flags]
         self.frames, self.steps = n_frames, n_lanes
         self.debounces = n_frames * _debounces(cfg)
-        self.whiles, self.switches = 1, n_lanes
-        self.graph = G.build_frame_graph(dev, items)
+        # the state's key split once, and its second half into one a lane
+        self.whiles, self.switches, self.splits = 1, n_lanes, 2
+        self.slices = None if product is None else product.slices
+        self.graph = G.build_frame_graph(dev, items if product is None else product.wrap(items))
         self.capture_s = time.perf_counter() - t0
 
     def load(self, state: OdometryState, frames) -> None:
         _load_slots(self.slots, frames)
-        if state is not self.state:
-            _assign(self.state, state)
+        held = self.state if self.slices is None else self.slices
+        if state is not held:
+            _assign(held, state)
 
     def close(self) -> None:
         self.graph.close()
@@ -632,9 +726,22 @@ class _GroupKey:
 class FrameProgram:
     """One pipeline's unit graphs, one a shape key (module doc)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mesh=None):
         self.device = device
         _warm_up(device)
+        #: the product mesh (`parallel.mesh.Mesh`) the units gather over, or None
+        self.mesh = mesh
+        if mesh is not None:
+            mesh_mod.warm_up(mesh, device)
+            # the candidates' exchange inside the passes: the rendezvous of
+            # its symmetric buffers and its kernel's first launch
+            k = 5
+            peer_op.peer_gather(torch.zeros((1, k), device=device),
+                                torch.zeros((1, k), dtype=torch.int32, device=device), mesh, k)
+        #: the shape keys' last element: the mesh's size and rank
+        self._mesh_key = (None if mesh is None else (mesh.size, mesh.rank),)
+        #: under a mesh, the rank's static slices the last unit left
+        self.slices = None
         self.stream = torch.cuda.Stream(device)
         self._graphs: Dict[tuple, object] = {}
         self._captured: List[Tuple[tuple, dict]] = []
@@ -644,58 +751,62 @@ class FrameProgram:
         self.group_loop_total = torch.zeros((), dtype=torch.int64, device=device)
 
     def run(self, state: OdometryState, pts, inten, mask, base_time: float, cfg: SlamConfig,
-            n_steps: int) -> Tuple[OdometryState, torch.Tensor, object]:
+            n_steps: int, axes=None) -> Tuple[OdometryState, torch.Tensor, object]:
         """One raw frame of ``n_steps`` odometry steps at ``cfg``:
         returns the new state (the program's static state), the frame's
         (n_steps, 10) trajectory rows (a copy) and its last registration
-        (the program's: the next unit overwrites it)."""
+        (the program's: the next unit overwrites it).  Under the
+        program's mesh ``state`` is the rank's slices, laid out by
+        ``axes`` (`parallel.layout.state_axes`); the returned state is
+        the whole one, and `slices` the rank's static slices."""
         n_raw = pts.shape[0]
-        g = self._key(("frame", cfg, n_raw),
-                      lambda: _FrameKey(self, state, cfg, n_raw, n_steps), build=True)
+        key = ("frame", cfg, n_raw) + self._mesh_key
+        g = self._key(key, lambda: _FrameKey(self, state, cfg, n_raw, n_steps, axes),
+                      build=True)
         g.load(state, pts, inten, mask, base_time)
-        self._launch(("frame", cfg, n_raw), g.graph)
+        self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
-    def run_chunk(self, state: OdometryState, frames, cfg: SlamConfig, n_steps: int
-                  ) -> Tuple[OdometryState, torch.Tensor, object]:
+    def run_chunk(self, state: OdometryState, frames, cfg: SlamConfig, n_steps: int,
+                  axes=None) -> Tuple[OdometryState, torch.Tensor, object]:
         """K raw frames ``(pts, inten, mask, base_time)`` back to back, one
         launch: the state, the (K·n_steps, 10) rows and the last
         registration, as `run` returns them."""
         n_raw = frames[0][0].shape[0]
-        key = ("chunk", cfg, n_raw, len(frames))
+        key = ("chunk", cfg, n_raw, len(frames)) + self._mesh_key
         g = self._graphs.get(key)
         if g is None:
             self._drop_superseded(key)
-            frame = self._key(("frame", cfg, n_raw),
-                              lambda: _FrameKey(self, state, cfg, n_raw, n_steps))
+            frame = self._key(("frame", cfg, n_raw) + self._mesh_key,
+                              lambda: _FrameKey(self, state, cfg, n_raw, n_steps, axes))
             g = self._key(key, lambda: _ChunkKey(frame, len(frames)))
         g.load(state, frames)
-        self._launch(key, g.graph)
+        self._launch(key, g)
         return g.frame.state, g.rows.clone(), g.frame.last_reg
 
-    def run_group(self, state: OdometryState, frames, cfg: SlamConfig
+    def run_group(self, state: OdometryState, frames, cfg: SlamConfig, axes=None
                   ) -> Tuple[OdometryState, torch.Tensor, object]:
         """G raw frames as one racing group, one launch: the state, the
         (G·P, 10) rows and the last lane's registration, as `run` returns
         them."""
         n_raw = frames[0][0].shape[0]
-        key = ("group", cfg, n_raw, len(frames))
-        g = self._key(key, lambda: _GroupKey(self, state, cfg, n_raw, len(frames)))
+        key = ("group", cfg, n_raw, len(frames)) + self._mesh_key
+        g = self._key(key, lambda: _GroupKey(self, state, cfg, n_raw, len(frames), axes))
         g.load(state, frames)
-        self._launch(key, g.graph)
+        self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
-    def run_step(self, state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
+    def run_step(self, state: OdometryState, frame: FeatureFrame, cfg: SlamConfig, axes=None
                  ) -> Tuple[OdometryState, torch.Tensor, object]:
         """One odometry step on a finished feature frame, one launch: the
         state, the (1, 10) row and the registration, as `run` returns
         them.  The key's shape is the frame's own three capacities (a
         merged multi-head frame has S times a head's)."""
         caps = (frame.corners.capacity, frame.surface.capacity, frame.full.capacity)
-        key = ("step", cfg, caps)
-        g = self._key(key, lambda: _StepKey(self, state, cfg, frame), build=True)
+        key = ("step", cfg, caps) + self._mesh_key
+        g = self._key(key, lambda: _StepKey(self, state, cfg, frame, axes), build=True)
         g.load(state, frame)
-        self._launch(key, g.graph)
+        self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
     def run_heads(self, xyz, inten, mask, base_time: float, cfg: SlamConfig
@@ -709,7 +820,7 @@ class FrameProgram:
         key = ("heads", cfg, xyz.shape[1], xyz.shape[0])
         g = self._key(key, lambda: _HeadsKey(self, cfg, xyz.shape[0], xyz.shape[1]))
         g.load(xyz, inten, mask, base_time)
-        self._launch(key, g.graph)
+        self._launch(key, g)
         return g.out
 
     def _key(self, key: tuple, make, build: bool = False):
@@ -739,16 +850,19 @@ class FrameProgram:
             "map_corner_capacity": caps.map_corner_capacity,
             "hist_surf_capacity": caps.hist_surf_capacity,
             "max_surface_ds": caps.max_surface_ds, "shape": key[2],
-            "frames": g.frames, "debounces": g.debounces,
+            "frames": g.frames, "debounces": g.debounces, "splits": g.splits,
             "steps": g.steps, "whiles": g.whiles, "switches": g.switches,
+            "mesh": None if self.mesh is None else self.mesh.size,
             "capture_s": g.capture_s, "device_mb": used / 2 ** 20, "launches": 0}))
         accounting.GRAPHS["graph_capture"] += 1
         accounting.GRAPHS[f"capture_{g.kind}"] += 1
         accounting.GRAPHS["graph_capture_s"] += g.capture_s
         return g
 
-    def _launch(self, key: tuple, graph: graph_cond.FrameGraph) -> None:
-        graph.launch()
+    def _launch(self, key: tuple, g) -> None:
+        g.graph.launch()
+        if hasattr(g, "slices"):        # a unit that holds the state
+            self.slices = g.slices
         for k, entry in reversed(self._captured):
             if k == key:
                 entry["launches"] += 1
@@ -779,7 +893,9 @@ class FrameProgram:
     def summary(self) -> List[dict]:
         """Each key captured, in order: its kind, capacities, shape (the
         input length, or a step's three frame capacities), raw frames,
-        debounce runs, steps, WHILE and SWITCH nodes a launch, capture seconds,
+        debounce runs, threefry splits outside the passes (one a step, two
+        a racing group), steps, WHILE and SWITCH nodes a launch, the
+        mesh's size (None without one), capture seconds,
         device memory (`_key`), launches, whether it is still held (a
         superseded key is freed) and, where held, the bytes its graph
         pool's segments hold now (from the allocator's snapshot; a chunk

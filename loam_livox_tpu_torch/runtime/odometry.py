@@ -34,9 +34,12 @@ grids over the matching buffer (``grid_corners`` / ``grid_surface``,
 the ``grid`` correspondence engine, and are ``None`` under every other;
 a grid has no append, so appends between rebuilds are off under
 ``grid`` (``loam_livox_tpu/runtime/odometry.py:393-396``).
-In place of the JAX rng key the state carries a ``torch.Generator`` on
-the device, which draws the uniforms of residual subsampling
-(``optimization/subsample_residuals``); its draws cannot match JAX's.
+The state carries the JAX package's threefry key (`ops.threefry`, a
+(2,) uint32 device tensor, ``PRNGKey(0)`` at init): each step splits it
+as the JAX step does (``loam_livox_tpu/runtime/odometry.py:243``) and
+hands the registration the second half, from which residual
+subsampling (``optimization/subsample_residuals``) draws the JAX
+package's own uniforms.
 The frame counter, ring pointer and ring length are int32 scalars on
 the state's device, as is each cell map's frame index, as in the JAX
 package.
@@ -63,6 +66,7 @@ from ..core.types import FeatureFrame, PointBatch
 from ..map.cell_map import (CellMap, append_cloud, cells_in_fov, cells_in_radius,
                             empty_cell_map, gather_cell_points)
 from ..ops.bucket_grid import BucketGrid, build_bucket_grid
+from ..ops.threefry import prng_key, split
 from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
 from ..registration.icp import (RegistrationResult, prepare_frame, refine_blur,
@@ -92,7 +96,7 @@ class OdometryState(NamedTuple):
     cell_planes: CellMap | None
     map_corners: PointBatch         # matching buffer
     map_surface: PointBatch
-    rng: torch.Generator            # residual subsampling draws
+    rng: torch.Tensor               # (2,) uint32 threefry key (residual subsampling draws)
     cell_full: CellMap | None = None          # full-cloud cell map (loop closure)
     last_touched: torch.Tensor | None = None  # (C,) cells this frame gave >= 3 points
     grid_corners: BucketGrid | None = None    # bucket grids over the buffer (grid engine)
@@ -148,7 +152,7 @@ def init_state(cfg: SlamConfig, device) -> OdometryState:
         cell_planes=cells(cfg.mapping.matching_mode == 1 or loop),
         map_corners=map_corners,
         map_surface=map_surface,
-        rng=torch.Generator(device=device).manual_seed(0),
+        rng=prng_key(0, device),
         cell_full=cells(loop),
         last_touched=(torch.zeros((caps.cell_capacity,), dtype=torch.bool, device=device)
                       if loop else None),
@@ -241,26 +245,29 @@ def input_downsample(frame: FeatureFrame, cfg: SlamConfig):
 
 
 def prepare_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig):
-    """A step up to its ICP loop: the input voxel filter and the
-    registration's pass, first carry and gates (`icp.prepare_frame`).
-    Returns ``(corner_in, surf_in, icp_pass, carry, finish)``."""
+    """A step up to its ICP loop: the input voxel filter, the state's key
+    split (the first half the state's next key, the second the
+    registration's) and the registration's pass, first carry and gates
+    (`icp.prepare_frame`).  Returns ``(corner_in, surf_in, icp_pass,
+    carry, finish, rng)``, ``rng`` the key the state commits."""
     corner_in, surf_in = input_downsample(frame, cfg)
+    keys = split(state.rng)
     icp_pass, carry, finish = prepare_frame(
         corner_in, surf_in, state.map_corners, state.map_surface,
         state.q_w, state.t_w, frame.time_min, frame.time_max,
         state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
         q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
-        rng=state.rng, grid_corners=state.grid_corners, grid_surface=state.grid_surface)
-    return corner_in, surf_in, icp_pass, carry, finish
+        rng=keys[1], grid_corners=state.grid_corners, grid_surface=state.grid_surface)
+    return corner_in, surf_in, icp_pass, carry, finish, keys[0]
 
 
 def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
                   ) -> Tuple[OdometryState, RegistrationResult]:
     """Register one feature frame (its ICP loop on the host), then update
     the history and the matching buffer."""
-    corner_in, surf_in, icp_pass, carry, finish = prepare_step(state, frame, cfg)
+    corner_in, surf_in, icp_pass, carry, finish, rng = prepare_step(state, frame, cfg)
     reg = register_on_host(icp_pass, carry, finish, cfg.optimization.icp_maximum_iteration)
-    return commit_frame(state, frame, corner_in, surf_in, reg, cfg)
+    return commit_frame(state._replace(rng=rng), frame, corner_in, surf_in, reg, cfg)
 
 
 def _select(cond: torch.Tensor, a, b):

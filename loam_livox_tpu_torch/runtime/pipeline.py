@@ -54,7 +54,12 @@ bucket axes, and the step reads the state gathered from the slices.
 The registration's kNN over the matching buffer runs sharded
 (`parallel.sharded.knn_sharded`, bit for bit the unsharded search), and
 the small per-frame solve runs whole on every rank, as the JAX package
-pins it replicated; so the trajectory is the 1-rank run's.
+pins it replicated; so the trajectory is the 1-rank run's.  On the card
+the frame program captures the same: a unit gathers the rank's static
+slices into its whole static state, runs its steps (the sharded
+search's all-gathers inside the WHILE bodies) and copies the rank's
+rows back; `_live` then reads the whole static state without a
+collective.
 
 The entry points (`OdometryPipeline`, `run_odometry`) run on the card
 unless the caller passes ``device="cpu"``; without a card and without
@@ -78,19 +83,20 @@ dispatched, so logging, pcd files and ``eager_drain`` (the command
 line's ``--follow``) read the queue after every raw frame, down to the
 racing queue depth.
 
-On the card, a configuration on the frame program's slice
+On the card every configuration runs on the frame program
 (`runtime.frame_program.on_slice`: the Livox or Velodyne front end,
 history or cell matching, the ``knn_fused``, ``grid`` or ``dense``
-engine, loop closure on or off; not residual subsampling or a mesh)
-runs each raw frame as one CUDA graph launch (`runtime.frame_program`),
-the counterpart of the JAX package's one jitted program a frame; its
-rows, state and iterations equal the plain program's
-(`process_raw_frame`) bit for bit.  The frame program also runs a chunk
-(one graph launch a chunk of K frames), a racing group (one launch a
-group), a feature-frame step (one launch) and a multi-head frame's
-front end (one launch, so a Mid-100 frame of P pieces is 1 + P).  The
-choice depends on the device and the configuration only.  Every other
-path, and every path on the CPU, runs the plain program.  On the graph path
+engine, loop closure on or off, residual subsampling on or off, with or
+without a product mesh): each raw frame is one CUDA graph launch
+(`runtime.frame_program`), the counterpart of the JAX package's one
+jitted program a frame; its rows, state and iterations equal the plain
+program's (`process_raw_frame`) bit for bit.  The frame program also
+runs a chunk (one graph launch a chunk of K frames), a racing group (one
+launch a group), a feature-frame step (one launch) and a multi-head
+frame's front end (one launch, so a Mid-100 frame of P pieces is 1 + P).
+No configuration runs the plain program on the card any more, unless a
+caller sets ``program = None`` (the comparison runs of the GPU tests and
+``chip_smoke.py``); on the CPU every path runs the plain program.  On the graph path
 the program updates its static state in place; `state` hands a reader
 outside the pipeline a copy of it, so that a state once read stays as
 it was, as the JAX pipeline's new arrays do, and the loop service gets
@@ -321,6 +327,10 @@ class OdometryPipeline:
         #: the product mesh (module doc), or None
         self.mesh = mesh
         self._axes = None
+        #: under a mesh on the frame program, the whole static state the
+        #: last unit left (its slices gathered), read by `_live` with no
+        #: collective; None where the slices are newer
+        self._whole = None
         self.device = resolve_device(device)
         if mesh is not None:
             self.device = mesh_device(mesh, self.device)
@@ -378,7 +388,7 @@ class OdometryPipeline:
         #: set to None, the plain program runs instead (the card's reference
         #: run that chip_smoke.py and the GPU tests hold it against)
         self.program: Optional[FrameProgram] = (
-            FrameProgram(self.device) if on_slice(cfg, self.device, mesh) else None)
+            FrameProgram(self.device, mesh) if on_slice(cfg, self.device, mesh) else None)
         self.raced_groups = 0
         self._raced_loop_iterations = 0   # the plain program's batched loops
         self.fallback_groups = 0
@@ -405,9 +415,13 @@ class OdometryPipeline:
     def _live(self) -> OdometryState:
         """The state as the pipeline's own code reads it: on the frame
         program its static state itself, no copy; in product mode
-        gathered from the ranks' slices (a collective)."""
+        gathered from the ranks' slices (a collective), or on the frame
+        program the whole static state its last unit gathered and
+        updated (no collective: the slices are that state's rows)."""
         if self.mesh is None:
             return self._state
+        if self._whole is not None:
+            return self._whole
         return gather_state(self._state, self._axes, self.mesh)
 
     @property
@@ -427,6 +441,16 @@ class OdometryPipeline:
             self._state = state
         else:
             self._state, self._axes = shard_state(state, self.mesh)
+            self._whole = None
+
+    def _hold(self, state: OdometryState) -> None:
+        """Keep the state a frame-program unit left: its static state, or
+        under a mesh the rank's static slices (the next unit's input) and
+        the whole static state (`_live`)."""
+        if self.mesh is None:
+            self._state = state
+        else:
+            self._state, self._whole = self.program.slices, state
 
     def _activate(self) -> None:
         """Register this pipeline's mesh and numerics flags for the
@@ -506,9 +530,10 @@ class OdometryPipeline:
         program on the card, on its slice; else the plain program);
         returns its unit, not yet queued."""
         if self.program is not None:
-            self.state, rows, last_reg = self.program.run(
-                self._live(), pts, inten, mask, base_time, self.cfg_active,
-                steps_per_frame(self.cfg_active))
+            state, rows, last_reg = self.program.run(
+                self._state, pts, inten, mask, base_time, self.cfg_active,
+                steps_per_frame(self.cfg_active), self._axes)
+            self._hold(state)
             return self._unit(rows, last_reg)
         self.state, regs, frames = process_raw_frame(self._live(), pts, inten, mask,
                                                      base_time, self.cfg_active)
@@ -549,7 +574,9 @@ class OdometryPipeline:
         (as the JAX package's ``process_feature_frame``)."""
         self._activate()
         if self.program is not None:
-            self.state, rows, _ = self.program.run_step(self._live(), frame, self.cfg_active)
+            state, rows, _ = self.program.run_step(self._state, frame, self.cfg_active,
+                                                   self._axes)
+            self._hold(state)
         else:
             self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
             self._loop_iterations += reg.iterations
@@ -576,8 +603,9 @@ class OdometryPipeline:
         if self.program is not None:
             # the graph writes the OR of the frames' touched masks into the
             # state's last_touched (`frame_program._ChunkKey`)
-            self.state, rows, last_reg = self.program.run_chunk(
-                self._live(), buf, self.cfg_active, steps_per_frame(self.cfg_active))
+            state, rows, last_reg = self.program.run_chunk(
+                self._state, buf, self.cfg_active, steps_per_frame(self.cfg_active), self._axes)
+            self._hold(state)
             self._pending.append(self._unit(rows, last_reg))
             self._feed_loop(len(buf))
             return
@@ -605,8 +633,9 @@ class OdometryPipeline:
             return
         self.raced_groups += 1
         if self.program is not None:
-            self.state, rows, last_reg = self.program.run_group(self._live(), buf,
-                                                                self.cfg_active)
+            state, rows, last_reg = self.program.run_group(self._state, buf, self.cfg_active,
+                                                           self._axes)
+            self._hold(state)
             self._pending.append(self._unit(rows, last_reg))
             self._feed_loop(len(buf))
             return

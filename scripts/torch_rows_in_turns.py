@@ -60,6 +60,19 @@ of the same configuration (the kernels' first launches):
                       a frame where the checkout has the heads and step
                       keys
     mid100_trilidar_plain  the same through the plain program
+    subsampled        ``main_fixed`` with residual subsampling at the
+                      reference's 200-block cap (``optimization/
+                      subsample_residuals``), one graph launch a frame
+                      where the checkout draws from the state's threefry
+                      key on the frame program
+    subsampled_plain  the same through the plain program
+    subsampled_racing ``racing`` with residual subsampling at 200
+    subsampled_racing_plain  the same through the plain program
+    product           ``main_fixed`` in product mode on an NCCL group of
+                      one rank (a ``FileStore`` under the checkout's
+                      ``_build/``), one graph launch a frame where the
+                      checkout runs product mode on the frame program
+    product_plain     the same through the plain program
 
 A row's time runs from the pipeline's construction to its flush, graph
 captures included.  Prints one JSON line a turn and a summary line with
@@ -83,7 +96,10 @@ ROWS = ("main_fixed", "main_fixed_plain", "dense", "grid", "main_fixed_plain_bra
         "racing", "racing_plain", "chunked", "chunked_plain", "full_mapping",
         "full_mapping_plain", "loop_closure", "loop_closure_plain", "dense_plain",
         "grid_plain", "velodyne", "velodyne_plain", "mid100_trilidar",
-        "mid100_trilidar_plain")
+        "mid100_trilidar_plain", "subsampled", "subsampled_plain", "subsampled_racing",
+        "subsampled_racing_plain", "product", "product_plain")
+#: the rows run in product mode (one NCCL rank)
+PRODUCT = ("product", "product_plain")
 
 
 def child(root: str, n_frames: int, labels) -> dict:
@@ -118,11 +134,11 @@ def child(root: str, n_frames: int, labels) -> dict:
         pts, inten, t, m = frame
         pipe.process_raw(pts, inten, t, mask=m)
 
-    def run(cfg_row, plain, batch, feed=raw):
+    def run(cfg_row, plain, batch, feed=raw, mesh=None):
         torch.cuda.synchronize()
         P.reset_host_syncs()
         t0 = time.perf_counter()
-        pipe = OdometryPipeline(cfg_row, device=dev)
+        pipe = OdometryPipeline(cfg_row, device=dev, mesh=mesh)
         if plain:
             pipe.program = None
         for frame in batch:
@@ -145,6 +161,23 @@ def child(root: str, n_frames: int, labels) -> dict:
     chunked = cfg.replace(parallel={"dispatch_chunk": 8})
     rows.update(racing=(racing, False), racing_plain=(racing, True),
                 chunked=(chunked, False), chunked_plain=(chunked, True))
+    sub = {"subsample_residuals": 200}
+    rows.update(subsampled=(cfg.replace(optimization=sub), False),
+                subsampled_plain=(cfg.replace(optimization=sub), True),
+                subsampled_racing=(racing.replace(optimization=sub), False),
+                subsampled_racing_plain=(racing.replace(optimization=sub), True),
+                product=(cfg, False), product_plain=(cfg, True))
+    mesh = None
+    if set(PRODUCT) & set(labels):
+        import torch.distributed as dist
+
+        from loam_livox_tpu_torch.parallel.mesh import make_mesh
+
+        store = os.path.join(root, "loam_livox_tpu_torch", "_build", f"store-{os.getpid()}")
+        os.makedirs(os.path.dirname(store), exist_ok=True)
+        dist.init_process_group("nccl", store=dist.FileStore(store, 1), rank=0,
+                                world_size=1)
+        mesh = make_mesh(1)
     from loam_livox_tpu_torch.eval import scenarios as S
 
     for name in ("full_mapping", "loop_closure"):
@@ -194,9 +227,10 @@ def child(root: str, n_frames: int, labels) -> dict:
                 continue            # the checkout branches on the host already
             O.update_matching = branched
         batch, feed = inputs.get(label.removesuffix("_plain"), (frames, raw))
+        on_mesh = mesh if label in PRODUCT else None
         try:
-            run(cfg_row, plain, batch[:12], feed)
-            wall, pipe = run(cfg_row, plain, batch[:n_frames], feed)
+            run(cfg_row, plain, batch[:12], feed, on_mesh)
+            wall, pipe = run(cfg_row, plain, batch[:n_frames], feed, on_mesh)
         finally:
             if selected is not None:
                 O.update_matching = selected
@@ -204,6 +238,10 @@ def child(root: str, n_frames: int, labels) -> dict:
                       "iterations": int(sum(pipe.iterations)),
                       "accepted": int(sum(pipe.trajectory.accepted)),
                       "graph_launches": P.graph_counts()["graph_launch"]}
+    if mesh is not None:
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
     return out
 
 

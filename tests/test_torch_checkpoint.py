@@ -69,8 +69,6 @@ def fields(state) -> dict:
         if isinstance(v, (CellMap,)) or hasattr(v, "_fields"):
             for f in v._fields:
                 out[f"{name}.{f}"] = getattr(v, f)
-        elif isinstance(v, torch.Generator):
-            out[name] = v.get_state()
         else:
             out[name] = v
     return out
@@ -121,20 +119,42 @@ def test_capacity_mismatch_raises(tmp_path):
 
 
 def test_generator_from_another_device_warns(tmp_path):
-    """A state written on the other device type restarts the generator
-    from its seed: with residual subsampling on, `load_state` warns that
-    the resumed run draws another stream; without it, the generator is
-    unused and loading is silent."""
+    """The state's threefry key is saved as a tensor, whose draws are the
+    same numbers on every device: the file carries no device, loads on
+    the CPU silently and continues the same subsample stream.  A file of the earlier format, a torch.Generator's
+    state in place of the key, loads with PRNGKey(0): with residual
+    subsampling on `load_state` warns that the stream restarts; without
+    it, the key is unused and loading is silent."""
     cfg = small_config(optimization={"subsample_residuals": 200})
+    frames = sim_frames(8)
+    pipe = OdometryPipeline(cfg, device="cpu")
+    for f in frames[:5]:
+        pipe.process_raw(*f)
+    state = pipe.state
     path = str(tmp_path / "state.pt")
-    ck.save_state(init_state(cfg, "cpu"), path)
+    ck.save_state(state, path)
     saved = torch.load(path, weights_only=True)
-    saved["rng"]["device"] = "cuda"          # as if written on the card
+    assert saved["rng"].dtype == torch.uint32 and saved["rng"].shape == (2,)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        loaded = ck.load_state(path, cfg, "cpu")
+    assert torch.equal(loaded.rng, state.rng)
+    other = OdometryPipeline(cfg, device="cpu")
+    other.state = loaded
+    for f in frames[5:]:
+        pipe.process_raw(*f)
+        other.process_raw(*f)
+    pipe.flush()
+    other.flush()
+    assert_states_equal(other.state, pipe.state)
+
+    saved["rng"] = {"generator": torch.Generator().manual_seed(0).get_state(),
+                    "device": "cuda"}            # the earlier format, written on the card
     torch.save(saved, path)
     with pytest.warns(UserWarning, match="another subsample stream"):
         loaded = ck.load_state(path, cfg, "cpu")
-    fresh = torch.Generator().manual_seed(0)
-    assert torch.equal(loaded.rng.get_state(), fresh.get_state())
+    assert torch.equal(loaded.rng, init_state(cfg, "cpu").rng)
+    assert_states_equal(loaded._replace(rng=state.rng), state)
     with warnings.catch_warnings():
         warnings.simplefilter("error")
         ck.load_state(path, small_config(), "cpu")

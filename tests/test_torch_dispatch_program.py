@@ -285,4 +285,7 @@ def test_on_slice_admits_chunked_and_racing_dispatch():
     assert on_slice(racing.replace(loop_closure={"if_enable_loop_closure": 1}), card)
     assert on_slice(racing.replace(mapping={"matching_mode": 1}), card)
     assert on_slice(racing.replace(optimization={"correspondence": "grid"}), card)
-    assert not on_slice(racing.replace(optimization={"subsample_residuals": 64}), card)
+    # residual subsampling too: its draws come from the carry's key
+    assert on_slice(racing.replace(optimization={"subsample_residuals": 64}), card)
+    assert not on_slice(racing.replace(optimization={"subsample_residuals": 64}),
+                        torch.device("cpu"))

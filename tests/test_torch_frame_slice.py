@@ -258,9 +258,10 @@ def split_step(state, frame, cfg):
     """One step as `frame_program._StepsKey` runs it: set-up, the loop,
     the commit, then the update the SWITCH node's index picks (body 0 the
     rebuild, body 1 the append, else none)."""
-    corner_in, surf_in, icp_pass, carry, finish = prepare_step(state, frame, cfg)
+    corner_in, surf_in, icp_pass, carry, finish, rng = prepare_step(state, frame, cfg)
     carry, _ = run_host_loop(icp_pass, carry, cfg.optimization.icp_maximum_iteration)
-    new, reg, upd = commit_history(state, frame, corner_in, surf_in, finish(carry), cfg)
+    new, reg, upd = commit_history(state._replace(rng=rng), frame, corner_in, surf_in,
+                                   finish(carry), cfg)
     flags = [upd.rebuild] + ([] if upd.append is None else [upd.append])
     pick = int(switch_index_plain(torch.stack(flags)))
     if pick == 0:
@@ -335,8 +336,12 @@ def test_on_slice_admits_velodyne_and_the_engines(dispatch):
                              loop_closure={"if_enable_loop_closure": 1})):
         assert on_slice(cfg, card)
         assert not on_slice(cfg, torch.device("cpu"))
-        assert not on_slice(cfg, card, mesh=object())
-        assert not on_slice(cfg.replace(parallel={"mesh_devices": 2}), card)
-        assert not on_slice(cfg.replace(optimization={"subsample_residuals": 64}), card)
+        # a product mesh and residual subsampling run on the frame program too
+        assert on_slice(cfg, card, mesh=object())
+        assert on_slice(cfg.replace(parallel={"mesh_devices": 2}), card)
+        assert on_slice(cfg.replace(optimization={"subsample_residuals": 64}), card)
+        assert not on_slice(cfg.replace(parallel={"mesh_devices": 2},
+                                        optimization={"subsample_residuals": 64}),
+                            torch.device("cpu"), mesh=object())
     racing = realtime_racing_profile().replace(optimization={"correspondence": "grid"})
     assert on_slice(racing, card)

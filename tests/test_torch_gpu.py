@@ -891,13 +891,17 @@ def _graph_and_plain(cuda, cfg, n_frames, init=10):
     return out
 
 
-def _assert_runs_equal(graph, plain):
+def _assert_runs_equal(graph, plain, states=None):
+    """Rows, iterations and every state tensor equal (``states``: the
+    two pipelines' states read earlier, as a product run's must be while
+    its process group is up)."""
     tg, tp = graph.trajectory, plain.trajectory
     assert tg.times == tp.times and tg.accepted == tp.accepted
     assert np.array_equal(tg.positions_array(), tp.positions_array())
     assert np.array_equal(np.asarray(tg.quaternions), np.asarray(tp.quaternions))
     assert graph.iterations == plain.iterations
-    lg, lp = _state_leaves(graph.state), _state_leaves(plain.state)
+    sg, sp = states or (graph.state, plain.state)
+    lg, lp = _state_leaves(sg), _state_leaves(sp)
     assert lg.keys() == lp.keys()
     for k in lg:
         assert lg[k].dtype == lp[k].dtype and torch.equal(lg[k], lp[k]), k
@@ -967,16 +971,22 @@ def test_run_counters_count_the_replays(cuda):
     pipe.process_raw(*frames[0][:3], mask=frames[0][3])      # the capture, and frame 0
     torch.cuda.synchronize()
     passes0 = pipe.loop_iterations
-    for counter in (kf.runs, db.runs, gc.runs, gc.switch_runs):
+    from loam_livox_tpu_torch.ops import threefry as tf
+
+    for counter in (kf.runs, db.runs, gc.runs, gc.switch_runs, tf.split_runs, tf.mask_runs):
         counter.reset()
-    launches = (kf.launches, db.launches, gc.launches)
+    launches = (kf.launches, db.launches, gc.launches, tf.split_launches, tf.mask_launches)
     for pts, inten, t0, mask in frames[1:]:
         pipe.process_raw(pts, inten, t0, mask=mask)
     pipe.flush()
     passes = pipe.loop_iterations - passes0
     assert passes > 0 and kf.runs.read() == 2 * passes
     assert db.runs.read() == 5 and gc.runs.read() == passes + 5 and gc.switch_runs.read() == 5
-    assert (kf.launches, db.launches, gc.launches) == launches     # no launch from Python
+    # the state's key split once a step and the carry's once a pass; no
+    # draw without subsampling
+    assert tf.split_runs.read() == passes + 5 and tf.mask_runs.read() == 0
+    assert (kf.launches, db.launches, gc.launches, tf.split_launches,
+            tf.mask_launches) == launches     # no launch from Python
 
 
 def test_capture_makes_no_host_sync(cuda):
@@ -1602,6 +1612,220 @@ def test_captured_bucket_grid_build_equals_eager(cuda, case):
             assert torch.equal(getattr(out, f).cpu(), getattr(cpu, f)), f
     if case == "overflow":
         assert bool((out.keys != 2 ** 31 - 1).all()) and bool(out.slot_mask.all(dim=1).any())
+
+
+# ---- residual subsampling and product mode on the frame program -------------
+
+@pytest.mark.parametrize("lanes", [1, 9])
+@pytest.mark.parametrize("n", [512, 2049, 10240, 16384])
+def test_threefry_kernels_equal_plain(cuda, lanes, n):
+    """The split and keep-mask kernels against their plain versions, bit
+    for bit: split into 2, 3 and 9; masks of every fill, budgets below,
+    at and above the count."""
+    from loam_livox_tpu_torch.ops import threefry as tf
+
+    rng = np.random.default_rng(n + lanes)
+    keys = torch.from_numpy(rng.integers(0, 2 ** 32, (lanes, 2)).astype(np.uint32)).to(cuda)
+    for num in (2, 3, 9):
+        assert torch.equal(tf.split(keys, num), tf.split_plain(keys, num))
+    assert torch.equal(tf.split(keys[0]), tf.split_plain(keys[0]))
+    for fill in (0.0, 0.02, 0.4, 1.0):
+        mask = torch.from_numpy(rng.uniform(size=(lanes, n)) < fill).to(cuda)
+        for budget in (0, 200, n, 10 * n):
+            got = tf.keep_mask(keys, mask, budget)
+            assert torch.equal(got, tf.keep_mask_plain(keys, mask, budget)), (fill, budget)
+            assert not (got & ~mask).any()
+
+
+class _KeepMaskRecorder:
+    """Wraps `ops.threefry.keep_mask`: every mask of ``shape`` it returns is
+    written on the card into the next row of a buffer (a device row
+    count), so a graph's replays record each pass's mask as the plain
+    program's calls do."""
+
+    def __init__(self, monkeypatch, shape, rows, device):
+        from loam_livox_tpu_torch.ops import threefry as tf
+
+        self.buf = torch.zeros((rows,) + tuple(shape), dtype=torch.bool, device=device)
+        self.count = torch.zeros(1, dtype=torch.int64, device=device)
+        real = tf.keep_mask
+
+        def keep_mask(key, mask, budget):
+            out = real(key, mask, budget)
+            if tuple(out.shape) == tuple(shape):
+                row = torch.clamp(self.count, max=rows - 1)
+                self.buf.index_copy_(0, row, out[None])
+                self.count.add_(1)
+            return out
+        monkeypatch.setattr(tf, "keep_mask", keep_mask)
+
+    def masks(self):
+        return self.buf[:int(self.count)]
+
+
+@pytest.mark.parametrize("parallel", [{}, {"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["sequential", "chunked", "racing"])
+def test_frame_program_subsampled_equals_plain(cuda, parallel, monkeypatch):
+    """Residual subsampling (``subsample_residuals`` 200) on the frame
+    program, bit-equal to the plain program: rows, iterations and every
+    state tensor, the key included; no ICP-exit read; and every pass's
+    keep mask, recorded on the card, equal to the plain program's and
+    different from the pass before (the WHILE body splits the carry's
+    key in place)."""
+    from loam_livox_tpu_torch.core.config import realtime_racing_profile
+
+    base = realtime_racing_profile() if parallel.get("frame_batch") else SlamConfig()
+    cfg = base.replace(mapping={"init_accumulate_frames": 4},
+                       capacity={"auto_schedule": 0},
+                       optimization={"subsample_residuals": 200},
+                       parallel={**parallel, "batch_motion_guard_t": 0.0})
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    caps = cfg.capacity
+    lanes = 9 if parallel.get("frame_batch") else 1
+    shape = (lanes, caps.max_corner_ds + caps.max_surface_ds)
+    _, host = simulate(12, 10000, 4)
+    frames = on_device(host, caps.max_raw_points, cuda)
+    records = []
+    for plain in (False, True):
+        rec = _KeepMaskRecorder(monkeypatch, shape, 400, cuda)
+        pipe = P.OdometryPipeline(cfg, device=cuda)
+        if plain:
+            pipe.program = None
+        P.reset_host_syncs()
+        for pts, inten, t0, mask in frames:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+        pipe.flush()
+        records.append((rec, pipe, P.host_syncs(), P.graph_counts()))
+        monkeypatch.undo()
+    (rg, g, sg, cg), (rp, p, sp, cp) = records
+    assert g.program is not None and p.program is None
+    assert sg["icp_exit"] == 0 and sp["icp_exit"] > 0 and cg["graph_launch"] > 0
+    _assert_runs_equal(g, p)
+    mg, mp = rg.masks(), rp.masks()
+    assert mg.shape[0] == mp.shape[0] >= 2 and torch.equal(mg, mp)
+    assert any(not torch.equal(mg[i], mg[i + 1]) for i in range(mg.shape[0] - 1))
+    assert int(g.state.rng.view(torch.int32).abs().sum()) > 0
+
+
+def test_peer_gather_kernel_equals_plain(cuda, tmp_path):
+    """The candidates' exchange on one NCCL rank against its plain version
+    (an all-gather and the merge by (distance, index)): random and tied
+    candidates, k 1 to 8, one lane and 9, bit for bit; and a search
+    sharded over one rank equal to the whole buffer's."""
+    import torch.distributed as dist
+
+    from loam_livox_tpu_torch.ops import peer_gather as pg
+    from loam_livox_tpu_torch.parallel.mesh import make_mesh
+    from loam_livox_tpu_torch.parallel.sharded import knn_sharded
+
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        rng = np.random.default_rng(3)
+        for lanes, q, k in ((1, 2048, 5), (9, 2048, 5), (1, 513, 1), (2, 4097, 8)):
+            d = rng.uniform(0, 50, (lanes, q, k)).astype(np.float32)
+            d[:, ::7] = 1.5                                  # exact distance ties
+            d = torch.from_numpy(d).to(cuda)
+            i = torch.from_numpy(rng.integers(0, 1 << 20, (lanes, q, k)).astype(np.int32)).to(cuda)
+            got, want = pg.peer_gather(d, i, mesh, k), pg.peer_gather_plain(d, i, mesh, k)
+            torch.cuda.synchronize()
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (lanes, q, k)
+        ref, mask = voxel_map(rng, 16384, 8.0, 0.25, 0.6)
+        ref_t, mask_t = torch.from_numpy(ref).to(cuda), torch.from_numpy(mask).to(cuda)
+        qs = torch.from_numpy(rng.uniform(-8, 8, (600, 3)).astype(np.float32)).to(cuda)
+        got = knn_sharded(qs, ref_t, mask_t, mesh, k=5)
+        want = kf.knn_fused(qs, ref_t, mask_t, k=5)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1].to(got[1].dtype))
+    finally:
+        dist.destroy_process_group()
+
+
+def _product_runs(cuda, tmp_path, cfg, frames, read_after=None):
+    """The frames through product mode on one NCCL rank on the frame
+    program and on the plain program, and through the single-device
+    frame program: for each, the pipeline, its host syncs and graph
+    counts, its final state (read while the group is up: a plain
+    product run's state read is a collective) and (with ``read_after``
+    n) its state read after n frames with a copy of it then."""
+    import torch.distributed as dist
+
+    from loam_livox_tpu_torch.parallel.mesh import make_mesh, set_active_mesh
+    from loam_livox_tpu_torch.runtime import pipeline as P
+
+    def run(mesh, plain=False):
+        pipe = P.OdometryPipeline(cfg, device=cuda, mesh=mesh)
+        if plain:
+            pipe.program = None
+        P.reset_host_syncs()
+        held = None
+        for i, (pts, inten, t0, mask) in enumerate(frames):
+            pipe.process_raw(pts, inten, t0, mask=mask)
+            if read_after is not None and i + 1 == read_after:
+                held = pipe.state
+                held = (held, {n: v.clone() for n, v in _state_leaves(held).items()})
+        pipe.flush()
+        return pipe, P.host_syncs(), P.graph_counts(), held, pipe.state
+
+    single = run(None)
+    dist.init_process_group("nccl", store=dist.FileStore(str(tmp_path / "store"), 1),
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1)
+        graph = run(mesh)
+        plain = run(mesh, plain=True)
+    finally:
+        set_active_mesh(None)
+        dist.destroy_process_group()
+    return graph, plain, single
+
+
+@pytest.mark.parametrize("sub", [0, 200], ids=["product", "product_subsampled"])
+def test_product_frame_program_equals_plain_and_single_device(cuda, tmp_path, sub):
+    """Product mode on one NCCL rank on the frame program: one graph
+    launch a frame (the gather, the steps with the sharded search inside
+    the WHILE body, the copy back), no ICP-exit read, rows and every
+    state tensor bit-equal to the plain product run's and to the
+    single-device frame program's; and a state read after the first
+    frame is left as it was."""
+    from chip_smoke import on_device, simulate
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 4},
+                               capacity={"auto_schedule": 0},
+                               optimization={"subsample_residuals": sub})
+    _, host = simulate(10, 10000, 4)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    (g, sg, cg, held, st_g), (p, sp, _, _, st_p), (one, _, _, _, st_1) = _product_runs(
+        cuda, tmp_path, cfg, frames, read_after=1)
+    assert g.program is not None and p.program is None and g.mesh is not None
+    assert cg["graph_launch"] == cg["launch_frame"] == 10
+    assert sg["icp_exit"] == 0 and sp["icp_exit"] > 0
+    assert [k["mesh"] for k in g.program.summary()] == [1]
+    _assert_runs_equal(g, p, (st_g, st_p))
+    _assert_runs_equal(g, one, (st_g, st_1))
+    state, copy = held
+    for n, v in _state_leaves(state).items():
+        assert torch.equal(v, copy[n]), n
+
+
+@pytest.mark.parametrize("parallel", [{"dispatch_chunk": 4}, {"frame_batch": 3}],
+                         ids=["chunked", "racing"])
+def test_product_dispatch_on_the_frame_program_equals_plain(cuda, tmp_path, parallel):
+    """Product mode's chunks and racing groups on the frame program: one
+    graph launch a unit, bit-equal to the plain product run."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import realtime_racing_profile
+
+    base = realtime_racing_profile() if parallel.get("frame_batch") else SlamConfig()
+    cfg = base.replace(mapping={"init_accumulate_frames": 4}, capacity={"auto_schedule": 0},
+                       parallel={**parallel, "batch_motion_guard_t": 0.0})
+    _, host = simulate(12, 10000, 4)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    (g, sg, cg, _, st_g), (p, _, _, _, st_p), _ = _product_runs(cuda, tmp_path, cfg, frames)
+    assert cg["graph_launch"] == 12 // _units(cfg, 0) and sg["icp_exit"] == 0
+    _assert_runs_equal(g, p, (st_g, st_p))
 
 
 def test_failed_capture_raises(cuda, monkeypatch):

@@ -129,3 +129,26 @@ def test_product_checkpoint_resumes_bit_for_bit(tmp_path):
         assert bool(out["state_equal"]) and int(out["fields"]) > 15
         assert bool(out["slices"])
     assert os.path.exists(tmp_path / "ckpt" / "odometry")
+
+
+def test_subsampled_product_is_bitwise_one_rank(tmp_path):
+    """Residual subsampling in product mode: the threefry key is
+    replicated and every rank draws the same numbers from it, so the
+    2-rank run's trajectory and every state tensor, the key included,
+    are the 1-rank run's bit for bit."""
+    def cfg(world):
+        d = small_cfg(world)
+        d["optimization"]["subsample_residuals"] = 200
+        return d
+
+    frames = 10
+    one = launch("pipeline", 1, tmp_path / "one", timeout=150, cfg=cfg(1), frames=frames,
+                 seed=3, ramp=0.1 * INIT + 0.2)[0]
+    two = launch("pipeline", 2, tmp_path / "two", timeout=150, cfg=cfg(2), frames=frames,
+                 seed=3, ramp=0.1 * INIT + 0.2)
+    fields = [k for k in one if k.startswith("state.")]
+    assert "state.rng" in fields and int(one["accepted"].sum()) >= frames - INIT
+    for out in two:
+        np.testing.assert_array_equal(out["positions"], one["positions"])
+        for name in fields:
+            np.testing.assert_array_equal(out[name], one[name], err_msg=name)
