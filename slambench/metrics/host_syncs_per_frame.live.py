@@ -1,0 +1,8 @@
+"""host_syncs_per_frame.live: the program's host syncs over the live window
+(every place of its audit, `runtime/pipeline.host_syncs`), a raw frame."""
+
+
+def read(rec):
+    if rec.mode != "live" or rec.frames <= 0:
+        return None
+    return sum(rec.syncs.values()) / rec.frames
