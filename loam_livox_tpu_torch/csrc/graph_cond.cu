@@ -30,8 +30,20 @@
 // Bound: each condition kernel reads a few bytes; its time is the floor
 // of a kernel node inside the graph (its launch), which `empty_kernel`
 // measures (chip_smoke.py's `node_floor`).
+//
+// Spans (utils/logging.py): `stamp_kernel` is one thread that reads the
+// card's %globaltimer (ns), takes the next slot of a device ring with an
+// atomicAdd on its cursor and writes (time, tag) there, the tag a span's
+// id shifted left by one with the low bit set on its close.  Captured
+// into a graph it stamps at every replay and never at capture; all frame
+// work runs on one stream, so the ring holds the stamps in execution
+// order.  The cursor counts every stamp: past the ring's capacity a
+// stamp writes nothing, and the cursor tells how many were lost.  A frame
+// graph may open and close a `unit` span as its first and last nodes.
 
 #include <cuda_runtime.h>
+
+#include <vector>
 
 #if !defined(CUDART_VERSION) || CUDART_VERSION < 12080
 #error "the frame graph's SWITCH node needs the CUDA 12.8 toolkit or later"
@@ -89,6 +101,28 @@ __global__ void switch_cond_kernel(cudaGraphConditionalHandle handle, int set_ha
 
 __global__ void empty_kernel() {}
 
+__device__ __forceinline__ long long globaltimer() {
+  long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+__global__ void stamp_kernel(long long* __restrict__ ring, unsigned long long* __restrict__ cursor,
+                             long long capacity, long long tag) {
+  const long long t = globaltimer();
+  const unsigned long long slot = atomicAdd(cursor, 1ull);
+  if (slot < static_cast<unsigned long long>(capacity)) {
+    ring[2 * slot] = t;
+    ring[2 * slot + 1] = tag;
+  }
+}
+
+// n back-to-back readings of %globaltimer by one thread: their least
+// nonzero step is the timer's resolution
+__global__ void globaltimer_probe_kernel(long long* __restrict__ out, int n) {
+  for (int i = 0; i < n; ++i) out[i] = globaltimer();
+}
+
 cudaError_t add_kernel_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
                             void* func, int threads, void** args) {
   cudaKernelNodeParams p = {};
@@ -118,6 +152,13 @@ cudaError_t add_switch_cond_node(cudaGraphNode_t* node, cudaGraph_t graph,
   void* args[] = {&handle, &set_handle, &flags, &n_flags, &out, &runs};
   return add_kernel_node(node, graph, dep, reinterpret_cast<void*>(switch_cond_kernel), 32,
                          args);
+}
+
+cudaError_t add_stamp_node(cudaGraphNode_t* node, cudaGraph_t graph, const cudaGraphNode_t* dep,
+                           long long* ring, unsigned long long* cursor, long long capacity,
+                           long long tag) {
+  void* args[] = {&ring, &cursor, &capacity, &tag};
+  return add_kernel_node(node, graph, dep, reinterpret_cast<void*>(stamp_kernel), 1, args);
 }
 
 // a conditional node of `type` with `size` bodies, returned in bodies[]
@@ -174,6 +215,42 @@ int empty_kernel_launch(void* stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// One span stamp on `stream` (the file comment): (globaltimer, tag) into
+// ring[*cursor] when the slot is below `capacity`; the cursor gains one.
+int stamp_launch(long long* ring, unsigned long long* cursor, long long capacity, long long tag,
+                 void* stream) {
+  if (ring == nullptr || cursor == nullptr || capacity <= 0) return cudaErrorInvalidValue;
+  stamp_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(ring, cursor, capacity, tag);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n back-to-back globaltimer readings into out[0:n] on `stream`.
+int globaltimer_probe_launch(long long* out, int n, void* stream) {
+  if (out == nullptr || n <= 0) return cudaErrorInvalidValue;
+  globaltimer_probe_kernel<<<1, 1, 0, static_cast<cudaStream_t>(stream)>>>(out, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The kernel nodes of `graph` (a captured piece; child graphs are not
+// entered) into *out.
+int graph_kernel_nodes(void* graph, int* out) {
+  size_t n = 0;
+  cudaGraph_t g = static_cast<cudaGraph_t>(graph);
+  cudaError_t e = cudaGraphGetNodes(g, nullptr, &n);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  std::vector<cudaGraphNode_t> nodes(n);
+  if (n > 0) e = cudaGraphGetNodes(g, nodes.data(), &n);
+  int kernels = 0;
+  for (size_t i = 0; i < n && e == cudaSuccess; ++i) {
+    cudaGraphNodeType type;
+    e = cudaGraphNodeGetType(nodes[i], &type);
+    if (e == cudaSuccess && type == cudaGraphNodeTypeKernel) ++kernels;
+  }
+  if (e != cudaSuccess) return static_cast<int>(e);
+  *out = kernels;
+  return 0;
+}
+
 // Item kinds of frame_graph_build.
 enum { kSegment = 0, kWhile = 1, kSwitch = 2 };
 
@@ -186,15 +263,19 @@ enum { kSegment = 0, kWhile = 1, kSwitch = 2 };
 // run when flags[i][b] is the first set of the n_flags[i] bools.  Body
 // graphs are cloned (the caller keeps and frees its own).  Every loop
 // condition placed adds one to `loop_runs`, every switch condition to
-// `switch_runs` (device counters, or null), when it runs.  On success *graph_out and *exec_out hold the graph and
-// its executable (free both with frame_graph_destroy) and *cond_nodes the
-// condition kernels placed.  Returns a CUDA error code (a driver older
+// `switch_runs` (device counters, or null), when it runs.  With a span
+// `ring` (not null) the graph's first node stamps `open_tag` and its last
+// `close_tag` into it (`stamp_launch`).  On success *graph_out and
+// *exec_out hold the graph and its executable (free both with
+// frame_graph_destroy) and *cond_nodes the condition kernels placed.  Returns a CUDA error code (a driver older
 // than 12.8 cudaErrorInsufficientDriver); on an error nothing is left
 // allocated.
 int frame_graph_build(int device, int n_items, const int* kinds, void* const* graphs,
                       void* const* flags, const int* n_flags, void* const* loops,
                       const int* max_loops, unsigned long long* loop_runs,
-                      unsigned long long* switch_runs, void** graph_out, void** exec_out,
+                      unsigned long long* switch_runs, long long* ring,
+                      unsigned long long* cursor, long long capacity, long long open_tag,
+                      long long close_tag, void** graph_out, void** exec_out,
                       int* cond_nodes) {
   if (n_items <= 0) return cudaErrorInvalidValue;
   int driver = 0;
@@ -208,6 +289,10 @@ int frame_graph_build(int device, int n_items, const int* kinds, void* const* gr
   if (e != cudaSuccess) return static_cast<int>(e);
   cudaGraphNode_t prev = nullptr, node;
   int placed = 0;
+  if (ring != nullptr) {
+    e = add_stamp_node(&node, graph, nullptr, ring, cursor, capacity, open_tag);
+    prev = node;
+  }
   for (int i = 0; i < n_items && e == cudaSuccess; ++i) {
     const cudaGraphNode_t* dep = prev ? &prev : nullptr;
     if (kinds[i] == kSegment) {
@@ -253,6 +338,9 @@ int frame_graph_build(int device, int n_items, const int* kinds, void* const* gr
     e = add_loop_cond_node(&cond, bodies[0], &pass, handle, flag, lanes,
                            static_cast<const int*>(loops[i]), max_loops[i], loop_runs);
     if (e == cudaSuccess) ++placed;
+  }
+  if (e == cudaSuccess && ring != nullptr) {
+    e = add_stamp_node(&node, graph, &prev, ring, cursor, capacity, close_tag);
   }
   cudaGraphExec_t exec = nullptr;
   if (e == cudaSuccess) e = cudaGraphInstantiate(&exec, graph, 0);

@@ -32,6 +32,7 @@ from ..core.config import CapacityConfig, FeatureExtractionConfig
 from ..core.types import FeatureFrame, PointBatch
 from ..ops.debounce import debounce
 from ..ops.masked import compact
+from ..utils.logging import SPAN_FRONT_END, spans
 
 # E_point_type bitmask (reference :82-92)
 PT_NORMAL = 0
@@ -272,9 +273,10 @@ def extract_frame(xyz: torch.Tensor, raw_intensity: torch.Tensor,
     laser_feature_extractor.hpp:305-335).  The bounds are fractions of
     the valid count with both ends inclusive, so adjacent pieces share a
     boundary index.  Returns ``(PtInfo, n_petals, [FeatureFrame] * P)``."""
-    info, n_petals = extract_point_info(xyz, raw_intensity, in_mask,
-                                        base_time, fe, caps)
-    return info, n_petals, [
-        select_features(xyz, info, n_petals, p / piecewise_number,
-                        (p + 1) / piecewise_number, fe)
-        for p in range(piecewise_number)]
+    with spans.device(SPAN_FRONT_END, xyz):
+        info, n_petals = extract_point_info(xyz, raw_intensity, in_mask,
+                                            base_time, fe, caps)
+        return info, n_petals, [
+            select_features(xyz, info, n_petals, p / piecewise_number,
+                            (p + 1) / piecewise_number, fe)
+            for p in range(piecewise_number)]

@@ -23,6 +23,7 @@ import torch
 from ..core import se3
 from ..core.config import CapacityConfig, FeatureExtractionConfig
 from ..core.types import FeatureFrame, PointBatch
+from ..utils.logging import SPAN_FRONT_END, spans
 from .livox import extract_point_info, select_features
 
 
@@ -39,27 +40,28 @@ def extract_multi_lidar(xyz: torch.Tensor, intensity: torch.Tensor, mask: torch.
     one frame time -> ``piecewise_number`` merged feature frames.  With
     ``extrinsic_q`` (S, 4) (and optionally ``extrinsic_t`` (S, 3)) each
     head's valid points are rotated (and moved) into the common frame."""
-    heads = range(xyz.shape[0])
-    infos = [extract_point_info(xyz[s], intensity[s], mask[s], base_time, fe, caps)
-             for s in heads]
+    with spans.device(SPAN_FRONT_END, xyz):
+        heads = range(xyz.shape[0])
+        infos = [extract_point_info(xyz[s], intensity[s], mask[s], base_time, fe, caps)
+                 for s in heads]
 
-    def placed(b: PointBatch, s: int) -> PointBatch:
-        if extrinsic_q is None:
-            return b
-        pts = se3.quat_rotate(extrinsic_q[s], b.xyz)
-        if extrinsic_t is not None:
-            pts = pts + extrinsic_t[s]
-        return b._replace(xyz=torch.where(b.mask[:, None], pts, torch.zeros_like(pts)))
+        def placed(b: PointBatch, s: int) -> PointBatch:
+            if extrinsic_q is None:
+                return b
+            pts = se3.quat_rotate(extrinsic_q[s], b.xyz)
+            if extrinsic_t is not None:
+                pts = pts + extrinsic_t[s]
+            return b._replace(xyz=torch.where(b.mask[:, None], pts, torch.zeros_like(pts)))
 
-    frames = []
-    for p in range(piecewise_number):
-        lo, hi = p / piecewise_number, (p + 1) / piecewise_number
-        per_head = [select_features(xyz[s], info, n_petals, lo, hi, fe)
-                    for s, (info, n_petals) in zip(heads, infos)]
-        frames.append(FeatureFrame(
-            corners=_merge([placed(f.corners, s) for s, f in enumerate(per_head)]),
-            surface=_merge([placed(f.surface, s) for s, f in enumerate(per_head)]),
-            full=_merge([placed(f.full, s) for s, f in enumerate(per_head)]),
-            time_min=torch.stack([f.time_min for f in per_head]).amin(),
-            time_max=torch.stack([f.time_max for f in per_head]).amax()))
-    return frames
+        frames = []
+        for p in range(piecewise_number):
+            lo, hi = p / piecewise_number, (p + 1) / piecewise_number
+            per_head = [select_features(xyz[s], info, n_petals, lo, hi, fe)
+                        for s, (info, n_petals) in zip(heads, infos)]
+            frames.append(FeatureFrame(
+                corners=_merge([placed(f.corners, s) for s, f in enumerate(per_head)]),
+                surface=_merge([placed(f.surface, s) for s, f in enumerate(per_head)]),
+                full=_merge([placed(f.full, s) for s, f in enumerate(per_head)]),
+                time_min=torch.stack([f.time_min for f in per_head]).amin(),
+                time_max=torch.stack([f.time_max for f in per_head]).amax()))
+        return frames

@@ -37,6 +37,7 @@ from ..core.config import FeatureExtractionConfig
 from ..core.types import FeatureFrame, PointBatch
 from ..ops.masked import compact
 from ..ops.voxel import voxel_downsample
+from ..utils.logging import SPAN_FRONT_END, spans
 from .livox import _shift
 
 SHARP_POINT_THRESHOLD = 0.05   # reference :640
@@ -146,6 +147,13 @@ def extract_velodyne_features(xyz: torch.Tensor, in_mask: torch.Tensor,
     each at the sweep's capacity.  ``base_time`` is a float or a scalar
     tensor (the frame program's float64 device scalar), converted to
     float32 on the device, so both give the same bits."""
+    with spans.device(SPAN_FRONT_END, xyz):
+        return _extract_velodyne_features(xyz, in_mask, base_time, fe, minimum_range)
+
+
+def _extract_velodyne_features(xyz: torch.Tensor, in_mask: torch.Tensor,
+                               base_time: float | torch.Tensor, fe: FeatureExtractionConfig,
+                               minimum_range: float) -> FeatureFrame:
     dev = xyz.device
     n = xyz.shape[0]
     n_lines = fe.scan_line

@@ -13,6 +13,13 @@ before each CUDA graph WHILE node of a raw frame's graph
 condition before each SWITCH node, where each sets its node's
 conditional handle on the device.  SWITCH nodes need CUDA 12.8: an older
 toolkit fails the build, an older driver the assembly.
+
+The same library holds the span recorder's stamp (`stamp`: the card's
+globaltimer and a span's tag into a device ring, `utils.logging.spans`),
+which `build_frame_graph` also places as a graph's first and last nodes
+when given a ring, a probe of the globaltimer's resolution
+(`globaltimer_steps`) and the count of a captured piece's kernel nodes
+(`kernel_nodes`).
 """
 from __future__ import annotations
 
@@ -55,11 +62,16 @@ def _library() -> ctypes.CDLL:
         lib.loop_cond_launch.argtypes = [p, i, p, i, p, p, p]
         lib.switch_cond_launch.argtypes = [p, i, p, p, p]
         lib.empty_kernel_launch.argtypes = [p]
-        lib.frame_graph_build.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, p]
+        ll = ctypes.c_longlong
+        lib.stamp_launch.argtypes = [p, p, ll, ll, p]
+        lib.globaltimer_probe_launch.argtypes = [p, i, p]
+        lib.graph_kernel_nodes.argtypes = [p, p]
+        lib.frame_graph_build.argtypes = [i, i, p, p, p, p, p, p, p, p, p, p, ll, ll, ll, p, p, p]
         lib.frame_graph_launch.argtypes = [p, p]
         lib.frame_graph_destroy.argtypes = [p, p]
         lib.graph_cond_versions.argtypes = [p]
         for fn in (lib.loop_cond_launch, lib.switch_cond_launch, lib.empty_kernel_launch,
+                   lib.stamp_launch, lib.globaltimer_probe_launch, lib.graph_kernel_nodes,
                    lib.frame_graph_build, lib.frame_graph_launch, lib.frame_graph_destroy,
                    lib.graph_cond_versions):
             fn.restype = ctypes.c_int
@@ -121,6 +133,43 @@ def empty_kernel() -> None:
            "empty kernel launch")
 
 
+class Ring(NamedTuple):
+    """A device ring of span stamps: ``records`` (capacity, 2) int64
+    (globaltimer ns, tag), ``cursor`` an int64 scalar counting every
+    stamp (`stamp`; past the capacity a stamp is counted and not kept)."""
+    records: torch.Tensor
+    cursor: torch.Tensor
+
+
+def stamp(ring: Ring, tag: int) -> None:
+    """One stamp of ``tag`` into ``ring`` on the current stream of its
+    device (under a capture, a kernel node that stamps at every replay)."""
+    dev = ring.records.device
+    _check(_library().stamp_launch(ring.records.data_ptr(), ring.cursor.data_ptr(),
+                                   ring.records.shape[0], tag,
+                                   torch.cuda.current_stream(dev).cuda_stream), "stamp launch")
+
+
+def globaltimer_steps(device: torch.device, n: int) -> torch.Tensor:
+    """``n`` back-to-back readings of the card's globaltimer (ns, int64)
+    by one thread, synchronised: their least nonzero step is its
+    resolution."""
+    out = torch.zeros(n, dtype=torch.int64, device=device)
+    _check(_library().globaltimer_probe_launch(out.data_ptr(), n,
+                                               torch.cuda.current_stream(device).cuda_stream),
+           "globaltimer probe launch")
+    torch.cuda.synchronize(device)
+    return out
+
+
+def kernel_nodes(graph: int) -> int:
+    """The kernel nodes of a captured ``cudaGraph_t`` (child graphs not
+    entered)."""
+    out = ctypes.c_int()
+    _check(_library().graph_kernel_nodes(graph, ctypes.byref(out)), "cudaGraphGetNodes")
+    return out.value
+
+
 def versions() -> Tuple[int, int]:
     """(driver, runtime) CUDA versions as the library sees them."""
     out = (ctypes.c_int * 2)()
@@ -171,9 +220,12 @@ class Item(NamedTuple):
     max_loops: int = 0
 
 
-def build_frame_graph(device: torch.device, items: Sequence[Item]) -> FrameGraph:
+def build_frame_graph(device: torch.device, items: Sequence[Item],
+                      unit: Optional[Tuple[Ring, int, int]] = None) -> FrameGraph:
     """The chain of ``items`` (the graph of ``csrc/graph_cond.cu``),
-    instantiated.  Raises on any error."""
+    instantiated; with ``unit`` = (ring, open tag, close tag) its first
+    and last nodes stamp the unit's span into the ring.  Raises on any
+    error."""
     n = len(items)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
@@ -201,12 +253,16 @@ def build_frame_graph(device: torch.device, items: Sequence[Item]) -> FrameGraph
     graphs = ptrs(*(ctypes.cast(bodies[k], ctypes.c_void_p).value if k in bodies else it.graph
                     for k, it in enumerate(items)))
     graph, exec_, placed = ctypes.c_void_p(), ctypes.c_void_p(), ctypes.c_int()
+    ring, open_tag, close_tag = unit if unit is not None else (None, 0, 0)
     _check(_library().frame_graph_build(
         device.index, n, ints(*(it.kind for it in items)), graphs,
         ptrs(*(0 if it.flag is None else it.flag.data_ptr() for it in items)),
         ints(*(0 if it.flag is None else it.flag.numel() for it in items)),
         ptrs(*(0 if it.loops is None else it.loops.data_ptr() for it in items)),
         ints(*(it.max_loops for it in items)), runs.address(device),
-        switch_runs.address(device), ctypes.byref(graph), ctypes.byref(exec_),
+        switch_runs.address(device), ring.records.data_ptr() if ring is not None else None,
+        ring.cursor.data_ptr() if ring is not None else None,
+        ring.records.shape[0] if ring is not None else 0,
+        open_tag, close_tag, ctypes.byref(graph), ctypes.byref(exec_),
         ctypes.byref(placed)), "frame graph build")
     return FrameGraph(graph.value, exec_.value, device, placed.value)

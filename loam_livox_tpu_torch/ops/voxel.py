@@ -23,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..core.types import PointBatch
+from ..utils.logging import SPAN_VOXEL, spans
 
 _AXIS_BITS = 15
 _AXIS_RANGE = 1 << _AXIS_BITS
@@ -55,6 +56,12 @@ def voxel_downsample(batch: PointBatch, leaf: float,
     """Centroid voxel filter into ``capacity`` slots (default: the
     input's), valid voxels first in key order.  ``with_time=False``
     returns a zero time channel."""
+    with spans.device(SPAN_VOXEL, batch.xyz):
+        return _voxel_downsample(batch, leaf, capacity, with_time)
+
+
+def _voxel_downsample(batch: PointBatch, leaf: float, capacity: int | None,
+                      with_time: bool) -> PointBatch:
     capacity = capacity or batch.capacity
     dev = batch.xyz.device
     key = torch.where(batch.mask, voxel_keys(batch.xyz, leaf),

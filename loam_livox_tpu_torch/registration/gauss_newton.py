@@ -24,6 +24,7 @@ import torch
 from ..core import se3
 from ..core.config import OptimizationConfig
 from ..ops.masked import masked_quantile_l1
+from ..utils.logging import SPAN_POSE_OPT, spans
 from .residuals import huber_rho, huber_weight
 
 # fj(q, t) -> (residuals (..., N, 3), jacobian (..., N, 3, 6), block_mask (..., N))
@@ -136,6 +137,11 @@ def solve_two_phase(fj_with_mask: Callable[[torch.Tensor], ResidualJacFn],
     residual function whose block mask is ``m``; ``base_mask`` already
     holds every validity gate.  Returns (q, t, SolveInfo); the inlier
     threshold is scaled by final/initial cost (reference :559)."""
+    with spans.device(SPAN_POSE_OPT, q0):
+        return _solve_two_phase(fj_with_mask, base_mask, q0, t0, opt)
+
+
+def _solve_two_phase(fj_with_mask, base_mask, q0, t0, opt: OptimizationConfig):
     pre = lm_solve(fj_with_mask(base_mask), q0, t0, opt.prerun_iterations, opt)
     # Prune on loss-corrected L1 residuals: threshold = max(inlier_dis,
     # inlier_ratio quantile) (reference :484-499).  The prerun's final

@@ -70,6 +70,7 @@ from ..ops.knn_fused import build_ref_operand, knn_fused, max_ref_rows
 from ..ops.masked import random_keep_mask
 from ..ops.threefry import split
 from ..parallel import mesh
+from ..utils.logging import SPAN_PASS, SPAN_QUERY, spans
 from . import residuals as res
 from .gauss_newton import solve_two_phase
 
@@ -267,14 +268,20 @@ def prepare_registration(frame_corners: PointBatch, frame_surface: PointBatch,
     no_queries = torch.zeros((), dtype=torch.int32, device=dev)
 
     def icp_pass(c: ICPCarry) -> ICPCarry:
+        with spans.device(SPAN_PASS, c.q_incre):
+            return one_pass(c)
+
+    def one_pass(c: ICPCarry) -> ICPCarry:
         active = c.active
         qc = res.transform_points_incre(c.q_incre, c.t_incre, frame_corners.xyz,
                                         s_corner, q_last, t_last, deblur)
         qs = res.transform_points_incre(c.q_incre, c.t_incre, frame_surface.xyz,
                                         s_surf, q_last, t_last, deblur)
         # a frozen lane's results are discarded: give it no queries
-        cd, ci = search_c(qc, torch.where(active, n_qc, no_queries))
-        sd, si = search_s(qs, torch.where(active, n_qs, no_queries))
+        with spans.device(SPAN_QUERY, qc):
+            cd, ci = search_c(qc, torch.where(active, n_qc, no_queries))
+        with spans.device(SPAN_QUERY, qs):
+            sd, si = search_s(qs, torch.where(active, n_qs, no_queries))
         line_tgt = res.build_line_targets(cd, ci, map_corners.xyz, frame_corners.mask,
                                           opt.maximum_dis_line_for_match)
         plane_tgt = res.build_plane_targets(sd, si, map_surface.xyz, frame_surface.mask,

@@ -26,6 +26,7 @@ from typing import NamedTuple
 import torch
 
 from ..core import se3
+from ..utils.logging import SPAN_TARGETS, spans
 
 
 class LineTargets(NamedTuple):
@@ -46,25 +47,27 @@ def _norm(x: torch.Tensor) -> torch.Tensor:
 
 def build_line_targets(sq_dists, idx, map_xyz, query_mask,
                        max_dis_sq: float) -> LineTargets:
-    a = map_xyz[idx[..., 0].long()]
-    b = map_xyz[idx[..., 1].long()]
-    ab = b - a
-    norm = _norm(ab)
-    valid = query_mask & (sq_dists[..., -1] < max_dis_sq) & (norm[..., 0] >= 1e-4)
-    return LineTargets(a=a, unit_ab=ab / torch.clamp(norm, min=1e-12), valid=valid)
+    with spans.device(SPAN_TARGETS, map_xyz):
+        a = map_xyz[idx[..., 0].long()]
+        b = map_xyz[idx[..., 1].long()]
+        ab = b - a
+        norm = _norm(ab)
+        valid = query_mask & (sq_dists[..., -1] < max_dis_sq) & (norm[..., 0] >= 1e-4)
+        return LineTargets(a=a, unit_ab=ab / torch.clamp(norm, min=1e-12), valid=valid)
 
 
 def build_plane_targets(sq_dists, idx, map_xyz, query_mask,
                         max_dis_sq: float) -> PlaneTargets:
-    k = idx.shape[-1]
-    a = map_xyz[idx[..., 0].long()]
-    b = map_xyz[idx[..., k // 2].long()]
-    c = map_xyz[idx[..., k - 1].long()]
-    uab = (b - a) / torch.clamp(_norm(b - a), min=1e-12)
-    uac = (c - a) / torch.clamp(_norm(c - a), min=1e-12)
-    n = torch.linalg.cross(uab, uac, dim=-1)
-    valid = query_mask & (sq_dists[..., -1] < max_dis_sq)
-    return PlaneTargets(a=a, normal=n, valid=valid)
+    with spans.device(SPAN_TARGETS, map_xyz):
+        k = idx.shape[-1]
+        a = map_xyz[idx[..., 0].long()]
+        b = map_xyz[idx[..., k // 2].long()]
+        c = map_xyz[idx[..., k - 1].long()]
+        uab = (b - a) / torch.clamp(_norm(b - a), min=1e-12)
+        uac = (c - a) / torch.clamp(_norm(c - a), min=1e-12)
+        n = torch.linalg.cross(uab, uac, dim=-1)
+        valid = query_mask & (sq_dists[..., -1] < max_dis_sq)
+        return PlaneTargets(a=a, normal=n, valid=valid)
 
 
 def transform_points_incre(q_incre, t_incre, pts, s, q_last, t_last,

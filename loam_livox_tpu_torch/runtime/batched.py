@@ -29,6 +29,7 @@ from ..core import se3
 from ..core.config import SlamConfig
 from ..core.types import FeatureFrame, PointBatch
 from ..ops.threefry import split
+from ..utils.logging import SPAN_SETUP, spans
 from ..registration.icp import (ICPCarry, RegistrationResult, lane, prepare_registration,
                                 run_host_loop)
 from .odometry import (MatchingUpdate, OdometryState, commit_history, input_downsample,
@@ -58,6 +59,11 @@ def prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamCon
     batched.py:70-71``), and the lane-batched registration's pass, first
     carry and gates (`registration.icp.prepare_registration`).  Reads
     nothing on the host."""
+    with spans.device(SPAN_SETUP, state.t_w):
+        return _prepare_group(state, frames, cfg)
+
+
+def _prepare_group(state: OdometryState, frames: List[FeatureFrame], cfg: SlamConfig) -> Group:
     n_lanes = len(frames)
     # worker start poses: constant-velocity coast of the entry pose
     q_inits, t_inits = [], []

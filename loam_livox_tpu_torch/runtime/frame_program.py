@@ -130,6 +130,13 @@ all-gather inside a conditional body).  The key holds the mesh's size and rank, 
 program warms the communicator and the exchange up before any capture
 (`parallel.mesh.warm_up`, `peer_gather.rendezvous`).
 
+With the span recorder on (`utils.logging.spans`, switched on before
+the first capture) the pieces hold the device spans their functions
+place, each a stamp kernel node, and each unit's graph opens and closes
+its ``unit.<kind>`` span with a stamp as its first and last nodes; the
+launch, a key's capture and the loads of its static buffers are host
+spans.  Off, the graphs hold no stamp.
+
 Captures, their seconds and the launches count in
 `core.accounting.GRAPHS`, in all and by kind.  A capture or build that
 fails raises: the card never falls back to the plain program (`on_slice`).
@@ -156,6 +163,7 @@ from ..ops.knn import knn_dense
 from ..parallel import mesh as mesh_mod
 from ..parallel.layout import gather_state, gather_state_into, shard_state, shard_state_into
 from ..registration.icp import ICPCarry
+from ..utils.logging import spans
 from .batched import commit_lane, prepare_group
 from .odometry import (MatchingUpdate, OdometryState, appended_matching, commit_history,
                        prepare_step, rebuilt_matching)
@@ -217,7 +225,9 @@ def _warm_up(device: torch.device) -> None:
     library's first call must not happen under capture): the solver,
     the sorts, the three engines (the ``dense`` engine's ``q @ ref.T`` on
     cuBLAS, the ``grid`` build's ``cummax`` and scatters and its query's
-    ``searchsorted``), the port's kernels and a cell-map insertion."""
+    ``searchsorted``), the port's kernels and a cell-map insertion; with
+    the span recorder on, its ring and stamp kernel."""
+    spans.warm(device)
     if device in _warm:
         return
     f32 = dict(dtype=torch.float32, device=device)
@@ -291,11 +301,14 @@ class _Pool:
 
     def capture(self, fn) -> int:
         """Capture ``fn`` on the program's side stream; returns the raw
-        ``cudaGraph_t`` (`graph_cond.Item`'s graph).  The cyclic garbage
-        collector waits until the capture ends: an unreachable graph or
-        pipeline torn down under a capture (a graph destroyed, a pool's
-        memory returned) would invalidate it."""
+        ``cudaGraph_t`` (`graph_cond.Item`'s graph), whose kernel nodes
+        and span stamps among them the program records
+        (`FrameProgram.nodes`).  The cyclic garbage collector waits until
+        the capture ends: an unreachable graph or pipeline torn down under
+        a capture (a graph destroyed, a pool's memory returned) would
+        invalidate it."""
         g = torch.cuda.CUDAGraph(keep_graph=True)
+        stamps = spans.stamps
         side = self.program.stream
         cur = torch.cuda.current_stream(self.program.device)
         side.wait_stream(cur)
@@ -318,7 +331,9 @@ class _Pool:
                 gc.enable()
         cur.wait_stream(side)
         self.keep.append(g)
-        return g.raw_cuda_graph()
+        raw = g.raw_cuda_graph()
+        self.program.nodes[raw] = (graph_cond.kernel_nodes(raw), spans.stamps - stamps)
+        return raw
 
 
 def _end_allocation_to(device: torch.device, pool) -> None:
@@ -465,9 +480,12 @@ class _StepsKey:
         #: the pieces in replay order, placed by the unit's graph or a chunk's
         #: (under a mesh between the product's gather and copy back)
         self.items = items
+        self.program = program
+        self.pass_kernels = program.pass_kernels(items[1])
         self.steps = self.splits = n_steps
         self.whiles = self.switches = n_steps
         self._graph = None
+        self.kernel_nodes = self.stamp_nodes = None
         self.capture_s = time.perf_counter() - t0
 
     @property
@@ -483,7 +501,7 @@ class _StepsKey:
     def graph(self) -> graph_cond.FrameGraph:
         if self._graph is None:
             t0 = time.perf_counter()
-            self._graph = graph_cond.build_frame_graph(self.device, self.wrap(self.items))
+            self._graph = self.program.build(self, self.wrap(self.items))
             self.capture_s += time.perf_counter() - t0
         return self._graph
 
@@ -565,7 +583,8 @@ class _HeadsKey:
         self.pool.keep.append(out)
         self.frames, self.debounces, self.steps = 1, n_heads * _debounces(cfg), 0
         self.whiles = self.switches = self.splits = 0
-        self.graph = G.build_frame_graph(dev, items)
+        self.pass_kernels = None
+        self.graph = program.build(self, items)
         self.capture_s = time.perf_counter() - t0
 
     def load(self, xyz, inten, mask, base_time: float) -> None:
@@ -618,7 +637,8 @@ class _ChunkKey:
         self.frames, self.steps = n_frames, n_frames * n_steps
         self.debounces, self.splits = n_frames * frame.debounces, n_frames * frame.splits
         self.whiles, self.switches = n_frames * frame.whiles, n_frames * frame.switches
-        self.graph = G.build_frame_graph(frame.device, frame.wrap(items))
+        self.pass_kernels = frame.pass_kernels
+        self.graph = frame.program.build(self, frame.wrap(items))
         self.capture_s = time.perf_counter() - t0
 
     @property
@@ -710,7 +730,8 @@ class _GroupKey:
         # the state's key split once, and its second half into one a lane
         self.whiles, self.switches, self.splits = 1, n_lanes, 2
         self.slices = None if product is None else product.slices
-        self.graph = G.build_frame_graph(dev, items if product is None else product.wrap(items))
+        self.pass_kernels = program.pass_kernels(items[1])
+        self.graph = program.build(self, items if product is None else product.wrap(items))
         self.capture_s = time.perf_counter() - t0
 
     def load(self, state: OdometryState, frames) -> None:
@@ -745,6 +766,9 @@ class FrameProgram:
         self.stream = torch.cuda.Stream(device)
         self._graphs: Dict[tuple, object] = {}
         self._captured: List[Tuple[tuple, dict]] = []
+        #: each captured piece's (kernel nodes, span stamps among them), by
+        #: its raw graph (`_Pool.capture`)
+        self.nodes: Dict[int, Tuple[int, int]] = {}
         #: ICP passes run by the replays, summed on the card
         self.loop_total = torch.zeros((), dtype=torch.int64, device=device)
         #: the racing groups' share of them
@@ -763,7 +787,8 @@ class FrameProgram:
         key = ("frame", cfg, n_raw) + self._mesh_key
         g = self._key(key, lambda: _FrameKey(self, state, cfg, n_raw, n_steps, axes),
                       build=True)
-        g.load(state, pts, inten, mask, base_time)
+        with spans.host("load"):
+            g.load(state, pts, inten, mask, base_time)
         self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
@@ -780,7 +805,8 @@ class FrameProgram:
             frame = self._key(("frame", cfg, n_raw) + self._mesh_key,
                               lambda: _FrameKey(self, state, cfg, n_raw, n_steps, axes))
             g = self._key(key, lambda: _ChunkKey(frame, len(frames)))
-        g.load(state, frames)
+        with spans.host("load"):
+            g.load(state, frames)
         self._launch(key, g)
         return g.frame.state, g.rows.clone(), g.frame.last_reg
 
@@ -792,7 +818,8 @@ class FrameProgram:
         n_raw = frames[0][0].shape[0]
         key = ("group", cfg, n_raw, len(frames)) + self._mesh_key
         g = self._key(key, lambda: _GroupKey(self, state, cfg, n_raw, len(frames), axes))
-        g.load(state, frames)
+        with spans.host("load"):
+            g.load(state, frames)
         self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
@@ -805,7 +832,8 @@ class FrameProgram:
         caps = (frame.corners.capacity, frame.surface.capacity, frame.full.capacity)
         key = ("step", cfg, caps) + self._mesh_key
         g = self._key(key, lambda: _StepKey(self, state, cfg, frame, axes), build=True)
-        g.load(state, frame)
+        with spans.host("load"):
+            g.load(state, frame)
         self._launch(key, g)
         return g.state, g.rows.clone(), g.last_reg
 
@@ -819,7 +847,8 @@ class FrameProgram:
         each into its own static frame)."""
         key = ("heads", cfg, xyz.shape[1], xyz.shape[0])
         g = self._key(key, lambda: _HeadsKey(self, cfg, xyz.shape[0], xyz.shape[1]))
-        g.load(xyz, inten, mask, base_time)
+        with spans.host("load"):
+            g.load(xyz, inten, mask, base_time)
         self._launch(key, g)
         return g.out
 
@@ -836,9 +865,10 @@ class FrameProgram:
         # the pool's segments, the static buffers and the graph's own
         # memory are allocated before their calls return
         free = torch.cuda.mem_get_info(self.device)[0]
-        g = make()
-        if build:
-            g.graph
+        with spans.host("capture"):
+            g = make()
+            if build:
+                g.graph
         used = free - torch.cuda.mem_get_info(self.device)[0]
         self._graphs[key] = g
         cfg = key[1]
@@ -853,6 +883,8 @@ class FrameProgram:
             "frames": g.frames, "debounces": g.debounces, "splits": g.splits,
             "steps": g.steps, "whiles": g.whiles, "switches": g.switches,
             "mesh": None if self.mesh is None else self.mesh.size,
+            "pass_kernels": g.pass_kernels, "kernel_nodes": g.kernel_nodes,
+            "stamp_nodes": g.stamp_nodes,
             "capture_s": g.capture_s, "device_mb": used / 2 ** 20, "launches": 0}))
         accounting.GRAPHS["graph_capture"] += 1
         accounting.GRAPHS[f"capture_{g.kind}"] += 1
@@ -860,7 +892,8 @@ class FrameProgram:
         return g
 
     def _launch(self, key: tuple, g) -> None:
-        g.graph.launch()
+        with spans.host("launch"):
+            g.graph.launch()
         if hasattr(g, "slices"):        # a unit that holds the state
             self.slices = g.slices
         for k, entry in reversed(self._captured):
@@ -869,6 +902,29 @@ class FrameProgram:
                 break
         accounting.GRAPHS["graph_launch"] += 1
         accounting.GRAPHS[f"launch_{key[0]}"] += 1
+
+    def build(self, key, items: list) -> graph_cond.FrameGraph:
+        """``key``'s unit graph of ``items`` (`graph_cond.build_frame_graph`),
+        with its ``unit.<kind>`` span's stamps when the recorder is on;
+        sets the key's ``kernel_nodes`` and ``stamp_nodes``: its pieces'
+        kernel nodes (`nodes`; a switch's every body) and the unit's two
+        stamps, of which those that are span stamps (the condition kernels
+        aside)."""
+        unit = spans.unit(key.kind, self.device)
+        graph = graph_cond.build_frame_graph(self.device, items, unit)
+        kernels = stamps = 0 if unit is None else 2
+        for it in items:
+            for piece in it.graph if isinstance(it.graph, tuple) else (it.graph,):
+                k, s = self.nodes[piece]
+                kernels, stamps = kernels + k, stamps + s
+        key.kernel_nodes, key.stamp_nodes = kernels, stamps
+        return graph
+
+    def pass_kernels(self, item: graph_cond.Item) -> int:
+        """The kernel nodes of a WHILE item's pass, its span stamps aside:
+        the nodes a pass pays."""
+        k, s = self.nodes[item.graph]
+        return k - s
 
     def _drop_superseded(self, key: tuple) -> None:
         """Free the keys of ``key``'s kind, configuration and shape (input

@@ -71,6 +71,7 @@ from ..ops.voxel import voxel_downsample
 from ..registration import residuals as res
 from ..registration.icp import (RegistrationResult, prepare_frame, refine_blur,
                                 register_on_host)
+from ..utils.logging import SPAN_ADD_FRAME, SPAN_BUILD_TREE, SPAN_SETUP, SPAN_UPDATE_BUFF, spans
 
 #: host reads of the history-admission flag since the last reset: none
 #: since the cell maps take masked insertions (the place stays in the
@@ -250,15 +251,16 @@ def prepare_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig):
     registration's) and the registration's pass, first carry and gates
     (`icp.prepare_frame`).  Returns ``(corner_in, surf_in, icp_pass,
     carry, finish, rng)``, ``rng`` the key the state commits."""
-    corner_in, surf_in = input_downsample(frame, cfg)
-    keys = split(state.rng)
-    icp_pass, carry, finish = prepare_frame(
-        corner_in, surf_in, state.map_corners, state.map_surface,
-        state.q_w, state.t_w, frame.time_min, frame.time_max,
-        state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
-        q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
-        rng=keys[1], grid_corners=state.grid_corners, grid_surface=state.grid_surface)
-    return corner_in, surf_in, icp_pass, carry, finish, keys[0]
+    with spans.device(SPAN_SETUP, state.t_w):
+        corner_in, surf_in = input_downsample(frame, cfg)
+        keys = split(state.rng)
+        icp_pass, carry, finish = prepare_frame(
+            corner_in, surf_in, state.map_corners, state.map_surface,
+            state.q_w, state.t_w, frame.time_min, frame.time_max,
+            state.frame_count >= cfg.mapping.init_accumulate_frames, cfg,
+            q_incre_init=state.last_q_incre, t_incre_init=state.last_t_incre,
+            rng=keys[1], grid_corners=state.grid_corners, grid_surface=state.grid_surface)
+        return corner_in, surf_in, icp_pass, carry, finish, keys[0]
 
 
 def odometry_step(state: OdometryState, frame: FeatureFrame, cfg: SlamConfig
@@ -293,14 +295,16 @@ def rebuilt_matching(state: OdometryState, cfg: SlamConfig):
     """``(map_corners, map_surface, grid_corners, grid_surface)`` rebuilt
     from the state's matching sources (`matching_sources`): the history
     window, or the cell maps around the state's pose."""
-    map_c, map_s = rebuild_matching_buffer(state, cfg)
-    return (map_c, map_s) + tuple(build_grids(map_c, map_s, cfg))
+    with spans.device(SPAN_BUILD_TREE, state.t_w):
+        map_c, map_s = rebuild_matching_buffer(state, cfg)
+        return (map_c, map_s) + tuple(build_grids(map_c, map_s, cfg))
 
 
 def appended_matching(state: OdometryState, upd: MatchingUpdate):
     """``(map_corners, map_surface)`` with the step's points appended."""
-    return (append_to_buffer(state.map_corners, upd.corners),
-            append_to_buffer(state.map_surface, upd.surface))
+    with spans.device(SPAN_UPDATE_BUFF, state.t_w):
+        return (append_to_buffer(state.map_corners, upd.corners),
+                append_to_buffer(state.map_surface, upd.surface))
 
 
 def update_matching(state: OdometryState, upd: MatchingUpdate, cfg: SlamConfig
@@ -342,6 +346,13 @@ def commit_history(state: OdometryState, frame: FeatureFrame,
     ring, cell maps and pose; the matching buffer as it was) and the
     `MatchingUpdate` that `update_matching` applies.  Reads nothing on
     the host."""
+    with spans.device(SPAN_ADD_FRAME, state.t_w):
+        return _commit_history(state, frame, corner_in, surf_in, reg, cfg, q_base, t_base)
+
+
+def _commit_history(state: OdometryState, frame: FeatureFrame, corner_in: PointBatch,
+                    surf_in: PointBatch, reg: RegistrationResult, cfg: SlamConfig,
+                    q_base, t_base):
     fe, caps, mp = cfg.feature_extraction, cfg.capacity, cfg.mapping
     deblur = bool(cfg.common.if_motion_deblur)
     if q_base is None:

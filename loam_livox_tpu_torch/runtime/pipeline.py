@@ -335,7 +335,8 @@ class OdometryPipeline:
         if mesh is not None:
             self.device = mesh_device(mesh, self.device)
         self.logger = L.FileLogger(log_dir, screen=cfg.common.if_verbose_screen_printf == 0)
-        self.timer = L.SpanTimer()
+        #: the program's span timer and recorder (`utils.logging.spans`)
+        self.timer = L.spans
         self._pcd_dir = None
         if cfg.common.if_save_to_pcd_files:
             self._pcd_dir = os.path.join(log_dir or ".", "pcd")
@@ -464,14 +465,19 @@ class OdometryPipeline:
         host arrays, padded here to ``capacity.max_raw_points``; or, with
         ``mask``, tensors already padded to that size (on the pipeline's
         device, as bench.py hands the JAX pipeline device arrays)."""
+        with self.timer.host("process_raw"):
+            self._process_raw(xyz, intensity, base_time, mask)
+
+    def _process_raw(self, xyz, intensity, base_time: float, mask) -> None:
         self._activate()
         n = self.cfg.capacity.max_raw_points
         dev = self.device
         self.timer.tic(L.SPAN_FRAME)
         raw = None
         if mask is not None and isinstance(xyz, torch.Tensor) and xyz.shape == (n, 3):
-            pts, inten, mask = (torch.as_tensor(a, device=dev)
-                                for a in (xyz, intensity, mask))
+            with self.timer.host("copy-up"):
+                pts, inten, mask = (torch.as_tensor(a, device=dev)
+                                    for a in (xyz, intensity, mask))
         else:
             m = min(len(xyz), n)
             pts = np.zeros((n, 3), np.float32)
@@ -482,7 +488,8 @@ class OdometryPipeline:
             valid[:m] = True
             if self._pcd_dir is not None:
                 raw = pts[:m]
-            pts, inten, mask = (to_device(a, dev) for a in (pts, inten, valid))
+            with self.timer.host("copy-up"):
+                pts, inten, mask = (to_device(a, dev) for a in (pts, inten, valid))
         frame = (pts, inten, mask, float(base_time))
         if self.frame_batch > 1:
             self._buf.append(frame)
@@ -513,7 +520,8 @@ class OdometryPipeline:
         self._sched_countdown -= 1
         if self._sched_countdown > 0:
             return
-        self.state, self.cfg_active, grew = self.scheduler.maybe_grow(self._live())
+        with self.timer.host("schedule"):
+            self.state, self.cfg_active, grew = self.scheduler.maybe_grow(self._live())
         if grew:
             self.ladder.append((self._units, self.scheduler.scale))
             self._sched_interval = 4
@@ -535,8 +543,9 @@ class OdometryPipeline:
                 steps_per_frame(self.cfg_active), self._axes)
             self._hold(state)
             return self._unit(rows, last_reg)
-        self.state, regs, frames = process_raw_frame(self._live(), pts, inten, mask,
-                                                     base_time, self.cfg_active)
+        with self.timer.device(f"{L.SPAN_UNIT}.frame", pts):
+            self.state, regs, frames = process_raw_frame(self._live(), pts, inten, mask,
+                                                         base_time, self.cfg_active)
         self._loop_iterations += sum(r.iterations for r in regs)
         return self._unit(trajectory_rows(regs, frames), regs[-1])
 
@@ -572,17 +581,19 @@ class OdometryPipeline:
         the device like a raw frame's.  Frames given here bypass any chunk
         or group that `process_raw` is filling, and feed no loop service
         (as the JAX package's ``process_feature_frame``)."""
-        self._activate()
-        if self.program is not None:
-            state, rows, _ = self.program.run_step(self._state, frame, self.cfg_active,
-                                                   self._axes)
-            self._hold(state)
-        else:
-            self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
-            self._loop_iterations += reg.iterations
-            rows = trajectory_rows([reg], [frame])
-        self._pending.append(self._unit(rows, None))
-        self._maybe_grow_capacity()
+        with self.timer.host("process_feature_frame"):
+            self._activate()
+            if self.program is not None:
+                state, rows, _ = self.program.run_step(self._state, frame, self.cfg_active,
+                                                       self._axes)
+                self._hold(state)
+            else:
+                with self.timer.device(f"{L.SPAN_UNIT}.step", frame.time_min):
+                    self.state, reg = odometry_step(self._live(), frame, self.cfg_active)
+                self._loop_iterations += reg.iterations
+                rows = trajectory_rows([reg], [frame])
+            self._pending.append(self._unit(rows, None))
+            self._maybe_grow_capacity()
 
     def head_frames(self, xyz, inten, mask, base_time: float) -> List[FeatureFrame]:
         """A multi-head raw frame's merged feature frames (`extract_heads`
@@ -590,9 +601,11 @@ class OdometryPipeline:
         `process_feature_frame`: on the frame program one graph launch,
         whose frames the next launch overwrites (each step copies its
         frame in before its own launch)."""
-        if self.program is not None:
-            return self.program.run_heads(xyz, inten, mask, base_time, self.cfg)
-        return extract_heads(xyz, inten, mask, base_time, self.cfg)
+        with self.timer.host("head_frames"):
+            if self.program is not None:
+                return self.program.run_heads(xyz, inten, mask, base_time, self.cfg)
+            with self.timer.device(f"{L.SPAN_UNIT}.heads", xyz):
+                return extract_heads(xyz, inten, mask, base_time, self.cfg)
 
     def _dispatch_chunk(self) -> None:
         """The buffered raw frames back to back, on the card's frame
@@ -639,8 +652,11 @@ class OdometryPipeline:
             self._pending.append(self._unit(rows, last_reg))
             self._feed_loop(len(buf))
             return
-        frames = [piece for frame in buf for piece in extract_pieces(*frame, self.cfg_active)]
-        self.state, regs, loops = odometry_step_batched(self._live(), frames, self.cfg_active)
+        with self.timer.device(f"{L.SPAN_UNIT}.group", buf[0][0]):
+            frames = [piece for frame in buf
+                      for piece in extract_pieces(*frame, self.cfg_active)]
+            self.state, regs, loops = odometry_step_batched(self._live(), frames,
+                                                            self.cfg_active)
         self._loop_iterations += loops
         self._raced_loop_iterations += loops
         self._pending.append(self._unit(trajectory_rows(regs, frames), regs[-1]))
@@ -651,7 +667,10 @@ class OdometryPipeline:
         transfer) into the trajectory, and observe their motion."""
         if count <= 0:
             return
-        units = [self._pending.popleft() for _ in range(count)]
+        with self.timer.host("drain"):
+            self._drain_units([self._pending.popleft() for _ in range(count)])
+
+    def _drain_units(self, units: List[_Unit]) -> None:
         SYNCS["drain"] += 1
         host = torch.cat([u.rows for u in units]).cpu().numpy()
         start = 0
@@ -701,16 +720,17 @@ class OdometryPipeline:
     def flush(self) -> None:
         """Dispatch a partial chunk or group, then copy every pending row
         to the host (one transfer)."""
-        self._activate()
-        if self._buf:
-            if self.frame_batch > 1:
-                self._dispatch_group()
-            else:
-                self._dispatch_chunk()
-        self._drain(len(self._pending))
-        if self.loop_closer is not None:
-            # every queued keyframe processed before the loop output is read
-            self.loop_closer.drain()
+        with self.timer.host("flush"):
+            self._activate()
+            if self._buf:
+                if self.frame_batch > 1:
+                    self._dispatch_group()
+                else:
+                    self._dispatch_chunk()
+            self._drain(len(self._pending))
+            if self.loop_closer is not None:
+                # every queued keyframe processed before the loop output is read
+                self.loop_closer.drain()
 
     def get_corrected_map(self, stride: int = 2, resolution: float = 0.0) -> np.ndarray:
         """The corrected global map after an accepted loop closure (the

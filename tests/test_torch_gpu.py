@@ -1828,6 +1828,116 @@ def test_product_dispatch_on_the_frame_program_equals_plain(cuda, tmp_path, para
     _assert_runs_equal(g, p, (st_g, st_p))
 
 
+# ---- the span recorder's stamps on the card ------------------------------
+
+@pytest.fixture
+def spans_on(cuda):
+    """The span recorder on for one test, off and empty after it."""
+    from loam_livox_tpu_torch.utils import logging as L
+
+    L.spans.on = True
+    L.spans.reset()
+    yield L.spans
+    L.spans.on = False
+    L.spans.reset()
+
+
+def _globaltimer_resolution(cuda) -> int:
+    from loam_livox_tpu_torch.ops import graph_cond as gc
+
+    t = gc.globaltimer_steps(cuda, 100_000)
+    steps = t[1:] - t[:-1]
+    assert bool((steps >= 0).all())
+    return int(steps[steps > 0].min())
+
+
+def test_globaltimer_resolution(cuda):
+    """The least nonzero step over 10^5 back-to-back globaltimer readings
+    (printed: ``pytest -s``)."""
+    res = _globaltimer_resolution(cuda)
+    print(f"globaltimer resolution: {res} ns")
+    assert 0 < res <= 2000
+
+
+def test_span_stamps_lie_inside_their_launches(cuda, spans_on):
+    """Every stamp of frame-graph launch i lies inside launch i's CUDA-event
+    interval (`slambench.trace.LaunchClock`, mapped onto the globaltimer by
+    a clock pair's events), within the globaltimer's resolution + 2 us;
+    each unit's first stamp, on the host clock, follows the start of its
+    host ``launch`` span; the ring holds one unit a launch and loses
+    nothing."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+    from slambench.trace import LaunchClock
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0})
+    _, host = simulate(8, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    pipe.process_raw(*frames[0][:3], mask=frames[0][3])      # the capture, and frame 0
+    torch.cuda.synchronize()
+    tol = _globaltimer_resolution(cuda) + 2000
+    spans_on.reset()
+    pair = spans_on.clock_pair(cuda)
+    clock = LaunchClock()
+    clock.install()
+    try:
+        for pts, inten, t0, mask in frames[1:]:
+            pipe.process_raw(pts, inten, t0, mask=mask)
+        torch.cuda.synchronize()
+    finally:
+        clock.remove()
+    rec = spans_on.read(cuda)
+    assert rec.complete and rec.spans
+    before, after = pair.events
+    bracket = before.elapsed_time(after) * 1e6
+    ivs = clock.intervals(before, int(pair.device_ns - bracket / 2))
+    units = [i for i, s in enumerate(rec.spans) if s.depth == 0]
+    assert len(units) == len(ivs) == len(frames) - 1
+    assert {rec.spans[i].name for i in units} == {"unit.frame"}
+    for k, (a, b) in enumerate(ivs):
+        first, last = units[k], units[k + 1] if k + 1 < len(units) else len(rec.spans)
+        for s in rec.spans[first:last]:
+            assert a - tol <= s.t0 <= s.t1 <= b + tol, (k, s, a, b, tol, bracket)
+    launches = [s for s in spans_on.host_spans().spans if s.name == "launch"]
+    assert len(launches) == len(units)
+    for i, h in zip(units, launches):
+        assert rec.spans[i].t0 + pair.offset_ns >= h.t0 - pair.uncertainty_ns
+
+
+def test_spans_add_only_their_stamp_nodes(cuda):
+    """A key captured with the recorder on holds exactly its stamp nodes
+    more than the same key captured with it off, and the same pass body
+    besides them; off, it holds none."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.core.config import SlamConfig
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+    from loam_livox_tpu_torch.utils import logging as L
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0})
+    _, host = simulate(1, 10000, 2)
+    pts, inten, t0, mask = on_device(host, cfg.capacity.max_raw_points, cuda)[0]
+    keys = {}
+    try:
+        for on in (False, True):
+            L.spans.on = on
+            pipe = OdometryPipeline(cfg, device=cuda)
+            pipe.process_raw(pts, inten, t0, mask=mask)
+            torch.cuda.synchronize()
+            keys[on] = pipe.program.summary()[-1]
+    finally:
+        L.spans.on = False
+        L.spans.reset()
+    off, on = keys[False], keys[True]
+    assert off["kind"] == on["kind"] == "frame"
+    assert off["stamp_nodes"] == 0 and on["stamp_nodes"] > 2
+    assert on["kernel_nodes"] - off["kernel_nodes"] == on["stamp_nodes"]
+    assert on["pass_kernels"] == off["pass_kernels"] > 0
+
+
 def test_failed_capture_raises(cuda, monkeypatch):
     """A frame that cannot be captured raises: the card never runs the
     plain program for a configuration on the slice instead."""

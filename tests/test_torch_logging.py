@@ -20,7 +20,7 @@ runs through both pipelines with a log directory, pcd files on
 * The screen echo repeats every file line as ``[stream] line``.
 * The logs' host reads: one ``log`` and one ``drain`` read a frame with
   logs on, none with them off; the chunked path logs one line a chunk.
-* `utils.logging.device_trace` writes a torch.profiler Chrome trace.
+* `utils.logging.SpanTimer` times spans by label.
 """
 import dataclasses
 import glob
@@ -39,7 +39,7 @@ from loam_livox_tpu.runtime.pipeline import OdometryPipeline as JaxPipeline
 from loam_livox_tpu_torch.interop import config_from_dict
 from loam_livox_tpu_torch.io.serialization import load_pcd
 from loam_livox_tpu_torch.runtime import pipeline as tpipe
-from loam_livox_tpu_torch.utils.logging import FileLogger, SpanTimer, device_trace
+from loam_livox_tpu_torch.utils.logging import FileLogger, SpanTimer
 
 torch.set_num_threads(2)
 N_FRAMES = 8
@@ -168,8 +168,3 @@ def test_span_timer_and_device_trace(tmp_path):
         pass
     assert t.toc("missing") == 0.0
     assert t.summary().startswith("Frame process: total ")
-    with device_trace(str(tmp_path)):
-        torch.ones(3).sum()
-    assert (tmp_path / "torch_trace.json").stat().st_size > 0
-    with device_trace(None):
-        pass
