@@ -9,20 +9,27 @@ each is a data file found by its name (``configs/<name>.json``,
 `Records`).  A run: make the stream on the card from the seed (set-up),
 build the program's pipeline and run the stream's first frames through
 it (warm-up: every shape the window uses, every capture), then measure
-for ``--seconds``:
+a fixed amount of work, ``--seconds`` long or capped by it:
 
-* ``replay``: raw frames back to back, as a recorded survey is mapped
+* ``replay``: a recording of ``replay_frames`` raw frames (the
+  configuration's) mapped back to back, as a recorded survey is mapped
   offline; the host dispatches each frame as soon as the last is
-  dispatched, with at most ``in_flight`` frames not yet done;
+  dispatched, with at most ``in_flight`` frames not yet done, and the
+  window closes when the last is done, so every program maps the same
+  frames (a run still dispatching when ``--seconds`` have passed makes
+  the next frame its last, and its result says ``"capped": true``);
 * ``live``: frame k handed over at k / ``rate_hz`` after the window
   opens (open loop), from pinned host memory, where a sensor's
   frames wait; a frame's pose is done when a CUDA event recorded after it
   completes, timed on the card from an event recorded at the window's
   open (no host thread's wake-up in the reading).
 
-With ``--trace 1`` a slice of the window runs under ``torch.profiler``
-(`trace`).  After the window the program's outputs are judged against
-the plain reference (`check`), and one JSON line is printed last.
+With ``--trace 1`` the program's span recorder
+(``loam_livox_tpu_torch.utils.logging.spans``) records the whole window,
+read once after it closes, and a slice of the window runs under
+``torch.profiler`` (`trace`).  After the window the program's outputs
+are judged against the plain reference (`check`), and one JSON line is
+printed last.
 """
 from __future__ import annotations
 
@@ -47,8 +54,8 @@ FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "loam_livox_tpu")
 
 
 class BenchError(RuntimeError):
-    """A run that cannot give a result (no card, a used-up stream, a
-    malformed cell): it exits non-zero and prints no result."""
+    """A run that cannot give a result (no card, a malformed cell): it
+    exits non-zero and prints no result."""
 
 
 # ---- the manifest and the files it names ---------------------------------
@@ -114,11 +121,13 @@ class Records:
     setup_s: float                     # process start to the window's open
     frames: int = 0                    # raw frames of the window
     seconds: float = 0.0               # the window's length (host clock)
+    capped: bool = False               # replay: the cap ended the window before its last frame
     latencies_ms: Optional[List[float]] = None   # live: each frame's, due to done
     syncs: Dict[str, int] = field(default_factory=dict)    # host syncs by place
     graphs: Dict[str, float] = field(default_factory=dict)  # graph launches, captures
     knn_runs: int = 0                  # knn_fused runs counted on the card
     trace: Optional[object] = None     # `trace.TraceSlice` of a traced run
+    spans: Optional[object] = None     # a traced run's device spans (the recorder's `Recorded`)
 
 
 @dataclass
@@ -181,12 +190,20 @@ class Program:
         return steps_per_frame(self.cfg)
 
 
+def recorder():
+    """The program's span recorder."""
+    from loam_livox_tpu_torch.utils.logging import spans
+
+    return spans
+
+
 def reset_counters() -> None:
     from loam_livox_tpu_torch.ops import knn_fused
     from loam_livox_tpu_torch.runtime.pipeline import reset_host_syncs
 
     reset_host_syncs()
     knn_fused.runs.reset()
+    recorder().reset()
 
 
 def read_counters(rec: Records) -> None:
@@ -256,29 +273,31 @@ def _dispatch(prog: Program, frames, i: int, spans: HostSpans, dev=None,
 
 
 class Sampler:
-    """Which window frames the check follows: the first frame dispatched
-    at or after each of ``n`` times drawn from the seed over the first
-    ``reach`` of the window, and the frames dispatched in its last
-    quarter second (their latest kept: the state the window leaves)."""
+    """Which window frames the check follows, by a position that grows
+    frame by frame: a replay window's frame index (so the same frames
+    whatever the program's speed), a live window's seconds since the
+    open (frame k is due k / rate after it).  The first frame at or after
+    each of ``n`` positions drawn from the seed over the first ``reach``
+    of ``span``, and the window's last: the frame its window calls final
+    (a replay window's last dispatched frame, capped or not), else the
+    latest at or past ``span - tail`` (the state the window leaves)."""
 
-    def __init__(self, seed: int, n: int, seconds: float, reach: float = 0.9):
+    def __init__(self, seed: int, n: int, span: float, tail: float, reach: float = 0.9):
         import numpy as np
 
         rng = np.random.default_rng([int(seed) % (1 << 63), 7])
-        self.times = sorted(rng.uniform(0.02, reach, n) * seconds)
-        self.seconds = seconds
+        self.marks = sorted(rng.uniform(0.02, reach, n) * span)
+        self.last_from = span - tail
         self.snaps: List[Snapshot] = []
         self.last: Optional[Snapshot] = None
 
-    def wants(self, elapsed: float) -> str:
-        if self.times and elapsed >= self.times[0]:
-            self.times.pop(0)
-            while self.times and elapsed >= self.times[0]:
-                self.times.pop(0)
-            return "sample"
-        if elapsed >= self.seconds - 0.25:
+    def wants(self, at: float, final: bool = False) -> str:
+        due = bool(self.marks) and at >= self.marks[0]
+        while self.marks and at >= self.marks[0]:
+            self.marks.pop(0)
+        if final or (not due and at >= self.last_from):
             return "last"
-        return ""
+        return "sample" if due else ""
 
     def keep(self, kind: str, snap: Snapshot) -> None:
         if kind == "sample":
@@ -291,9 +310,10 @@ class Sampler:
 
 
 def run_frame(prog: Program, frames, i: int, spans: HostSpans, sampler: Optional[Sampler],
-              elapsed: float, dev=None) -> None:
-    """One window frame, its state kept around it where the sampler asks."""
-    kind = sampler.wants(elapsed) if sampler is not None else ""
+              at: float, dev=None, final: bool = False) -> None:
+    """One window frame, at the sampler's position ``at`` (``final``: the
+    window's last), its state kept around it where the sampler asks."""
+    kind = sampler.wants(at, final) if sampler is not None else ""
     if not kind:
         _dispatch(prog, frames, i, spans, dev)
         return
@@ -303,35 +323,56 @@ def run_frame(prog: Program, frames, i: int, spans: HostSpans, sampler: Optional
     sampler.keep(kind, snap)
 
 
-def replay_window(prog: Program, frames, first: int, seconds: float, in_flight: int,
-                  dev, spans: HostSpans, sampler: Optional[Sampler], tracer=None):
-    """Raw frames back to back from ``first`` for ``seconds``, at most
-    ``in_flight`` not done; ends with a synchronise.  Returns (frames,
-    seconds)."""
+def replay_window(prog: Program, frames, first: int, count: int, seconds: float,
+                  in_flight: int, dev, spans: HostSpans, sampler: Optional[Sampler],
+                  tracer=None):
+    """Raw frames ``first`` .. ``first + count - 1`` back to back, at most
+    ``in_flight`` not done; ends with a synchronise after the last.
+    ``seconds`` caps the window: the frame dispatched once it has passed
+    is the last (the sampler follows it), and the run says so.  The
+    sampler's position is the frame's index in the window.  Returns
+    (frames, seconds from the open to the closing synchronise, capped)."""
     events: deque = deque()
-    n_stream = frames.xyz.shape[0]
-    i = first
+    k = 0
+    capped = False
+    waited_ns = 0
     t_open = time.perf_counter()
-    while True:
-        elapsed = time.perf_counter() - t_open
-        if elapsed >= seconds:
-            break
-        if i >= n_stream:
-            raise BenchError(f"the stream's {n_stream} frames ran out {elapsed:.1f} s into "
-                             f"the window: raise the configuration's ceiling_frames_per_s")
+    while k < count and not capped:
         if tracer is not None:
-            tracer.at_frame(i - first)
+            tracer.at_frame(k)
         if len(events) >= in_flight:
             t0 = time.perf_counter_ns()
             events.popleft().synchronize()
-            spans.add("wait_in_flight", t0, time.perf_counter_ns())
-        run_frame(prog, frames, i, spans, sampler, elapsed)
+            t1 = time.perf_counter_ns()
+            waited_ns += t1 - t0
+            spans.add("wait_in_flight", t0, t1)
+        capped = k < count - 1 and time.perf_counter() - t_open >= seconds
+        run_frame(prog, frames, first + k, spans, sampler, k, final=capped or k == count - 1)
         events.append(_mark(dev))
-        i += 1
+        k += 1
     if tracer is not None:
-        tracer.at_frame(i - first, closing=True)
+        tracer.at_frame(k, closing=True)
     _sync(dev)
-    return i - first, time.perf_counter() - t_open
+    seconds_open = time.perf_counter() - t_open
+    print(f"slambench: the host waited {waited_ns * 1e-9:.3f} s of the window's "
+          f"{seconds_open:.3f} s on frames in flight", file=sys.stderr)
+    if capped:
+        print(f"slambench: the window reached its cap of {seconds:g} s after {k} of its "
+              f"{count} frames; the rate is over those {k}, and the result says capped",
+              file=sys.stderr)
+    return k, seconds_open, capped
+
+
+def units_busy(spans) -> tuple:
+    """(busy, extent) seconds of the top-level spans, one a launch of the
+    frame program (``unit.<kind>``): their summed durations, and the
+    first start to the last end.  Busy well under the extent is the card
+    waiting on the host between launches."""
+    units = [s for s in spans if s.depth == 0 and s.name.startswith("unit.")]
+    if not units:
+        return 0.0, 0.0
+    busy = sum(s.t1 - s.t0 for s in units)
+    return busy * 1e-9, (max(s.t1 for s in units) - min(s.t0 for s in units)) * 1e-9
 
 
 class DeviceClock:
@@ -438,15 +479,19 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     if on_card:
         torch.cuda.set_device(dev)
 
-    # set-up: the stream, the pipeline, the warm-up
+    # set-up: the stream, the pipeline, the warm-up (a traced run records
+    # spans: the recorder is on before the pipeline captures its graphs)
+    if trace:
+        recorder().on = True
     prog = Program(slam, n_heads, dev)
     init = prog.cfg.mapping.init_accumulate_frames
     warmup = int(traffic["warmup_frames"])
     start_frames = min(warmup, init + int(traffic.get("start_registered", 8)))
     if mode == "replay":
-        n_stream = warmup + int(math.ceil(seconds * float(cfg_doc["ceiling_frames_per_s"])))
+        n_window = int(cfg_doc["replay_frames"])
     else:
-        n_stream = warmup + int(round(seconds * float(traffic["rate_hz"])))
+        n_window = int(round(seconds * float(traffic["rate_hz"])))
+    n_stream = warmup + n_window
     cap = prog.cfg.capacity.max_raw_points
     frames = make_frames(site, seed, n_stream, cap, dev)
     host_stream = None
@@ -478,17 +523,21 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     rec = Records(mode=mode, setup_s=time.perf_counter() - t_start)
 
     # the window
-    sampler = Sampler(seed, int(traffic.get("check_samples", 6)), seconds)
+    n_samples = int(traffic.get("check_samples", 6))
+    if mode == "replay":
+        sampler = Sampler(seed, n_samples, n_window, 0)
+    else:
+        sampler = Sampler(seed, n_samples, seconds, 0.25)
     tracer = None
     if trace:
         from .trace import Tracer
 
         tracer = Tracer(spans, int(traffic.get("trace_after_frames", 30)),
-                        int(traffic.get("trace_frames", 8)), read_knn_runs)
+                        int(traffic.get("trace_frames", 8)))
     if mode == "replay":
-        rec.frames, rec.seconds = replay_window(prog, stream, warmup, seconds,
-                                                int(traffic["in_flight"]), dev,
-                                                spans, sampler, tracer)
+        rec.frames, rec.seconds, rec.capped = replay_window(
+            prog, stream, warmup, n_window, seconds, int(traffic["in_flight"]), dev, spans,
+            sampler, tracer)
     else:
         rec.frames, rec.seconds, rec.latencies_ms = live_window(
             prog, stream, warmup, seconds, float(traffic["rate_hz"]), dev, spans, sampler,
@@ -497,6 +546,17 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     if tracer is not None:
         rec.trace = tracer.result()
+    if trace:
+        rec.spans = recorder().read(dev)
+        recorder().on = False
+        if not rec.spans.complete:
+            print(f"slambench: the span record is not whole (lost {rec.spans.lost}, broken "
+                  f"{rec.spans.broken}): no span metric", file=sys.stderr)
+        else:
+            busy, extent = units_busy(rec.spans.spans)
+            print(f"slambench: the program's units busy {busy:.3f} s of the {extent:.3f} s "
+                  f"from the first unit's start to the last's end; window {rec.seconds:.3f} s",
+                  file=sys.stderr)
 
     # the program's outputs; then the program is freed
     prog.pipe.flush()
@@ -555,6 +615,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
         result["device"]["busy_s"] = rec.trace.busy_s
         result["device"]["window_s"] = rec.trace.window_s
         result["breakdown"] = rec.trace.breakdown()
+    if mode == "replay":
+        result["capped"] = rec.capped
     result["checks"] = {k: {"value": v if math.isfinite(v) else 1e30, "limit": limits.get(k)}
                         for k, v in checks.items()}
     result["_ate_m"] = ate
@@ -563,12 +625,6 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
                                               snaps, n_frames_run, control=c)[0]
                                for c in controls}
     return result
-
-
-def read_knn_runs() -> int:
-    from loam_livox_tpu_torch.ops import knn_fused
-
-    return knn_fused.runs.read()
 
 
 def parse_args(argv=None):

@@ -1,10 +1,13 @@
-"""device_ms_per_pass: the card's busy time in the traced slice of a
-replay window over the ICP passes in it (the pass's small kernels, and
-the front end and commit, which the slice cannot yet tell apart)."""
+"""device_ms_per_pass: the mean device time of one ICP pass: the
+duration of the window's ``ICP pass`` spans (the program's span
+recorder, one around every pass: a WHILE body on the card), averaged.
+A traced run's whole window."""
+PASS = "ICP pass"
 
 
 def read(rec):
-    t = rec.trace
-    if rec.mode != "replay" or t is None or t.passes <= 0:
+    r = rec.spans
+    if r is None or not r.complete:
         return None
-    return 1e3 * t.busy_s / t.passes
+    ns = [s.t1 - s.t0 for s in r.spans if s.name == PASS]
+    return sum(ns) * 1e-6 / len(ns) if ns else None

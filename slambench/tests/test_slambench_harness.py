@@ -1,7 +1,9 @@
 """CPU tests of the benchmark's harness: the stream, the manifest and the
 files it finds by name, the plain reference, the result line, the
-modules a run loads, a run without a card, and the check's verdict on
-a sound run and on runs with the timed path broken underneath.
+replay window's fixed recording, its cap and the frames the check
+follows, the span readers, the modules a run loads, a run without a
+card, and the check's verdict on a sound run and on runs with the timed
+path broken underneath.
 
     python -m pytest slambench/tests -q
 
@@ -13,13 +15,15 @@ import json
 import os
 import subprocess
 import sys
+import time
+from types import SimpleNamespace
 
 import pytest
 import torch
 
 from slambench import harness
 from slambench.gen.stream import Site, make_frames
-from slambench.tests.tiny import BENCH, make_bench, tiny_config
+from slambench.tests.tiny import BENCH, REPLAY_FRAMES, make_bench, tiny_config
 from slambench.trace import UNTRACED, reduce_events
 
 ROOT = BENCH.parent
@@ -32,9 +36,14 @@ def _threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(old)
+    harness.recorder().on = False
 
 
-def _run(tmp_path, cell_name, trace=False, seconds=0.6, seed=2 ** 31 + 17):
+def _run(tmp_path, cell_name, trace=False, seconds=None, seed=2 ** 31 + 17):
+    """One run of a tiny cell: a replay cell's whole recording (its cap
+    far off), a live cell's 0.6 s."""
+    if seconds is None:
+        seconds = 0.6 if cell_name.endswith("_live") else 600.0
     bench, manifest = make_bench(tmp_path)
     cell = harness.cell_of(manifest, cell_name)
     return harness.run_cell(cell, seed, seconds, trace, 0.0, bench=bench, device="cpu",
@@ -120,9 +129,12 @@ def test_the_reference_ends_on_a_tiny_stream():
 def test_result_line_keys_and_a_sound_run_is_correct(tmp_path, cell, trace):
     out = _run(tmp_path, cell, trace)
     out.pop("_ate_m")
-    want = KEYS + (["breakdown"] if trace else []) + ["checks"]
+    replay = cell.endswith("_replay")
+    want = KEYS + (["breakdown"] if trace else []) + (["capped"] if replay else []) + ["checks"]
     assert list(out) == want
     assert out["correct"] is True and out["failed"] == 0 and out["attempted"] > 0
+    if replay:
+        assert out["attempted"] == REPLAY_FRAMES and out["capped"] is False
     if trace:
         assert {"busy_s", "window_s"} <= set(out["device"])
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
@@ -147,6 +159,101 @@ def test_trace_reduction_unites_intervals_and_labels_gaps():
     busy, ops, gaps = reduce_events(events, 0, 1000, spans, 7, launches=[(250, 450)])
     assert busy == pytest.approx(450e-9)
     assert ops[UNTRACED] == pytest.approx(150e-9)
+
+
+class _Stub:
+    """A program that maps nothing: each frame returns at once, or after
+    ``delay`` seconds."""
+
+    def __init__(self, delay: float = 0.0):
+        self.delay = delay
+        self.t0s = []
+
+    def frame(self, xyz, inten, mask, t0, keep_features=False):
+        self.t0s.append(t0)
+        if self.delay:
+            time.sleep(self.delay)
+
+    def state(self):
+        return None
+
+    def scale(self):
+        return 1
+
+
+def _stream(n):
+    return SimpleNamespace(xyz=torch.zeros((n, 1, 4, 3)), inten=torch.zeros((n, 1, 4)),
+                           mask=torch.ones((n, 1, 4), dtype=torch.bool),
+                           t0=[0.1 * i for i in range(n)])
+
+
+def _replay(prog, first, count, seconds, sampler=None):
+    return harness.replay_window(prog, _stream(first + count), first, count, seconds, 2,
+                                 torch.device("cpu"), harness.HostSpans(), sampler)
+
+
+@pytest.mark.parametrize("delay", [0.0, 0.002])
+def test_a_replay_window_maps_exactly_its_recording(delay):
+    """The window dispatches the recording's frames, each once, in order,
+    from a stream that holds nothing more, and closes after the last,
+    however fast the program returns."""
+    prog = _Stub(delay)
+    frames, seconds, capped = _replay(prog, 6, 40, 600.0)
+    assert frames == 40 and seconds > 0 and not capped
+    assert prog.t0s == [0.1 * i for i in range(6, 46)]
+
+
+def test_the_check_follows_the_same_frames_at_any_speed():
+    seed = 2 ** 31 + 41
+    picked = []
+    for delay in (0.0, 0.01):
+        sampler = harness.Sampler(seed, 6, 60, 0)
+        _replay(_Stub(delay), 6, 60, 600.0, sampler)
+        picked.append([s.frame for s in sampler.all()])
+    assert picked[0] == picked[1]
+    assert picked[0][-1] == 6 + 59                      # the recording's last frame
+    assert len(picked[0]) >= 3 and all(6 <= f <= 6 + 54 for f in picked[0][:-1])
+    # another seed follows other frames
+    other = harness.Sampler(seed + 1, 6, 60, 0)
+    _replay(_Stub(), 6, 60, 600.0, other)
+    assert [s.frame for s in other.all()] != picked[0]
+
+
+def test_the_cap_ends_a_slow_window_and_says_so(capsys):
+    """A window still dispatching at its cap makes the next frame its
+    last: the check follows that frame's state, and the run says it was
+    capped."""
+    prog = _Stub(0.05)
+    sampler = harness.Sampler(2 ** 31 + 41, 6, 100, 0)
+    frames, seconds, capped = _replay(prog, 6, 100, 0.3, sampler)
+    assert capped and 1 <= frames < 100 and len(prog.t0s) == frames
+    assert seconds >= 0.3
+    assert sampler.last is not None and sampler.last.frame == 6 + frames - 1
+    assert all(s.frame < 6 + frames - 1 for s in sampler.snaps)
+    assert f"after {frames} of its 100 frames" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("device", ["cpu", pytest.param("cuda", marks=pytest.mark.gpu)])
+def test_span_readers_read_a_traced_window_only(tmp_path, device):
+    """``voxel_ms_per_frame`` and ``device_ms_per_pass`` read the program's
+    spans: nothing without a trace, a positive time with one (on the
+    card where one is present)."""
+    if device == "cuda" and not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the device spans of the card")
+    names = ("voxel_ms_per_frame", "device_ms_per_pass")
+    bench, manifest = make_bench(tmp_path)
+    bare = harness.Records(mode="replay", setup_s=1.0, frames=REPLAY_FRAMES, seconds=1.0)
+    for n in names:
+        assert harness.load_reader(n, bench)(bare) is None
+    cell = harness.cell_of(manifest, "tiny1_replay")
+    out = harness.run_cell(cell, 2 ** 31 + 23, 600.0, True, 0.0, bench=bench, device=device,
+                           manifest=manifest)
+    assert out["correct"] is True and not harness.recorder().on
+    for n in names:
+        assert out["metrics"][n]["value"] > 0
+    untraced = harness.run_cell(cell, 2 ** 31 + 23, 600.0, False, 0.0, bench=bench,
+                                device=device, manifest=manifest)
+    assert not set(names) & set(untraced["metrics"])
 
 
 def _faulty(monkeypatch, fault):
@@ -182,7 +289,7 @@ def _faulty(monkeypatch, fault):
 @pytest.mark.parametrize("fault", ["state_unchanged", "half_the_points", "answer_altered"])
 def test_a_broken_timed_path_is_not_correct(tmp_path, monkeypatch, fault):
     _faulty(monkeypatch, fault)
-    out = _run(tmp_path, "tiny1_replay", seconds=0.4)
+    out = _run(tmp_path, "tiny1_replay")
     assert out["correct"] is False
 
 

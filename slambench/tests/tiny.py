@@ -8,6 +8,8 @@ import shutil
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent.parent
+#: the tiny recording's frames after the warm-up
+REPLAY_FRAMES = 6
 
 SMALL_CAPS = {
     "max_raw_points": 4096, "max_corner": 256, "max_surface": 1024,
@@ -26,7 +28,7 @@ def tiny_config(heads: int) -> dict:
     return {"name": f"tiny{heads}", "source": "test", "reduced": [], "slam": slam,
             "site": {"scene": {"seed": 0}, "points_per_head": 3000,
                      "heads_yaw_deg": [-30.0, 0.0, 30.0][:heads] if heads > 1 else [0.0]},
-            "ceiling_frames_per_s": 200}
+            "replay_frames": REPLAY_FRAMES}
 
 
 def make_bench(tmp: Path) -> tuple[Path, dict]:

@@ -13,8 +13,7 @@ covers is reported as one operation, `UNTRACED`.
 
 The slice opens ``after`` frames into the window, after a synchronise,
 and closes ``count`` frames later (or when the window closes) after
-another; the ICP passes inside it are the ``knn_fused`` runs counted
-on the card between the two, halved (two searches a pass).
+another.
 """
 from __future__ import annotations
 
@@ -24,9 +23,6 @@ from typing import Dict, List, Tuple
 
 import torch
 
-#: operation names (substrings) of each per-layer share
-KNN_KERNELS = ("knn_fused",)
-SEGMENT_SUM_KERNELS = ("index_put", "indexing_backward")
 #: the name of the busy time inside graph launches that no recorded
 #: operation covers (the kernels of the conditional bodies)
 UNTRACED = "frame graph: kernels in conditional bodies (not recorded one by one)"
@@ -36,12 +32,8 @@ UNTRACED = "frame graph: kernels in conditional bodies (not recorded one by one)
 class TraceSlice:
     busy_s: float                  # device busy time inside the slice
     window_s: float                # the slice's length
-    passes: float                  # ICP passes inside it (card counter)
     op_s: Dict[str, float] = field(default_factory=dict)   # operation name -> seconds
     gaps: List[Tuple[str, float]] = field(default_factory=list)  # longest idle gaps
-
-    def op_share_s(self, names) -> float:
-        return sum(s for n, s in self.op_s.items() if any(k in n for k in names))
 
     def breakdown(self) -> dict:
         ops = sorted(self.op_s.items(), key=lambda kv: -kv[1])[:10]
@@ -182,11 +174,10 @@ class Tracer:
     """Opens and closes the profiler around a slice of the window
     (`harness.replay_window`, `harness.live_window` call `at_frame`)."""
 
-    def __init__(self, spans, after: int, count: int, knn_runs):
+    def __init__(self, spans, after: int, count: int):
         self.spans = spans
         self.after = after
         self.count = count
-        self.knn_runs = knn_runs
         self.prof = None
         self.closed = False
         self.clock = LaunchClock() if torch.cuda.is_available() else None
@@ -198,7 +189,7 @@ class Tracer:
             if closing or k < self.after:
                 return
             _sync()
-            self.k0, self.knn0 = k, self.knn_runs()
+            self.k0 = k
             self.prof = torch.profiler.profile(activities=_activities())
             self.prof.__enter__()
             with torch.profiler.record_function("slambench.slice_open"):
@@ -217,7 +208,6 @@ class Tracer:
             if self.clock is not None:
                 self.clock.remove()
             self.prof.__exit__(None, None, None)
-            self.passes = (self.knn_runs() - self.knn0) / 2.0
             self.closed = True
 
     def result(self) -> TraceSlice | None:
@@ -231,4 +221,4 @@ class Tracer:
         busy_s, op_s, gaps = reduce_events(_device_events(self.prof), open_ns, close_ns,
                                            self.spans.spans, offset, launches)
         return TraceSlice(busy_s=busy_s, window_s=(close_ns - open_ns) * 1e-9,
-                          passes=self.passes, op_s=op_s, gaps=gaps)
+                          op_s=op_s, gaps=gaps)
