@@ -9,8 +9,9 @@ Phases, each printing JSON lines; any failure exits nonzero:
 2. build      every CUDA kernel of the paths, from ``csrc/`` (one nvcc
               per source, all started together: ``knn_fused``, the split
               ``debounce``, ``graph_cond``, the ICP loop's condition
-              and the frame graph's assembly, and ``threefry``, the
-              threefry key's split and keep-mask draw), with ptxas's registers
+              and the frame graph's assembly, ``threefry``, the
+              threefry key's split and keep-mask draw, and the voxel
+              filter's ``voxel_centroid``), with ptxas's registers
               and spills and the CUDA driver and runtime versions; and
               the native I/O library (host code,
               ``native/native_io.cpp`` with g++) into the same ``_build/``;
@@ -91,7 +92,12 @@ Phases, each printing JSON lines; any failure exits nonzero:
               the threefry keep mask (one lane and 9 lanes of the main
               path's corner + surface residual blocks) and split (a key
               into 2 and into 9) against their plain versions, bit for
-              bit, with their times and bounds;
+              bit, with their times and bounds; the voxel filter's
+              kernel (``voxel_centroid``) against its plain version
+              (``ops.voxel.centroids_plain``, three
+              ``index_put_(accumulate=True)`` sums) with ``torch.equal``
+              on the seeded inputs of VOXEL_CASES, and timed at the main
+              path's sizes (16,384, 49,152 and 131,072 rows: VOXEL_TIMED);
               ``--baseline DIR`` times the earlier checkout's debounce
               and loop condition in turns with these; and the floor of
               a kernel node in a CUDA graph (``node_floor``: an empty
@@ -722,11 +728,12 @@ def reset_counts(kf, P) -> None:
     from loam_livox_tpu_torch.ops import graph_cond as GC
     from loam_livox_tpu_torch.ops import peer_gather as PG
     from loam_livox_tpu_torch.ops import threefry as TF
+    from loam_livox_tpu_torch.ops import voxel_centroid as VC
 
     kf.launches = DB.launches = GC.launches = TF.split_launches = TF.mask_launches = 0
-    PG.launches = 0
+    PG.launches = VC.launches = 0
     for counter in (kf.runs, DB.runs, GC.runs, GC.switch_runs, TF.split_runs, TF.mask_runs,
-                    PG.runs):
+                    PG.runs, VC.runs):
         counter.reset()
     P.reset_host_syncs()
 
@@ -739,14 +746,15 @@ def kernel_runs(kf) -> dict:
     from loam_livox_tpu_torch.ops import graph_cond as GC
     from loam_livox_tpu_torch.ops import peer_gather as PG
     from loam_livox_tpu_torch.ops import threefry as TF
+    from loam_livox_tpu_torch.ops import voxel_centroid as VC
 
     return ({"knn_fused": kf.runs.read(), "debounce": DB.runs.read(),
              "loop_cond": GC.runs.read(), "switch_cond": GC.switch_runs.read(),
              "threefry_split": TF.split_runs.read(), "threefry_keep_mask": TF.mask_runs.read(),
-             "peer_gather": PG.runs.read()},
+             "peer_gather": PG.runs.read(), "voxel_centroid": VC.runs.read()},
             {"knn_fused": kf.launches, "debounce": DB.launches, "graph_cond": GC.launches,
              "threefry_split": TF.split_launches, "threefry_keep_mask": TF.mask_launches,
-             "peer_gather": PG.launches})
+             "peer_gather": PG.launches, "voxel_centroid": VC.launches})
 
 
 #: each graph row's kernel runs counted on the card, by path (the
@@ -755,7 +763,7 @@ RUNS_BY_PATH = {}
 
 
 def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=0,
-              heads=0) -> dict:
+              heads=0, service_filters=0) -> dict:
     """A row on the frame program: its graphs (one a shape key: its kind
     (a raw frame, a chunk, a racing group, a feature-frame step or a
     multi-head front end), the tier's capacities, frames, debounce runs,
@@ -773,7 +781,10 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
     once before each SWITCH node, the threefry split once a pass, once a
     step and twice a racing group, the keep mask once a pass with
     residual subsampling and never without, the candidates' exchange
-    twice a pass under a product mesh with ``knn_fused``), the ICP passes counted on
+    twice a pass under a product mesh with ``knn_fused``, the voxel
+    filter's kernel once a filter: each launch's filters outside its
+    conditional bodies, a rebuild body's once a rebuild the card counted
+    (`FrameProgram.rebuilds`), and the loop service's), the ICP passes counted on
     the card equal the rows' iterations (sequential units: one lane a
     loop), every
     held key's graph pool holds memory (its segments found in the
@@ -782,7 +793,7 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
     host read left).  With ``wall``, the frames/s without the captures'
     seconds too.  ``service_runs``: the loop service's ``knn_fused``
     launches (from Python on its worker, one run each), which the kernel
-    counts with the replays'."""
+    counts with the replays'; ``service_filters`` its voxel filters."""
     from loam_livox_tpu_torch.core.accounting import GRAPH_KINDS
     from loam_livox_tpu_torch.registration.icp import resolve_correspondence_engine
 
@@ -799,6 +810,10 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
                 "threefry_split": passes + sum(k["launches"] * k["splits"] for k in keys),
                 "threefry_keep_mask": passes * subsampled,
                 "peer_gather": 2 * passes * fused * (pipe.mesh is not None)}
+    rebuild_filters = {k["rebuild_filters"] for k in keys if k["switches"]}
+    expected["voxel_centroid"] = (sum(k["launches"] * k["filters"] for k in keys)
+                                  + pipe.program.rebuilds() * max(rebuild_filters, default=0)
+                                  + service_filters)
     by_kind = {kind: sum(k["launches"] for k in keys if k["kind"] == kind)
                for kind in GRAPH_KINDS}
     units = dict.fromkeys(GRAPH_KINDS, 0)
@@ -826,7 +841,7 @@ def graph_row(label, pipe, n_frames, kf, syncs, graphs, wall=None, service_runs=
             or graphs["graph_launch"] != sum(by_kind.values())
             or graphs["graph_capture"] != len(keys) or any(reads.values())
             or (sequential and passes != sum(pipe.iterations))
-            or any(k["switches"] != k["steps"] for k in keys)
+            or any(k["switches"] != k["steps"] for k in keys) or len(rebuild_filters) > 1
             or any(k["pool_mb"] <= 0 for k in keys if k["held"] and k["kind"] != "chunk")):
         raise AssertionError(f"{label}: frame program off: kernel runs {runs} against "
                              f"{expected}, launches from Python {from_python}, launches "
@@ -989,6 +1004,149 @@ def debounce_phase(cfg, frames, dev) -> dict:
     return {"frame_tables": len(frames), "seeded_tables": len(cases) - len(frames),
             "slots": list(DEBOUNCE_SLOTS), "global_form_slots": global_form,
             "kernel_runs": kernel_runs}
+
+
+#: the voxel filter's seeded inputs (`voxel_inputs`)
+VOXEL_CASES = ("mid40_source", "mid100_merged", "rebuild", "overflow", "coarse",
+               "last_voxel_3", "last_voxel_5", "all_masked")
+#: the inputs timed: the main path's sizes (a Mid-40 source, 16,384 rows;
+#: a Mid-100 merged cloud, 49,152; the rebuild's history source, 131,072)
+VOXEL_TIMED = ("mid40_source", "mid100_merged", "rebuild")
+
+
+def _surfaces(rng, n: int, planes: int = 6, extent: float = 12.0) -> np.ndarray:
+    """``n`` float32 points on ``planes`` random planes of 2 ``extent`` m,
+    with 1 cm of noise: a 0.4 m voxel holds a handful, as on a scan."""
+    out = np.empty((n, 3))
+    which = rng.integers(0, planes, n)
+    for p in range(planes):
+        axes, _ = np.linalg.qr(rng.normal(size=(3, 3)))
+        sel = which == p
+        uv = rng.uniform(-extent, extent, (int(sel.sum()), 2))
+        out[sel] = rng.uniform(-extent, extent, 3) + uv @ axes[:2]
+    return (out + rng.normal(scale=0.01, size=out.shape)).astype(np.float32)
+
+
+def voxel_inputs(name: str):
+    """``(xyz, time, mask, leaf, capacity, with_time)`` host arrays of one
+    voxel-filter input, seeded by its place in VOXEL_CASES:
+
+    * ``mid40_source``: a Livox head's 10,000 points padded to 16,384;
+    * ``mid100_merged``: three such heads merged, 49,152 rows;
+    * ``rebuild``: the history source (64 frames of 2,048 slots, each
+      frame's first 0-400 valid), no time channel;
+    * ``overflow``: ~16,000 occupied voxels into 2,048 slots;
+    * ``coarse``: a 2 m leaf over a 6 m cube, hundreds of points a voxel;
+    * ``last_voxel_k``: the last voxel holds k points with distinct
+      times, ahead of 40 masked rows (its segment in the plain version
+      is 32 rows or more);
+    * ``all_masked``: no valid point."""
+    rng = np.random.default_rng(VOXEL_CASES.index(name))
+    if name == "mid40_source":
+        xyz, mask = _surfaces(rng, 16384), np.arange(16384) < 10000
+        leaf, cap, with_time = 0.4, 16384, True
+    elif name == "mid100_merged":
+        xyz, mask = _surfaces(rng, 3 * 16384), np.tile(np.arange(16384) < 10000, 3)
+        leaf, cap, with_time = 0.4, 3 * 16384, True
+    elif name == "rebuild":
+        xyz = _surfaces(rng, 64 * 2048)
+        mask = (np.arange(2048)[None] < rng.integers(0, 401, 64)[:, None]).reshape(-1)
+        leaf, cap, with_time = 0.4, 65536, False
+    elif name == "overflow":
+        xyz = rng.uniform(-12, 12, (16384, 3)).astype(np.float32)
+        mask = rng.uniform(size=16384) < 0.95
+        leaf, cap, with_time = 0.4, 2048, True
+    elif name == "coarse":
+        xyz = rng.uniform(-3, 3, (16384, 3)).astype(np.float32)
+        mask = np.arange(16384) < 12000
+        leaf, cap, with_time = 2.0, 4096, True
+    elif name.startswith("last_voxel_"):
+        k = int(name.rsplit("_", 1)[1])
+        grid = np.stack(np.meshgrid(np.arange(8), np.arange(8), np.arange(4)), -1).reshape(-1, 3)
+        others = (grid * 0.5 + 0.25).astype(np.float32)           # one point a voxel
+        last = np.array([20.1, 0.1, 0.1], np.float32) + rng.uniform(0, 0.3, (k, 3))
+        xyz = np.concatenate([others, last.astype(np.float32),
+                              rng.uniform(-5, 5, (40, 3)).astype(np.float32)])
+        mask = np.arange(xyz.shape[0]) < others.shape[0] + k
+        perm = rng.permutation(xyz.shape[0])
+        xyz, mask = xyz[perm], mask[perm]
+        leaf, cap, with_time = 0.5, 1024, True
+    elif name == "all_masked":
+        xyz, mask = _surfaces(rng, 4096), np.zeros(4096, bool)
+        leaf, cap, with_time = 0.4, 512, True
+    else:
+        raise KeyError(name)
+    n = xyz.shape[0]
+    time = (rng.uniform(0.0, 0.1, n) if with_time else np.zeros(n)).astype(np.float32)
+    return xyz, time, mask, leaf, cap, with_time
+
+
+def sorted_input(name: str, dev):
+    """A seeded input (`voxel_inputs`) on ``dev`` and its keys sorted as
+    the filter sorts them: ``(batch, leaf, capacity, with_time, key_s,
+    order)``."""
+    import torch
+
+    from loam_livox_tpu_torch.core.types import PointBatch
+    from loam_livox_tpu_torch.ops import voxel as V
+
+    xyz, time, mask, leaf, cap, with_time = voxel_inputs(name)
+    batch = PointBatch(*(torch.from_numpy(a).to(dev) for a in (xyz, time, mask)))
+    key = torch.where(batch.mask, V.voxel_keys(batch.xyz, leaf),
+                      torch.full_like(batch.mask, V._INVALID_KEY, dtype=torch.int64))
+    key_s, order = torch.sort(key, stable=True)
+    return batch, leaf, cap, with_time, key_s, order
+
+
+def voxel_phase(dev) -> dict:
+    """The voxel filter's kernel against its plain version: the card's
+    filter (`ops.voxel.voxel_downsample`) twice and
+    `ops.voxel.centroids_plain` on each of VOXEL_CASES, bit for bit
+    (``torch.equal``), one run a filter; then, at each of VOXEL_TIMED,
+    one ``kernel`` line through `compare_small_kernel` (the wrapper with
+    the segment ids it is handed, the kernel alone, the plain version
+    from the sorted keys on, and the bound: each contributing row's key,
+    order entry, xyz and time and each slot's outputs at the memory
+    rate).  Returns the timed inputs' results, the first with the cases
+    held."""
+    import torch
+
+    from loam_livox_tpu_torch.ops import voxel as V
+    from loam_livox_tpu_torch.ops import voxel_centroid as VC
+
+    held = {}
+    for name in VOXEL_CASES:
+        batch, leaf, cap, with_time, key_s, order = sorted_input(name, dev)
+        runs = VC.runs.read()
+        got = V.voxel_downsample(batch, leaf, capacity=cap, with_time=with_time)
+        again = V.voxel_downsample(batch, leaf, capacity=cap, with_time=with_time)
+        want = V.centroids_plain(key_s, order, batch.xyz, batch.time, cap, with_time)
+        torch.cuda.synchronize()
+        runs = VC.runs.read() - runs
+        if runs != 2 or not all(torch.equal(a, b) and torch.equal(a, c)
+                                for a, b, c in zip(got, want, again)):
+            raise AssertionError(f"voxel_centroid disagrees with its plain version on {name} "
+                                 f"({runs} runs for 2 filters)")
+        held[name] = {"rows": int(batch.xyz.shape[0]), "capacity": cap,
+                      "voxels": int(want.mask.sum())}
+    out = {}
+    for name in VOXEL_TIMED:
+        batch, leaf, cap, with_time, key_s, order = sorted_input(name, dev)
+        _, counts = torch.unique(V.voxel_keys(batch.xyz[batch.mask], leaf), sorted=True,
+                                 return_counts=True)
+        rows = int(counts[:cap].sum())
+        n_bytes = rows * (8 + 8 + 12 + 4 * with_time) + cap * (12 + 4 + 1)
+        out[name] = r = compare_small_kernel(
+            "voxel_centroid",
+            lambda k, o, x, t: VC.centroids(k, V.segment_ids(k), o, x, t, cap, with_time,
+                                            V._INVALID_KEY),
+            lambda k, o, x, t: V.centroids_plain(k, o, x, t, cap, with_time),
+            (key_s, order, batch.xyz, batch.time), bytes_=n_bytes, ops=4 * rows)
+        r.update(rows=int(batch.xyz.shape[0]), contributing_rows=rows, capacity=cap,
+                 voxels=int(counts[:cap].numel()), with_time=with_time)
+        emit("kernel", kernel="voxel_centroid", search=name, **r)
+    out[VOXEL_TIMED[0]]["held"] = held
+    return out
 
 
 def front_end_past_shared(frame, dev) -> dict:
@@ -1799,7 +1957,8 @@ def loop_path(S, P, kf, dev, host_frames, split=40) -> tuple:
     graph = {}
     if pipe.program is not None:
         graph = graph_row("loop_closure", pipe, n, kf, syncs, P.graph_counts(), wall,
-                          service_runs=closer.counts["knn_fused"])
+                          service_runs=closer.counts["knn_fused"],
+                          service_filters=closer.counts["voxel_centroid"])
         launches = graph["kernel_runs"]["knn_fused"] - closer.counts["knn_fused"]
     closer.shutdown()
     est = pipe.trajectory.positions_array()
@@ -2232,7 +2391,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    build.compile_all(["knn_fused", "debounce", "graph_cond", "threefry", "peer_gather"])
+    build.compile_all(["knn_fused", "debounce", "graph_cond", "threefry", "peer_gather",
+                       "voxel_centroid"])
     t1 = time.perf_counter()
     from loam_livox_tpu_torch.io import native
     from loam_livox_tpu_torch.ops import graph_cond as GC
@@ -2241,7 +2401,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
     driver, runtime = GC.versions()
     emit("build", seconds=t1 - t0,
          sources=["knn_fused.cu", "debounce.cu", "graph_cond.cu", "threefry.cu",
-                  "peer_gather.cu"],
+                  "peer_gather.cu", "voxel_centroid.cu"],
          cuda_driver=driver, cuda_runtime=runtime,
          ptxas_k5=ptxas_report(build.build_logs.get("knn_fused", "")),
          ptxas_debounce=ptxas_report(build.build_logs.get("debounce", ""), k=None),
@@ -2252,6 +2412,7 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
                                               name=kernel)
                          for kernel in ("threefry_split_kernel", "threefry_keep_mask_kernel")},
          ptxas_peer_gather=ptxas_report(build.build_logs.get("peer_gather", ""), k=None),
+         ptxas_voxel_centroid=ptxas_report(build.build_logs.get("voxel_centroid", ""), k=None),
          launch_k5_surfaces=kf.launch_shape(5, 65536),
          native_io={"library": os.path.relpath(native_lib, HERE),
                     "seconds": time.perf_counter() - t1})
@@ -2462,6 +2623,8 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
                 kept=int(DB.debounce_plain(*db_args)[1]), held=db_held,
                 ptxas=ptxas_report(build.build_logs.get("debounce", ""), k=None))
     emit("kernel", kernel="debounce", search="main-path candidate table", **r_db)
+    # the voxel filter's kernel on its seeded inputs and at the main path's sizes
+    r_vox = voxel_phase(dev)
     # the two forms at larger tables: the longest chain (every slot kept)
     # at 4,096 slots (shared memory) and past one block's shared memory
     r_db_sizes = {}
@@ -2936,7 +3099,19 @@ def run_phases(args, C, build, kf, P, loop_sim, large_sim) -> int:
         "lanes_ms": r_peer[9]["ms"], "lanes_kernel_ms": r_peer[9]["kernel_ms"],
         "lanes_plain_ms": r_peer[9]["plain_ms"], "lanes_bound_ms": r_peer[9]["bound_ms"],
         "ranks": 1, "node_floor_ms": floor["kernel_ms"],
-        "runs_by_path": {k: v["peer_gather"] for k, v in RUNS_BY_PATH.items()}}]
+        "runs_by_path": {k: v["peer_gather"] for k, v in RUNS_BY_PATH.items()}}, {
+        "name": "voxel_centroid", "route": "cuda",
+        "source": "loam_livox_tpu_torch/csrc/voxel_centroid.cu",
+        "replaces": "loam_livox_tpu/ops/voxel.py:88-90 (three jax.ops.segment_sum), "
+                    "no Pallas kernel",
+        "launches": graph_main["kernel_runs"]["voxel_centroid"],
+        "max_abs_err": max(r["max_abs_err"] for r in r_vox.values()),
+        **{k: r_vox[VOXEL_TIMED[0]][k]
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
+        **{f"{name}_{k}": r_vox[name][k] for name in VOXEL_TIMED[1:]
+           for k in ("ms", "kernel_ms", "plain_ms", "bound_ms")},
+        "node_floor_ms": floor["kernel_ms"],
+        "runs_by_path": {k: v["voxel_centroid"] for k, v in RUNS_BY_PATH.items()}}]
     emit("done", seconds=time.perf_counter() - t_start, card=card)
     print(json.dumps({"kernels": kernels}))
     print(card)

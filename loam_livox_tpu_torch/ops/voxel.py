@@ -12,11 +12,16 @@ the JAX package's two-word key (x, y·2¹⁵ + z) does.  Masked-out points
 carry a key above every voxel key, so they sort last.  When more voxels
 are occupied than ``capacity``, the smallest keys win.
 
-The segment sums run in input (sorted) order on both devices:
-``index_add_`` does so on the CPU, and on CUDA, where ``index_add_``
-would sum in atomic order (a new rounding on every run),
-``index_put_(accumulate=True)`` sorts the indices and sums each segment
-in order.  So a run on the card repeats itself.
+After the keys, their stable sort and each sorted row's segment id
+(`segment_ids`), a CUDA tensor goes to one launch of the hand-written
+kernel ``csrc/voxel_centroid.cu`` (`ops.voxel_centroid`), which reads
+only the rows that contribute and computes `centroids_plain` on the card
+bit for bit.  A CPU tensor runs `centroids_plain`: segment sums in input
+(sorted) order on both devices,
+``index_add_`` on the CPU, and on CUDA, where ``index_add_`` would sum in
+atomic order (a new rounding on every run), ``index_put_(accumulate=True)``,
+which sorts the indices and sums each segment in order.  So a run on the
+card repeats itself.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch
 
 from ..core.types import PointBatch
 from ..utils.logging import SPAN_VOXEL, spans
+from . import voxel_centroid
 
 _AXIS_BITS = 15
 _AXIS_RANGE = 1 << _AXIS_BITS
@@ -63,28 +69,44 @@ def voxel_downsample(batch: PointBatch, leaf: float,
 def _voxel_downsample(batch: PointBatch, leaf: float, capacity: int | None,
                       with_time: bool) -> PointBatch:
     capacity = capacity or batch.capacity
-    dev = batch.xyz.device
     key = torch.where(batch.mask, voxel_keys(batch.xyz, leaf),
                       torch.full_like(batch.mask, _INVALID_KEY, dtype=torch.int64))
     key_s, order = torch.sort(key, stable=True)
+    if batch.xyz.is_cuda:
+        return voxel_centroid.centroids(key_s, segment_ids(key_s), order, batch.xyz,
+                                        batch.time, capacity, with_time, _INVALID_KEY)
+    return centroids_plain(key_s, order, batch.xyz, batch.time, capacity, with_time)
+
+
+def segment_ids(key_s: torch.Tensor) -> torch.Tensor:
+    """Each row's voxel among the valid keys of ``key_s`` (sorted
+    ascending): its key's rank, −1 before the first valid row, a masked
+    row the last voxel's."""
     valid_s = key_s != _INVALID_KEY
     new_seg = torch.ones_like(valid_s)
     new_seg[1:] = key_s[1:] != key_s[:-1]
-    seg = torch.cumsum((new_seg & valid_s).to(torch.int64), 0) - 1
-    contrib = valid_s & (seg >= 0) & (seg < capacity)
-    seg_c = torch.clamp(seg, 0, capacity - 1)
-    w = contrib.to(batch.xyz.dtype)
+    return torch.cumsum((new_seg & valid_s).to(torch.int64), 0) - 1
 
-    xyz_s = batch.xyz[order]
-    sums = segment_sum(torch.zeros((capacity, 3), dtype=batch.xyz.dtype, device=dev),
-                        seg_c, xyz_s * w[:, None])
-    cnts = segment_sum(torch.zeros((capacity,), dtype=batch.xyz.dtype, device=dev),
-                        seg_c, w)
+
+def centroids_plain(key_s: torch.Tensor, order: torch.Tensor, xyz: torch.Tensor,
+                    time: torch.Tensor, capacity: int, with_time: bool) -> PointBatch:
+    """The filter's ``capacity`` slots from the sorted keys ``key_s`` and
+    the sort's ``order`` as segment sums (any device, no host read)."""
+    dev = xyz.device
+    seg = segment_ids(key_s)
+    contrib = (key_s != _INVALID_KEY) & (seg >= 0) & (seg < capacity)
+    seg_c = torch.clamp(seg, 0, capacity - 1)
+    w = contrib.to(xyz.dtype)
+
+    xyz_s = xyz[order]
+    sums = segment_sum(torch.zeros((capacity, 3), dtype=xyz.dtype, device=dev),
+                       seg_c, xyz_s * w[:, None])
+    cnts = segment_sum(torch.zeros((capacity,), dtype=xyz.dtype, device=dev), seg_c, w)
     denom = torch.clamp(cnts, min=1.0)
     if with_time:
-        tsum = segment_sum(torch.zeros((capacity,), dtype=batch.time.dtype, device=dev),
-                            seg_c, batch.time[order] * w)
-        time = tsum / denom
+        tsum = segment_sum(torch.zeros((capacity,), dtype=time.dtype, device=dev),
+                           seg_c, time[order] * w)
+        t = tsum / denom
     else:
-        time = torch.zeros((capacity,), dtype=batch.time.dtype, device=dev)
-    return PointBatch(xyz=sums / denom[:, None], time=time, mask=cnts > 0)
+        t = torch.zeros((capacity,), dtype=time.dtype, device=dev)
+    return PointBatch(xyz=sums / denom[:, None], time=t, mask=cnts > 0)

@@ -158,8 +158,10 @@ from ..ops import graph_cond
 from ..ops import knn_fused as knn_op
 from ..ops import peer_gather as peer_op
 from ..ops import threefry
+from ..ops import voxel_centroid
 from ..ops.bucket_grid import build_bucket_grid, grid_knn
 from ..ops.knn import knn_dense
+from ..ops.voxel import voxel_downsample
 from ..parallel import mesh as mesh_mod
 from ..parallel.layout import gather_state, gather_state_into, shard_state, shard_state_into
 from ..registration.icp import ICPCarry
@@ -225,8 +227,9 @@ def _warm_up(device: torch.device) -> None:
     library's first call must not happen under capture): the solver,
     the sorts, the three engines (the ``dense`` engine's ``q @ ref.T`` on
     cuBLAS, the ``grid`` build's ``cummax`` and scatters and its query's
-    ``searchsorted``), the port's kernels and a cell-map insertion; with
-    the span recorder on, its ring and stamp kernel."""
+    ``searchsorted``), the port's kernels (the voxel filter's among them)
+    and a cell-map insertion; with the span recorder on, its ring and
+    stamp kernel."""
     spans.warm(device)
     if device in _warm:
         return
@@ -251,6 +254,8 @@ def _warm_up(device: torch.device) -> None:
     threefry.keep_mask(key[None], torch.ones((1, 8), dtype=torch.bool, device=device), 4)
     pts = PointBatch(torch.zeros((4, 3), **f32), torch.zeros(4, **f32),
                      torch.ones(4, dtype=torch.bool, device=device))
+    with accounting.charged_to({}):
+        voxel_downsample(pts, 1.0)
     append_cloud(empty_cell_map(1.0, 8, 2, device), pts, 10, 4)
     _warm.add(device)
 
@@ -308,7 +313,7 @@ class _Pool:
         a capture (a graph destroyed, a pool's memory returned) would
         invalidate it."""
         g = torch.cuda.CUDAGraph(keep_graph=True)
-        stamps = spans.stamps
+        stamps, filters = spans.stamps, voxel_centroid.captured
         side = self.program.stream
         cur = torch.cuda.current_stream(self.program.device)
         side.wait_stream(cur)
@@ -333,6 +338,7 @@ class _Pool:
         self.keep.append(g)
         raw = g.raw_cuda_graph()
         self.program.nodes[raw] = (graph_cond.kernel_nodes(raw), spans.stamps - stamps)
+        self.program.filters[raw] = voxel_centroid.captured - filters
         return raw
 
 
@@ -461,6 +467,7 @@ class _StepsKey:
                                                surf_in, reg, cfg)
                 self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
                 program.loop_total.add_(carries[k].loops)
+                program.rebuild_total.add_(upd.rebuild)
                 _assign(self.state, new)
                 _set_flags(flags[k], upd)
                 ctx["upd", k] = upd
@@ -482,6 +489,7 @@ class _StepsKey:
         self.items = items
         self.program = program
         self.pass_kernels = program.pass_kernels(items[1])
+        self.filters, self.rebuild_filters = program.voxel_filters(items)
         self.steps = self.splits = n_steps
         self.whiles = self.switches = n_steps
         self._graph = None
@@ -584,6 +592,7 @@ class _HeadsKey:
         self.frames, self.debounces, self.steps = 1, n_heads * _debounces(cfg), 0
         self.whiles = self.switches = self.splits = 0
         self.pass_kernels = None
+        self.filters, self.rebuild_filters = program.voxel_filters(items)
         self.graph = program.build(self, items)
         self.capture_s = time.perf_counter() - t0
 
@@ -638,6 +647,7 @@ class _ChunkKey:
         self.debounces, self.splits = n_frames * frame.debounces, n_frames * frame.splits
         self.whiles, self.switches = n_frames * frame.whiles, n_frames * frame.switches
         self.pass_kernels = frame.pass_kernels
+        self.filters, self.rebuild_filters = frame.program.voxel_filters(items)
         self.graph = frame.program.build(self, frame.wrap(items))
         self.capture_s = time.perf_counter() - t0
 
@@ -697,6 +707,7 @@ class _GroupKey:
                     program.loop_total.add_(carry.loops)
                     program.group_loop_total.add_(carry.loops)
                 new, reg, upd = commit_lane(self.state, k, frame, group, ctx["regs"], cfg)
+                program.rebuild_total.add_(upd.rebuild)
                 self.rows[k].copy_(trajectory_rows([reg], [frame])[0])
                 _assign(self.state, new)
                 if acc is not None:
@@ -731,6 +742,7 @@ class _GroupKey:
         self.whiles, self.switches, self.splits = 1, n_lanes, 2
         self.slices = None if product is None else product.slices
         self.pass_kernels = program.pass_kernels(items[1])
+        self.filters, self.rebuild_filters = program.voxel_filters(items)
         self.graph = program.build(self, items if product is None else product.wrap(items))
         self.capture_s = time.perf_counter() - t0
 
@@ -773,6 +785,10 @@ class FrameProgram:
         self.loop_total = torch.zeros((), dtype=torch.int64, device=device)
         #: the racing groups' share of them
         self.group_loop_total = torch.zeros((), dtype=torch.int64, device=device)
+        #: matching-buffer rebuilds run by the replays (SWITCH body 0), summed on the card
+        self.rebuild_total = torch.zeros((), dtype=torch.int64, device=device)
+        #: each captured piece's voxel filters, by its raw graph (`_Pool.capture`)
+        self.filters: Dict[int, int] = {}
 
     def run(self, state: OdometryState, pts, inten, mask, base_time: float, cfg: SlamConfig,
             n_steps: int, axes=None) -> Tuple[OdometryState, torch.Tensor, object]:
@@ -884,7 +900,8 @@ class FrameProgram:
             "steps": g.steps, "whiles": g.whiles, "switches": g.switches,
             "mesh": None if self.mesh is None else self.mesh.size,
             "pass_kernels": g.pass_kernels, "kernel_nodes": g.kernel_nodes,
-            "stamp_nodes": g.stamp_nodes,
+            "stamp_nodes": g.stamp_nodes, "filters": g.filters,
+            "rebuild_filters": g.rebuild_filters,
             "capture_s": g.capture_s, "device_mb": used / 2 ** 20, "launches": 0}))
         accounting.GRAPHS["graph_capture"] += 1
         accounting.GRAPHS[f"capture_{g.kind}"] += 1
@@ -920,6 +937,18 @@ class FrameProgram:
         key.kernel_nodes, key.stamp_nodes = kernels, stamps
         return graph
 
+    def voxel_filters(self, items: list) -> Tuple[int, int]:
+        """A unit's voxel filters: a launch's outside the conditional
+        bodies, and a switch's first body's (the rebuild: one a
+        `rebuilds`)."""
+        filters, rebuild = 0, 0
+        for it in items:
+            if it.kind == graph_cond.SEGMENT:
+                filters += self.filters[it.graph]
+            elif it.kind == graph_cond.SWITCH:
+                rebuild = max(rebuild, self.filters[it.graph[0]])
+        return filters, rebuild
+
     def pass_kernels(self, item: graph_cond.Item) -> int:
         """The kernel nodes of a WHILE item's pass, its span stamps aside:
         the nodes a pass pays."""
@@ -942,6 +971,10 @@ class FrameProgram:
         """ICP passes the replays ran (one host read)."""
         return int(self.loop_total)
 
+    def rebuilds(self) -> int:
+        """Matching-buffer rebuilds the replays ran (one host read)."""
+        return int(self.rebuild_total)
+
     def group_passes(self) -> int:
         """The racing groups' share of `loop_passes` (one host read)."""
         return int(self.group_loop_total)
@@ -950,7 +983,9 @@ class FrameProgram:
         """Each key captured, in order: its kind, capacities, shape (the
         input length, or a step's three frame capacities), raw frames,
         debounce runs, threefry splits outside the passes (one a step, two
-        a racing group), steps, WHILE and SWITCH nodes a launch, the
+        a racing group), steps, WHILE and SWITCH nodes a launch, voxel
+        filters a launch outside the conditional bodies and in a rebuild
+        body (`voxel_filters`), the
         mesh's size (None without one), capture seconds,
         device memory (`_key`), launches, whether it is still held (a
         superseded key is freed) and, where held, the bytes its graph

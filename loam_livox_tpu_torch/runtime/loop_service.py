@@ -160,7 +160,8 @@ class LoopCloser:
         self.gate_trace: List[dict] = []
         #: the service's host reads and kernel launches, by place
         self.counts = {"descriptor": 0, "snapshot": 0, "gate": 0, "align_exit": 0,
-                       "icp_exit": 0, "result": 0, "dump": 0, "knn_fused": 0}
+                       "icp_exit": 0, "result": 0, "dump": 0, "knn_fused": 0,
+                       "voxel_centroid": 0}
         self.dump_dir = dump_dir
         self._pair_idx = 0                      # scene-alignment dumps written
         # the reference's inverted screen flag: 0 echoes (tools_logger.hpp:51-80)

@@ -6,12 +6,14 @@ span recorder (`loam_livox_tpu_torch.utils.logging.spans`).
 
 One run of a cell of ``BENCHMARK.json`` as `slambench.harness` runs it:
 its configuration and traffic, the stream made on the card from the
-seed, the warm-up, then the window (replay back to back, or live at the
-sensor's rate).  With ``--spans 1`` the recorder is switched on before
-the pipeline is built (so every capture holds its stamps), reset after
-the warm-up, and read after the window's closing synchronise (one host
-read); a clock pair at the window's open and one at its close map the
-card's globaltimer onto ``perf_counter_ns`` and give the drift.  With
+seed, the warm-up, then the window (a replay cell's recording of
+``replay_frames`` back to back, ``--seconds`` its cap; or live at the
+sensor's rate for ``--seconds``).  With ``--spans 1`` the recorder is
+switched on before the pipeline is built (so every capture holds its
+stamps), reset after the warm-up, and read after the window's closing
+synchronise (one host read); a clock pair at the window's open and one
+at its close map the card's globaltimer onto ``perf_counter_ns`` and
+give the drift.  With
 ``--profile 1`` the harness's traced slice (`slambench.trace.Tracer`)
 runs inside the window too, and the line adds the share of the slice's
 unrecorded busy time (``UNTRACED``: the kernels of the conditional
@@ -38,7 +40,6 @@ T_START = time.perf_counter()
 
 import argparse  # noqa: E402
 import json  # noqa: E402
-import math  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
@@ -332,9 +333,10 @@ def run(cell_name: str, seed: int, seconds: float, with_spans: bool, profile: bo
     prog = H.Program(cfg_doc["slam"], len(site.heads_yaw_deg), dev)
     warmup = int(traffic["warmup_frames"])
     if mode == "replay":
-        n_stream = warmup + int(math.ceil(seconds * float(cfg_doc["ceiling_frames_per_s"])))
+        n_window = int(cfg_doc["replay_frames"])
     else:
-        n_stream = warmup + int(round(seconds * float(traffic["rate_hz"])))
+        n_window = int(round(seconds * float(traffic["rate_hz"])))
+    n_stream = warmup + n_window
     stream = make_frames(site, seed, n_stream, prog.cfg.capacity.max_raw_points, dev)
     copy_to = None
     if mode == "live":
@@ -370,14 +372,15 @@ def run(cell_name: str, seed: int, seconds: float, with_spans: bool, profile: bo
         from slambench.trace import Tracer
 
         tracer = Tracer(hspans, int(traffic.get("trace_after_frames", 30)),
-                        int(traffic.get("trace_frames", 8)), H.read_knn_runs)
+                        int(traffic.get("trace_frames", 8)))
     pair_open = L.spans.clock_pair(dev) if with_spans else None
     rec = H.Records(mode=mode, setup_s=setup_s)
     if mode == "replay":
-        rec.frames, rec.seconds = H.replay_window(prog, stream, warmup, seconds,
-                                                  int(traffic["in_flight"]), dev, hspans,
-                                                  None, tracer)
+        rec.frames, rec.seconds, rec.capped = H.replay_window(
+            prog, stream, warmup, n_window, seconds, int(traffic["in_flight"]), dev, hspans,
+            None, tracer)
         out["frames_per_s"] = rec.frames / rec.seconds
+        out["capped"] = rec.capped
     else:
         rate = float(traffic["rate_hz"])
         rec.frames, rec.seconds, rec.latencies_ms = H.live_window(
@@ -390,7 +393,7 @@ def run(cell_name: str, seed: int, seconds: float, with_spans: bool, profile: bo
                captures_in_window=rec.graphs.get("graph_capture", 0))
     sl = tracer.result() if tracer is not None else None
     if sl is not None:
-        out["slice"] = {"busy_s": sl.busy_s, "window_s": sl.window_s, "passes": sl.passes,
+        out["slice"] = {"busy_s": sl.busy_s, "window_s": sl.window_s,
                         "untraced_s": sl.op_s.get("frame graph: kernels in conditional bodies "
                                                   "(not recorded one by one)", 0.0),
                         "breakdown": sl.breakdown()}

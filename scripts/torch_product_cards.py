@@ -107,7 +107,8 @@ def main() -> int:
     dev = (torch.device("cuda", int(os.environ.get("LOCAL_RANK", mesh.rank))) if cards
            else torch.device("cpu"))
     if mesh.rank == 0 and cards:
-        build.compile_all(["knn_fused", "debounce", "graph_cond", "threefry", "peer_gather"])
+        build.compile_all(["knn_fused", "debounce", "graph_cond", "threefry", "peer_gather",
+                           "voxel_centroid"])
     dist.barrier()
     # product mode runs unscheduled, so the one-card runs do too
     cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 10},

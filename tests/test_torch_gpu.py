@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import debounce_tables, vlp16_sweep
+from chip_smoke import VOXEL_CASES, debounce_tables, sorted_input, vlp16_sweep
 from loam_livox_tpu_torch.core.config import SlamConfig
 from loam_livox_tpu_torch.core.types import PointBatch
 from loam_livox_tpu_torch.frontend.velodyne import extract_velodyne_features
@@ -245,6 +245,97 @@ def test_voxel_filter_repeats_and_equals_cpu(cuda):
         out = voxel_downsample(PointBatch(*(x.to(cuda) for x in host)), 0.4, capacity=16384)
         for a, b in zip(out, ref):
             assert torch.equal(a.cpu(), b)
+
+
+# ---- the voxel filter's segmented-centroid kernel ---------------------------
+
+@pytest.mark.parametrize("name", VOXEL_CASES)
+def test_voxel_centroid_kernel_equals_index_put(cuda, name):
+    """The card's filter (one launch of ``csrc/voxel_centroid.cu``) equals
+    the benchmark's plain reference on the card, three
+    ``index_put_(accumulate=True)`` sums, bit for bit, and repeats itself
+    (`chip_smoke.voxel_inputs`: a Mid-40 source, a
+    Mid-100 merged cloud, a mostly empty history source without time,
+    more voxels than slots, a coarse leaf of hundreds of points a voxel,
+    a last voxel of 3 or 5 points ahead of 40 masked rows, nothing
+    valid); one run a filter."""
+    from loam_livox_tpu_torch.ops import voxel_centroid as vc
+    from slambench.reference import ops as R
+
+    batch, leaf, cap, with_time, _, _ = sorted_input(name, cuda)
+    runs, launches = vc.runs.read(), vc.launches
+    got = voxel_downsample(batch, leaf, capacity=cap, with_time=with_time)
+    again = voxel_downsample(batch, leaf, capacity=cap, with_time=with_time)
+    want = R.voxel_downsample(R.PointBatch(*batch), leaf, capacity=cap, with_time=with_time)
+    for a, b, c in zip(got, want, again):
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert vc.runs.read() - runs == 2 and vc.launches - launches == 2
+
+
+def test_voxel_centroid_kernel_replays_in_a_graph(cuda):
+    """One filter captured in a CUDA graph: each replay runs the kernel
+    once (no launch from Python) and gives the eager filter's bits, on
+    the captured input and on new points copied into it."""
+    from loam_livox_tpu_torch.ops import voxel_centroid as vc
+
+    batch, leaf, cap, _, _, _ = sorted_input("mid40_source", cuda)
+    other, _, _, _, _, _ = sorted_input("mid100_merged", cuda)
+    first = voxel_downsample(batch, leaf, capacity=cap)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = voxel_downsample(batch, leaf, capacity=cap)
+    runs, launches = vc.runs.read(), vc.launches
+    for _ in range(3):
+        graph.replay()
+    torch.cuda.synchronize()
+    assert vc.runs.read() - runs == 3 and vc.launches == launches
+    for a, b in zip(out, first):
+        assert torch.equal(a, b)
+    for dst, src in zip(batch, other):
+        dst.copy_(src[:dst.shape[0]])
+    graph.replay()
+    want = voxel_downsample(batch, leaf, capacity=cap)
+    for a, b in zip(out, want):
+        assert torch.equal(a, b)
+
+
+def test_voxel_runs_equal_the_voxel_filter_spans(cuda, spans_on):
+    """On the frame program (source, input, commit and rebuild filters,
+    the rebuild under the SWITCH node), the kernel runs once in every
+    ``voxel filter`` span, as many times as the program's summary counts
+    (each launch's ``filters``, a rebuild body's once a rebuild: what
+    `chip_smoke.graph_row` expects), and nothing launches it from
+    Python."""
+    from chip_smoke import on_device, simulate
+    from loam_livox_tpu_torch.ops import voxel_centroid as vc
+    from loam_livox_tpu_torch.runtime.pipeline import OdometryPipeline
+
+    cfg = SlamConfig().replace(mapping={"init_accumulate_frames": 2},
+                               capacity={"auto_schedule": 0})
+    _, host = simulate(8, 10000, 2)
+    frames = on_device(host, cfg.capacity.max_raw_points, cuda)
+    pipe = OdometryPipeline(cfg, device=cuda)
+    pipe.process_raw(*frames[0][:3], mask=frames[0][3])      # the capture, and frame 0
+    torch.cuda.synchronize()
+
+    def counted():
+        keys = pipe.program.summary()
+        return (sum(k["launches"] * k["filters"] for k in keys)
+                + pipe.program.rebuilds() * max(k["rebuild_filters"] for k in keys))
+
+    before = counted()
+    spans_on.reset()
+    vc.runs.reset()
+    launches = vc.launches
+    for pts, inten, t0, mask in frames[1:]:
+        pipe.process_raw(pts, inten, t0, mask=mask)
+    pipe.flush()
+    torch.cuda.synchronize()
+    rec = spans_on.read(cuda)
+    filters = sum(1 for s in rec.spans if s.name == "voxel filter")
+    assert rec.complete and filters > 0
+    assert vc.runs.read() == filters == counted() - before and vc.launches == launches
+    assert pipe.program.rebuilds() > 0
 
 
 def test_launch_shape(cuda):
