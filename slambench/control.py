@@ -1,8 +1,10 @@
 """The readings that the check's limits are set from, at a cell's own
 size on the card: for each seed, one run of the cell (the program's
 numbers, the lower readings) and its control judged on the same kept
-states (the reference with TF32 matrix products in the program's
-place, the upper readings).  The benchmark's runs never run it.
+states by the same check, `check.judge` or the one the configuration
+names (``checks/<name>.py``): the reference with TF32 matrix products in
+the program's place, the upper readings.  The benchmark's runs never
+run it.
 
     python3 slambench/control.py --workload mid40_replay --seeds 1,2,3 --seconds 30
 

@@ -24,12 +24,31 @@ a fixed amount of work, ``--seconds`` long or capped by it:
   completes, timed on the card from an event recorded at the window's
   open (no host thread's wake-up in the reading).
 
+A replay window closes after the program's background work too: where
+the pipeline has a loop service, the window waits for it to drain (its
+queued keyframes processed) before the closing synchronise, so a
+recorded survey is mapped when its loop closure is done.  The drain
+covers the keyframes of frames already dispatched: a configuration that
+buffers raw frames into chunks or racing groups may hold a partial one
+at the close, which reaches the service only in the pipeline's flush,
+after the window.  A live window
+keeps its close at the synchronise after its last frame: its metric is
+each frame's staleness, and work left after the last due frame is no
+frame's latency.
+
 With ``--trace 1`` the program's span recorder
 (``loam_livox_tpu_torch.utils.logging.spans``) records the whole window,
 read once after it closes, and a slice of the window runs under
-``torch.profiler`` (`trace`).  After the window the program's outputs
-are judged against the plain reference (`check`), and one JSON line is
-printed last.
+``torch.profiler`` (`trace`): ``trace_frames`` frames from the
+traffic's ``trace_after_frames``, counted back from the window's end
+where that is negative (a live window's last frames, so that no frame
+after the slice waits on the profiler's close).  At the window's close the harness also
+keeps what the program's outputs say (`Records.outputs`: the loop
+service's counts, the frame program's captures), for metrics to read.
+After the window the program's outputs are judged against the plain
+reference (`check`), or by the configuration's own check where its file
+names one (``"check": "<name>"``: ``checks/<name>.py``, `load_check`),
+and one JSON line is printed last.
 """
 from __future__ import annotations
 
@@ -101,14 +120,31 @@ def metrics_of(manifest: dict, cell: str, trace: bool) -> List[dict]:
             if cell in m.get("workloads", [cell]) and m["moves"] in names]
 
 
-def load_reader(name: str, bench: Path = HERE):
-    """``read(rec)`` of ``metrics/<name>.py``."""
-    path = bench / "metrics" / f"{name}.py"
-    spec = importlib.util.spec_from_file_location(f"slambench_metric_{len(name)}_{abs(hash(name))}",
+def _load_module(sub: str, name: str, bench: Path):
+    """The module ``<sub>/<name>.py`` of the bench, loaded from its file."""
+    path = bench / sub / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"slambench_{sub}_{len(name)}_{abs(hash(name))}",
                                                   path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.read
+    return mod
+
+
+def load_reader(name: str, bench: Path = HERE):
+    """``read(rec)`` of ``metrics/<name>.py``."""
+    return _load_module("metrics", name, bench).read
+
+
+def load_check(name: str, bench: Path = HERE):
+    """The check module ``checks/<name>.py`` that a configuration names
+    (``"check": "<name>"``).  It provides ``judge(cfg_doc, frames, dev,
+    rows, per_frame, start, snaps, n_frames_run, kept, control=None) ->
+    (checks, window_gaps)``, as `check.judge` with ``kept``; it may
+    provide ``to_reference_state(state)`` (applied to every kept state in
+    place of `check.to_reference_state`) and ``keep(pipe)`` (called after
+    the pipeline's flush, before the program is freed: what it returns
+    owns its memory and reaches ``judge`` as ``kept``)."""
+    return _load_module("checks", name, bench)
 
 
 # ---- what a run records ---------------------------------------------------
@@ -128,6 +164,7 @@ class Records:
     knn_runs: int = 0                  # knn_fused runs counted on the card
     trace: Optional[object] = None     # `trace.TraceSlice` of a traced run
     spans: Optional[object] = None     # a traced run's device spans (the recorder's `Recorded`)
+    outputs: Dict[str, object] = field(default_factory=dict)  # `program_outputs` at the close
 
 
 @dataclass
@@ -156,6 +193,7 @@ class Program:
         self.cfg = SlamConfig().replace(**slam)
         self.pipe = OdometryPipeline(self.cfg, device=device)
         self.n_heads = n_heads
+        self.drain_s: Optional[float] = None   # `drain_background`'s seconds
 
     def frame(self, xyz, inten, mask, t0: float, keep_features: bool = False):
         """One raw frame: ``xyz`` (S, C, 3), ``inten`` and ``mask`` (S, C)
@@ -189,6 +227,20 @@ class Program:
 
         return steps_per_frame(self.cfg)
 
+    def drain_background(self) -> bool:
+        """Wait until the loop service has processed every queued keyframe
+        (`LoopCloser.drain`, the call `OdometryPipeline.flush` makes), the
+        seconds kept in ``drain_s``; False, at once, without a service.
+        A partial chunk or racing group still buffered is not dispatched
+        here (`flush` does that): its keyframe is not waited for."""
+        closer = self.pipe.loop_closer
+        if closer is None:
+            return False
+        t0 = time.perf_counter()
+        closer.drain()
+        self.drain_s = time.perf_counter() - t0
+        return True
+
 
 def recorder():
     """The program's span recorder."""
@@ -213,6 +265,30 @@ def read_counters(rec: Records) -> None:
     rec.syncs = host_syncs()
     rec.graphs = graph_counts()
     rec.knn_runs = knn_fused.runs.read()
+
+
+def program_outputs(prog: Program) -> Dict[str, object]:
+    """What the program's outputs say at the window's close (host copies):
+    ``"loop_service"`` where the pipeline has one (its ``counts`` by
+    place, the keyframes processed and still waiting, whether one is in
+    work, those dropped from a full waiting list, whether it closed,
+    whether a loop was accepted, and ``drain_s``, the replay close's wait
+    for it); on the card ``"frame_program"``, `FrameProgram.summary` (a
+    dict a captured key: its kind, launches, ``pass_kernels``, ...)."""
+    pipe = prog.pipe
+    out: Dict[str, object] = {}
+    closer = pipe.loop_closer
+    if closer is not None:
+        result = closer.result
+        out["loop_service"] = {
+            "counts": dict(closer.counts), "keyframes": len(closer.keyframes),
+            "waiting": len(closer.waiting), "busy": closer.busy,
+            "dropped_keyframes": closer.dropped_keyframes, "closed": closer.closed,
+            "accepted": result is not None and result.accepted,
+            "drain_s": prog.drain_s}
+    if pipe.program is not None:
+        out["frame_program"] = pipe.program.summary()
+    return out
 
 
 # ---- the window ---------------------------------------------------------
@@ -327,7 +403,8 @@ def replay_window(prog: Program, frames, first: int, count: int, seconds: float,
                   in_flight: int, dev, spans: HostSpans, sampler: Optional[Sampler],
                   tracer=None):
     """Raw frames ``first`` .. ``first + count - 1`` back to back, at most
-    ``in_flight`` not done; ends with a synchronise after the last.
+    ``in_flight`` not done; ends, once the program's loop service has
+    drained (`Program.drain_background`), with a synchronise after the last.
     ``seconds`` caps the window: the frame dispatched once it has passed
     is the last (the sampler follows it), and the run says so.  The
     sampler's position is the frame's index in the window.  Returns
@@ -352,6 +429,11 @@ def replay_window(prog: Program, frames, first: int, count: int, seconds: float,
         k += 1
     if tracer is not None:
         tracer.at_frame(k, closing=True)
+    t0 = time.perf_counter_ns()
+    if prog.drain_background():
+        spans.add("loop_drain", t0, time.perf_counter_ns())
+        print(f"slambench: the loop service drained {prog.drain_s:.3f} s after the last "
+              f"frame's dispatch", file=sys.stderr)
     _sync(dev)
     seconds_open = time.perf_counter() - t_open
     print(f"slambench: the host waited {waited_ns * 1e-9:.3f} s of the window's "
@@ -411,7 +493,9 @@ def live_window(prog: Program, frames, first: int, seconds: float, rate_hz: floa
     """Frame k of the window handed over at k / ``rate_hz`` after the
     window opens, ``seconds`` × ``rate_hz`` frames, the stream on the
     host (the card idle when it opens).  Each frame's pose is done when
-    an event recorded after it on the card completes (`DeviceClock`).
+    an event recorded after it on the card completes (`DeviceClock`);
+    the window closes with a synchronise after the last frame, not
+    waiting for a loop service (module doc).
     Returns (frames, seconds, latencies ms)."""
     n = int(round(seconds * rate_hz))
     if first + n > frames.xyz.shape[0]:
@@ -457,9 +541,11 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
              limits: Optional[dict] = None, controls: tuple = ()) -> dict:
     """One run of ``cell``; returns the result line's object.  ``device``
     other than "cuda" serves the CPU tests only: nothing is timed there.
-    Each of ``controls`` (`check.judge`'s ``control``) is judged after
-    the run's own check, on the same kept states, its numbers under
-    ``"_controls"`` (the control script; the benchmark's runs pass none)."""
+    Each of ``controls`` (``judge``'s ``control``) is judged after the
+    run's own check, by the same check on the same kept states, its
+    numbers under ``"_controls"`` (the control script; the benchmark's
+    runs pass none).  ``"_outputs"`` holds `Records.outputs` for the
+    tests and probes; `main` prints neither it nor ``"_ate_m"``."""
     import numpy as np
     import torch
 
@@ -467,6 +553,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     from .gen.stream import Site, make_frames
 
     cfg_doc = load_config(cell["config"], bench)
+    own = load_check(cfg_doc["check"], bench) if "check" in cfg_doc else None
+    to_reference_state = getattr(own, "to_reference_state", check.to_reference_state)
+    keep = getattr(own, "keep", None)
     traffic = load_traffic(cell["traffic"], bench)
     mode = traffic["mode"]
     site = Site.from_dict(cfg_doc["site"])
@@ -532,8 +621,10 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     if trace:
         from .trace import Tracer
 
-        tracer = Tracer(spans, int(traffic.get("trace_after_frames", 30)),
-                        int(traffic.get("trace_frames", 8)))
+        after = int(traffic.get("trace_after_frames", 30))
+        if after < 0:       # counted back from the window's end
+            after = max(0, n_window + after)
+        tracer = Tracer(spans, after, int(traffic.get("trace_frames", 8)))
     if mode == "replay":
         rec.frames, rec.seconds, rec.capped = replay_window(
             prog, stream, warmup, n_window, seconds, int(traffic["in_flight"]), dev, spans,
@@ -543,6 +634,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
             prog, stream, warmup, seconds, float(traffic["rate_hz"]), dev, spans, sampler,
             tracer)
     read_counters(rec)
+    rec.outputs = program_outputs(prog)
     peak = torch.cuda.max_memory_allocated(dev) if on_card else 0
     if tracer is not None:
         rec.trace = tracer.result()
@@ -560,6 +652,7 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
 
     # the program's outputs; then the program is freed
     prog.pipe.flush()
+    kept = keep(prog.pipe) if keep is not None else None
     print(f"slambench: schedule ladder {prog.pipe.ladder}, window syncs {rec.syncs}, "
           f"graphs {rec.graphs}, knn runs {rec.knn_runs}", file=sys.stderr)
     traj = prog.pipe.trajectory
@@ -570,8 +663,8 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     per_frame = prog.rows_per_frame()
     snaps = sampler.all()
     for s in snaps:
-        s.pre, s.post = check.to_reference_state(s.pre), check.to_reference_state(s.post)
-    start.post = check.to_reference_state(start.post)
+        s.pre, s.post = to_reference_state(s.pre), to_reference_state(s.post)
+    start.post = to_reference_state(start.post)
     n_frames_run = warmup + rec.frames
     if frames is None:
         frames = host_stream
@@ -581,10 +674,15 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
         torch.cuda.empty_cache()
 
     # the check
+    def judge(control=None):
+        args = (cfg_doc, frames, dev, rows, per_frame, start, snaps, n_frames_run)
+        if own is None:
+            return check.judge(*args, control=control)
+        return own.judge(*args, kept, control=control)
+
     ate = check.window_ate(site, rows, warmup * per_frame)
     t_check = time.perf_counter()
-    checks, window_gaps = check.judge(cfg_doc, frames, dev, rows, per_frame, start, snaps,
-                                      n_frames_run)
+    checks, window_gaps = judge()
     print(f"slambench: window {rec.frames} frames in {rec.seconds:.3f} s; the check took "
           f"{time.perf_counter() - t_check:.1f} s over {len(snaps)} window frames",
           file=sys.stderr)
@@ -620,10 +718,9 @@ def run_cell(cell: dict, seed: int, seconds: float, trace: bool, t_start: float,
     result["checks"] = {k: {"value": v if math.isfinite(v) else 1e30, "limit": limits.get(k)}
                         for k, v in checks.items()}
     result["_ate_m"] = ate
+    result["_outputs"] = rec.outputs
     if controls:
-        result["_controls"] = {c: check.judge(cfg_doc, frames, dev, rows, per_frame, start,
-                                              snaps, n_frames_run, control=c)[0]
-                               for c in controls}
+        result["_controls"] = {c: judge(control=c)[0] for c in controls}
     return result
 
 
@@ -666,6 +763,7 @@ def main(argv=None, t_start: Optional[float] = None) -> int:
               file=sys.stderr)
         return 3
     print(f"slambench: window ATE (aligned, m) {result.pop('_ate_m')}", file=sys.stderr)
+    result.pop("_outputs")
     for name, c in result["checks"].items():
         print(f"check {name} = {c['value']!r} limit {c['limit']!r}", file=sys.stderr)
     sys.stdout.flush()

@@ -1,5 +1,5 @@
 """latency_ms_p50: the median of the live window's per-frame latencies
-(latency_ms_p95's samples)."""
+(`latency_ms_mean`'s samples)."""
 import numpy as np
 
 

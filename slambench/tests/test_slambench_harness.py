@@ -66,19 +66,26 @@ def test_stream_repeats_a_seed_and_redraws_the_noise_of_another():
 
 
 def test_manifest_finds_every_file_by_name():
+    """Every cell's configuration, traffic, limits, check (where its
+    configuration names one) and metric readers are there; the first
+    three cells are among them (a later cell is added by files alone)."""
     manifest = harness.load_manifest(ROOT)
     configs = {c["name"]: c for c in manifest["configs"]}
     for cell in manifest["workloads"]:
-        assert harness.load_config(cell["config"])["site"]
+        doc = harness.load_config(cell["config"])
+        assert doc["site"]
         assert harness.load_traffic(cell["traffic"])["mode"] in ("replay", "live")
         assert (ROOT / configs[cell["config"]]["file"]).exists()
-        limits = harness.load_limits(cell["name"])
-        assert {"pose_gap_m", "map_gap_m"} <= set(limits)
+        assert (BENCH / "limits" / f"{cell['name']}.json").exists()
+        if "check" in doc:
+            assert callable(harness.load_check(doc["check"]).judge)
+        else:
+            assert {"pose_gap_m", "map_gap_m"} <= set(harness.load_limits(cell["name"]))
         for trace in (False, True):
             for m in harness.metrics_of(manifest, cell["name"], trace):
                 assert callable(harness.load_reader(m["name"]))
-    assert [c["name"] for c in manifest["workloads"]] == [
-        "mid40_replay", "mid100_replay", "mid40_live"]
+    assert {"mid40_replay", "mid100_replay", "mid40_live"} <= {
+        c["name"] for c in manifest["workloads"]}
 
 
 def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path):
@@ -102,7 +109,7 @@ def test_a_cell_and_a_metric_are_added_by_files_alone(tmp_path):
     manifest["end_to_end"][1]["workloads"].append("tiny_new_live")
     manifest["per_layer"].append({"name": "frames_late", "unit": "count", "better": "lower",
                                   "source": "host_clock", "layer": "pipeline",
-                                  "moves": "latency_ms_p95", "workloads": ["tiny_new_live"]})
+                                  "moves": "latency_ms_mean", "workloads": ["tiny_new_live"]})
     cell = harness.cell_of(manifest, "tiny_new_live")
     out = harness.run_cell(cell, 5, 1.0, True, 0.0, bench=bench, device="cpu",
                            manifest=manifest)
@@ -129,6 +136,7 @@ def test_the_reference_ends_on_a_tiny_stream():
 def test_result_line_keys_and_a_sound_run_is_correct(tmp_path, cell, trace):
     out = _run(tmp_path, cell, trace)
     out.pop("_ate_m")
+    assert out.pop("_outputs") == {}    # no loop service, no frame program on the CPU
     replay = cell.endswith("_replay")
     want = KEYS + (["breakdown"] if trace else []) + (["capped"] if replay else []) + ["checks"]
     assert list(out) == want
@@ -139,11 +147,42 @@ def test_result_line_keys_and_a_sound_run_is_correct(tmp_path, cell, trace):
         assert {"busy_s", "window_s"} <= set(out["device"])
         assert set(out["breakdown"]) == {"device_ops", "idle_gaps"}
     e2e = {"tiny1_replay": "frames_per_s", "tiny3_replay": "frames_per_s",
-           "tiny1_live": "latency_ms_p95"}[cell]
+           "tiny1_live": "latency_ms_mean"}[cell]
     assert (e2e in out["metrics"]) is (not trace)
     for c in out["checks"].values():
         assert c["value"] <= c["limit"]
     assert json.loads(json.dumps(out)) == out
+
+
+def test_the_live_tail_leaves_out_the_profiled_frames(tmp_path, monkeypatch):
+    """``latency_tail_ms_p95`` reads every frame but the profiled slice's;
+    a negative ``trace_after_frames`` puts the slice at the window's end."""
+    import slambench.trace as T
+
+    reader = harness.load_reader("latency_tail_ms_p95")
+    rec = harness.Records(mode="live", setup_s=0.0, latencies_ms=[10.0] * 90 + [500.0] * 10)
+    assert reader(rec) == pytest.approx(500.0)
+    rec.trace = SimpleNamespace(frames=(90, 100))
+    assert reader(rec) == pytest.approx(10.0)
+
+    made = []
+
+    class Spy(T.Tracer):
+        def __init__(self, *args):
+            super().__init__(*args)
+            made.append(self)
+
+    monkeypatch.setattr(T, "Tracer", Spy)
+    bench, manifest = make_bench(tmp_path)
+    path = bench / "traffic" / "live.json"
+    traffic = dict(json.loads(path.read_text()), trace_after_frames=-2)
+    path.write_text(json.dumps(traffic))
+    seconds = 1.0
+    out = harness.run_cell(harness.cell_of(manifest, "tiny1_live"), 2 ** 31 + 5, seconds, True,
+                           0.0, bench=bench, device="cpu", manifest=manifest)
+    n = int(round(seconds * traffic["rate_hz"]))
+    assert (made[0].k0, made[0].k1) == (n - 2, n)
+    assert out["correct"] and "latency_tail_ms_p95" in out["metrics"]
 
 
 def test_trace_reduction_unites_intervals_and_labels_gaps():
@@ -179,6 +218,9 @@ class _Stub:
 
     def scale(self):
         return 1
+
+    def drain_background(self):
+        return False
 
 
 def _stream(n):

@@ -1,6 +1,7 @@
 """A CPU-sized bench directory for the tests: a small configuration of
 one head or three, replay and live traffic, the bench's own metric
-readers, and a manifest over them."""
+readers and checks, and a manifest over them; and a loop-closure cell
+added to it by new files alone (`add_loop_cell`)."""
 from __future__ import annotations
 
 import json
@@ -8,6 +9,8 @@ import shutil
 from pathlib import Path
 
 BENCH = Path(__file__).resolve().parent.parent
+#: the loop-closure cell's check (``loop_odometry``) and metric (``loop_keyframes``)
+LOOP_FILES = Path(__file__).resolve().parent / "loop"
 #: the tiny recording's frames after the warm-up
 REPLAY_FRAMES = 6
 
@@ -38,6 +41,10 @@ def make_bench(tmp: Path) -> tuple[Path, dict]:
     for sub in ("configs", "traffic", "limits"):
         (bench / sub).mkdir(parents=True, exist_ok=True)
     shutil.copytree(BENCH / "metrics", bench / "metrics")
+    if (BENCH / "checks").is_dir():
+        shutil.copytree(BENCH / "checks", bench / "checks")
+    else:
+        (bench / "checks").mkdir()
     for heads in (1, 3):
         (bench / "configs" / f"tiny{heads}.json").write_text(json.dumps(tiny_config(heads)))
     common = {"warmup_frames": 6, "start_registered": 2, "check_samples": 2,
@@ -60,3 +67,46 @@ def make_bench(tmp: Path) -> tuple[Path, dict]:
         (bench / "limits" / f"{n}.json").write_text(json.dumps(limits))
     (Path(tmp) / "BENCHMARK.json").write_text(json.dumps(manifest))
     return bench, manifest
+
+
+def loop_config(async_service: bool = False) -> dict:
+    """One head with loop closure on, at the CPU sizes of the port's
+    ``loop_closure`` scenario (``eval/scenarios.py``, ``small``), its
+    keyframes cut to the tiny stream (4 frames every 2), on a
+    trajectory whose axes and yaw return to the start; its check is
+    ``loop_odometry``."""
+    cfg = tiny_config(1)
+    cfg.update(name="tiny_loop", check="loop_odometry")
+    cfg["slam"]["common"] = {"if_motion_deblur": 0, "piecewise_number": 1,
+                             "threshold_cell_revisit": 50}
+    cfg["slam"]["loop_closure"] = {
+        "if_enable_loop_closure": 1, "if_loop_service_async": int(async_service),
+        "scans_of_each_keyframe": 4, "scans_between_two_keyframe": 2,
+        "minimum_keyframe_differen": 2, "avail_ratio_plane": 0.005, "avail_ratio_line": 0.0}
+    cfg["site"].update(points_per_head=3072, trajectory={
+        "lin_hz": [0.05, 0.05, 0.05], "yaw_hz": 0.05, "pitch_hz": 0.05})
+    return cfg
+
+
+def add_loop_cell(bench: Path, manifest: dict, async_service: bool = False) -> dict:
+    """Add the cell ``tiny_loop_replay`` (`loop_config` under replay
+    traffic) by new files and manifest entries alone: the configuration,
+    its check, its limits, and the per-layer metric ``loop_keyframes``
+    (read from the loop service's outputs).  Returns the cell."""
+    name = "tiny_loop_replay"
+    (bench / "configs" / "tiny_loop.json").write_text(json.dumps(loop_config(async_service)))
+    shutil.copy(LOOP_FILES / "loop_odometry.py", bench / "checks" / "loop_odometry.py")
+    shutil.copy(LOOP_FILES / "loop_keyframes.py", bench / "metrics" / "loop_keyframes.py")
+    (bench / "limits" / f"{name}.json").write_text(json.dumps(
+        {"pose_gap_m": 0.0, "map_gap_m": 0.0, "touched_unadmitted": 0.0, "keyframes_short": 0.0}))
+    cell = {"name": name, "config": "tiny_loop", "traffic": "replay", "chips": 1,
+            "why": "test"}
+    manifest["workloads"].append(cell)
+    for m in manifest["end_to_end"]:
+        if m["name"] == "frames_per_s":
+            m["workloads"].append(name)
+    manifest["per_layer"].append({
+        "name": "loop_keyframes", "unit": "count", "better": "higher",
+        "source": "program_counter", "layer": "loop service", "moves": "frames_per_s",
+        "workloads": [name]})
+    return cell

@@ -13,7 +13,8 @@ covers is reported as one operation, `UNTRACED`.
 
 The slice opens ``after`` frames into the window, after a synchronise,
 and closes ``count`` frames later (or when the window closes) after
-another.
+another.  It keeps which window frames it covered (`TraceSlice.frames`):
+their latencies carry the profiler's cost.
 """
 from __future__ import annotations
 
@@ -34,6 +35,7 @@ class TraceSlice:
     window_s: float                # the slice's length
     op_s: Dict[str, float] = field(default_factory=dict)   # operation name -> seconds
     gaps: List[Tuple[str, float]] = field(default_factory=list)  # longest idle gaps
+    frames: Tuple[int, int] = (0, 0)   # the window frames it covered, first and past the last
 
     def breakdown(self) -> dict:
         ops = sorted(self.op_s.items(), key=lambda kv: -kv[1])[:10]
@@ -201,6 +203,7 @@ class Tracer:
             self.spans.on = True
             return
         if closing or k >= self.k0 + self.count:
+            self.k1 = k
             _sync()
             with torch.profiler.record_function("slambench.slice_close"):
                 pass
@@ -221,4 +224,4 @@ class Tracer:
         busy_s, op_s, gaps = reduce_events(_device_events(self.prof), open_ns, close_ns,
                                            self.spans.spans, offset, launches)
         return TraceSlice(busy_s=busy_s, window_s=(close_ns - open_ns) * 1e-9,
-                          op_s=op_s, gaps=gaps)
+                          op_s=op_s, gaps=gaps, frames=(self.k0, self.k1))
